@@ -1,0 +1,72 @@
+"""Rules of the port package: it never imports JAX or the JAX package,
+its entry points default to CUDA and refuse to run without a card, and
+`chip_smoke.py` fails loudly where there is no card."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "wittgenstein_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "wittgenstein_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(str(p.relative_to(ROOT)), name) for p in files
+           for name in _imports(p)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_default_device_refuses_without_card(monkeypatch):
+    from wittgenstein_tpu_torch.core.state import resolve_device
+    from wittgenstein_tpu_torch.models.handel import Handel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Handel(node_count=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """A directory holding chip_smoke.py and nothing else of the repo."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

@@ -1,0 +1,49 @@
+"""Protocol contract helpers — the port of
+`wittgenstein_tpu/core/protocol.py`.
+
+A protocol holds `cfg` (EngineConfig), `latency` (a latency model) and
+its parameters; ``init(seed) -> (NetState, pstate)`` builds the state
+and ``step(pstate, nodes, inbox, t) -> (pstate, nodes, outbox)`` is the
+per-ms transition for all nodes at once.  The JAX contract also passes
+a `jax.random` key; no ported protocol reads it, so the port drops it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+FAR_FUTURE = 1 << 30
+
+
+def next_tick(t, phase, period):
+    """Earliest ``u >= max(t, phase)`` on the ``phase + k*period`` grid
+    (wittgenstein_tpu/core/protocol.py:45-53)."""
+    period = torch.as_tensor(period, dtype=torch.int32).clamp_min(1)
+    base = torch.maximum(torch.as_tensor(t, dtype=torch.int32),
+                         torch.as_tensor(phase, dtype=torch.int32))
+    return base + (phase - base) % period
+
+
+def masked_min(values, mask):
+    """Min of `values` where `mask`, else FAR_FUTURE
+    (wittgenstein_tpu/core/protocol.py:56-59)."""
+    far = torch.full_like(values, FAR_FUTURE, dtype=torch.int32)
+    return torch.where(mask, values, far).min().to(torch.int32)
+
+
+PROTOCOLS: dict[str, type] = {}
+
+
+def register(cls):
+    """Class decorator: adds the protocol to the name registry
+    (wittgenstein_tpu/core/protocol.py:65-68)."""
+    PROTOCOLS[cls.__name__] = cls
+    return cls
+
+
+def get_protocol(name: str):
+    """wittgenstein_tpu/core/protocol.py:71-75."""
+    if name not in PROTOCOLS:
+        raise KeyError(
+            f"unknown protocol {name!r}; known: {sorted(PROTOCOLS)}")
+    return PROTOCOLS[name]
