@@ -156,12 +156,13 @@ def route_case(dev, rng):
     count = rng.integers(0, 4, (r, hz, n))
     count[:, :8] = c                                    # full rows
     count = torch.tensor(count, dtype=torch.int32, device=dev)
-    h = rng.integers(0, hz, m)
+    arrival = rng.integers(0, hz, m) + 3 * hz           # rows wrap
     dest = rng.integers(0, n, m)
     hot = rng.random(m) < 0.05                          # overflowing cells
-    h[hot], dest[hot] = 100, rng.integers(0, 4, hot.sum())
+    arrival[hot], dest[hot] = 100, rng.integers(0, 4, hot.sum())
     msg = [torch.tensor(a[None], dtype=torch.int32, device=dev)
-           for a in (h, dest, rng.integers(0, n, m), rng.integers(1, 300, m))]
+           for a in (arrival, dest, rng.integers(0, n, m),
+                     rng.integers(1, 300, m))]
     payload = torch.tensor(rng.integers(0, 1 << 20, (r, m, f)),
                            dtype=torch.int32, device=dev)
     valid = torch.tensor((rng.random(m) < 0.7)[None], device=dev)
@@ -169,18 +170,20 @@ def route_case(dev, rng):
 
 
 def route_bytes(ring, msg, count_after):
-    """Least bytes: every message word read once, the touched count
-    cells read and written, the accepted messages' ring cells written,
-    the drop counter written."""
+    """Least bytes this batch needs: `valid` (bool) of every message,
+    the arrival and dest of the valid ones, F + 2 words read and F + 2
+    written per accepted message, the touched count cells read and
+    written, the drop counter written."""
     import torch
     data = ring[0]
     r, f = data.shape[:2]
-    hrow, dest, _, _, _, valid = msg
-    m = hrow.shape[1]
+    hz, n = data.shape[2], data.shape[3]
+    arrival, dest, _, _, _, valid = msg
     v = valid[0]
-    cells = torch.unique(hrow[0][v].long() * data.shape[3] + dest[0][v])
+    cells = torch.unique((arrival[0][v].long() % hz) * n + dest[0][v])
     accepted = int((count_after - ring[3]).sum())
-    return 4 * (m * (5 + f) + 2 * cells.numel() + accepted * (f + 2) + r)
+    return (valid.numel() * valid.element_size() + 8 * int(v.sum()) +
+            4 * (2 * accepted * (f + 2) + 2 * cells.numel() + r))
 
 
 def phase_route(dev, rng):
@@ -252,6 +255,17 @@ def merge_case(dev, rng):
             bits(m, s, w)]
 
 
+def merge_bytes(args):
+    """Least bytes: every queue and inbox column read once, the Q sig
+    rows kept per node read (of its Q + S candidates' rows), the new
+    columns and sig plane written, the eviction count written."""
+    q_sig = args[4]
+    cols_in = sum(t.numel() * t.element_size()
+                  for i, t in enumerate(args) if i not in (4, 9))
+    cols_out = sum(t.numel() * t.element_size() for t in args[:4])
+    return cols_in + cols_out + 2 * q_sig.numel() * q_sig.element_size() + 4
+
+
 def phase_merge(dev, rng):
     import torch
     from wittgenstein_tpu_torch.ops.merge import merge_queue, \
@@ -263,10 +277,7 @@ def phase_merge(dev, rng):
     err = max_abs_err(plain, kern)
     if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
         fail(f"merge kernel differs from its plain version (max err {err})")
-    m, q = args[0].shape
-    s, w = args[5].shape[1], args[4].shape[2]
-    nbytes = 4 * (4 * m * q + m * q * w + 4 * m * s + m * s * w +
-                  4 * m * q + m * q * w + m)
+    nbytes = merge_bytes(args)
     return dict(err=err, ms=device_ms(lambda: merge_queue(*args),
                                       "merge_kernel"),
                 plain_ms=device_ms(lambda: merge_queue_plain(*args)),

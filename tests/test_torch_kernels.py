@@ -168,8 +168,11 @@ def _ring(rng, r, f, hz, n, c, fill):
     return data, src, size, count
 
 
-def _route_vs_pallas(ring, h, dest, msrc, msize, payload, valid):
-    """One seed (R = 1): the JAX kernel on flat planes vs the port."""
+def _route_vs_pallas(ring, h, dest, msrc, msize, payload, valid,
+                     wrap=0):
+    """One seed (R = 1): the JAX kernel on flat planes vs the port.  The
+    JAX launcher takes the ring row ``h``; the port takes the arrival ms
+    and reduces it itself, so it gets ``h + wrap * H``."""
     import jax.numpy as jnp
 
     from wittgenstein_tpu.ops.pallas_route import bin_into_ring_planes
@@ -184,7 +187,8 @@ def _route_vs_pallas(ring, h, dest, msrc, msize, payload, valid):
         horizon=hz, cap=c, n=n, split=1, payload_words=f, interpret=True)
     t = [torch.tensor(a) for a in ring]
     dropped = route.bin_into_ring(
-        *t, *[torch.tensor(a)[None] for a in (h, dest, msrc, msize)],
+        *t, torch.tensor(h + wrap * hz)[None],
+        *[torch.tensor(a)[None] for a in (dest, msrc, msize)],
         torch.tensor(payload)[None], torch.tensor(valid)[None])
     for i in range(f):
         _eq(ref[0][i], t[0][0, i].reshape(-1), f"data plane {i}")
@@ -215,6 +219,16 @@ def test_route_random(m):
     drops = _route_vs_pallas(ring, *_messages(rng, m, n, hz, f, 5))
     if m == 600:
         assert drops > 0
+
+
+def test_route_arrival_past_the_ring():
+    """Arrivals several horizons ahead land in row arrival % H, as the
+    JAX launcher's reduced rows do."""
+    rng = np.random.default_rng(5)
+    hz, n, c, f = 16, 16, 3, 2
+    ring = _ring(rng, 1, f, hz, n, c, fill=1)
+    assert _route_vs_pallas(ring, *_messages(rng, 300, n, hz, f, 6),
+                            wrap=7) > 0
 
 
 def test_route_full_cell_drop_order():
@@ -271,6 +285,7 @@ def test_cuda_route_matches_plain():
     ring = _ring(rng, 2, f, hz, n, c, fill=1)
     msg = [np.stack([a, b]) for a, b in zip(
         _messages(rng, m, n, hz, f, n), _messages(rng, m, n, hz, f, 40))]
+    msg[0][1] += 5 * hz                 # arrivals past the ring wrap
     plain = [torch.tensor(a) for a in ring]
     kern = [torch.tensor(a, device=dev) for a in ring]
     dp = route.bin_into_ring(*plain, *[torch.tensor(a) for a in msg])

@@ -81,10 +81,8 @@ def _bin_into_ring(cfg: EngineConfig, net: NetState, t: int, src, dest,
     ``(net, n_dropped)``."""
     dropped = bin_into_ring(
         net.box_data[None], net.box_src[None], net.box_size[None],
-        net.box_count[None], (arrival % cfg.horizon)[None].contiguous(),
-        dest[None].contiguous(), src[None].contiguous(),
-        size[None].contiguous(), payload[None].contiguous(),
-        valid[None].contiguous())
+        net.box_count[None], arrival[None], dest[None], src[None],
+        size[None], payload[None], valid[None])
     return net, dropped[0]
 
 

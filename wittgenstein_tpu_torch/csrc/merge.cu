@@ -10,13 +10,18 @@
 // key rank * (C + 1) + position and invalid ones BIG0 + position, so
 // every key of a row is unique; the Q smallest keys are kept in
 // ascending order and every column (from, lvl, rank, bad, the W-word sig
-// row) is gathered through that order.  evicted[m] counts the queued
-// entries that survived superseding but were pushed out.
+// row) is gathered through that order.  *evicted gains, per row, the
+// queued entries that survived superseding but were pushed out (an
+// integer atomicAdd, so the sum does not depend on block order).  The
+// bool columns (bad, ok) are read and written as the bytes of torch's
+// bool tensors.
 //
-// What bounds it on an H100: memory.  It reads the [M, Q, W] queue sig
-// plane and the [M, S, W] incoming rows once and writes the new [M, Q, W]
-// plane (about 23 MB at 2048 nodes, Q 16, S 12, W 64: ~7 us at
-// 3.35 TB/s); the key work is C^2 = 784 integer compares per row.
+// What bounds it on an H100: memory.  It must read the small columns
+// once, the Q sig rows it keeps per node (of the C candidates' rows) and
+// write the new [M, Q, W] plane: at 2048 nodes, Q 16, S 12, W 64 that is
+// 2 x 8.39 MB of sig words plus 1.17 MB of columns, about 17.95 MB or
+// ~5.4 us at 3.35 TB/s (chip_smoke.py's bound).  The key work is
+// C^2 = 784 integer compares per row.
 //
 // Design: since every key is unique, a candidate's output position is
 // the number of smaller keys in its row, so one thread per candidate
@@ -35,12 +40,14 @@ constexpr int BIG0 = 0x7FFFFF00;
 
 __global__ void __launch_bounds__(THREADS)
 merge_kernel(const int* __restrict__ q_from, const int* __restrict__ q_lvl,
-             const int* __restrict__ q_rank, const int* __restrict__ q_bad,
+             const int* __restrict__ q_rank,
+             const unsigned char* __restrict__ q_bad,
              const int* __restrict__ q_sig, const int* __restrict__ src,
              const int* __restrict__ level, const int* __restrict__ rank,
-             const int* __restrict__ ok, const int* __restrict__ sig_all,
-             int* __restrict__ o_from, int* __restrict__ o_lvl,
-             int* __restrict__ o_rank, int* __restrict__ o_bad,
+             const unsigned char* __restrict__ ok,
+             const int* __restrict__ sig_all, int* __restrict__ o_from,
+             int* __restrict__ o_lvl, int* __restrict__ o_rank,
+             unsigned char* __restrict__ o_bad,
              int* __restrict__ o_sig, int* __restrict__ o_evicted, int Q,
              int S, int W) {
   __shared__ int u_from[THREADS], u_lvl[THREADS], u_rank[THREADS];
@@ -53,7 +60,7 @@ merge_kernel(const int* __restrict__ q_from, const int* __restrict__ q_lvl,
     u_from[t] = q_from[m * Q + t];
     u_lvl[t] = q_lvl[m * Q + t];
     u_rank[t] = q_rank[m * Q + t];
-    u_bad[t] = q_bad[m * Q + t];
+    u_bad[t] = q_bad[m * Q + t] != 0;
   } else if (t < C) {
     const int s = t - Q;
     u_from[t] = src[m * S + s];
@@ -104,12 +111,12 @@ merge_kernel(const int* __restrict__ q_from, const int* __restrict__ q_lvl,
       o_from[m * Q + pos] = u_from[t];
       o_lvl[m * Q + pos] = u_lvl[t];
       o_rank[m * Q + pos] = u_rank[t];
-      o_bad[m * Q + pos] = u_bad[t];
+      o_bad[m * Q + pos] = (unsigned char)u_bad[t];
     }
   }
   const int kept = __syncthreads_count(t < Q && u_from[t] >= 0 && pos < Q);
   const int n_keep = __syncthreads_count(t < Q && ex_keep[t]);
-  if (t == 0) o_evicted[m] = n_keep - kept;
+  if (t == 0 && n_keep != kept) atomicAdd(o_evicted, n_keep - kept);
 
   // Gather the kept sig rows, coalesced along W.
   for (int e = t; e < Q * W; e += THREADS) {
@@ -123,10 +130,11 @@ merge_kernel(const int* __restrict__ q_from, const int* __restrict__ q_lvl,
 }  // namespace
 
 extern "C" int wtpu_merge(const int* q_from, const int* q_lvl,
-                          const int* q_rank, const int* q_bad,
+                          const int* q_rank, const unsigned char* q_bad,
                           const int* q_sig, const int* src, const int* level,
-                          const int* rank, const int* ok, const int* sig_all,
-                          int* o_from, int* o_lvl, int* o_rank, int* o_bad,
+                          const int* rank, const unsigned char* ok,
+                          const int* sig_all, int* o_from, int* o_lvl,
+                          int* o_rank, unsigned char* o_bad,
                           int* o_sig, int* o_evicted, int M, int Q, int S,
                           int W, void* stream) {
   if (M == 0) return 0;

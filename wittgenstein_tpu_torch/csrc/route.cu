@@ -4,19 +4,22 @@
 // Replaces: wittgenstein_tpu/ops/pallas_route.py, `_make_kernel` (the
 // Pallas kernel launched by `_route_call` from `bin_into_ring_planes`).
 //
-// Function: a message's rank is its place, in INPUT order, among the
-// batch's valid messages with the same (row, dest); its slot is
-// count[row, dest] + rank and it is accepted iff slot < C.  Dropped
-// messages still take up rank.  Accepted messages write their payload,
-// src and size cells; count advances by accepted messages only; the
-// kernel adds its drops to dropped[r].
+// Function: a message goes to ring row arrival mod H.  Its rank is its
+// place, in INPUT order, among the batch's valid messages with the same
+// (row, dest); its slot is count[row, dest] + rank and it is accepted iff
+// slot < C.  Dropped messages still take up rank.  Accepted messages
+// write their payload, src and size cells; count advances by accepted
+// messages only; the kernel adds its drops to dropped[r].  `valid` is
+// read as the bytes of a torch bool tensor.
 //
 // What bounds it on an H100: memory.  The work is a few integer ops per
-// message; the bytes are the message vectors, the touched count cells and
-// the accepted ring cells (about 6 MB at 2048 nodes x 21 sends, i.e.
-// ~2 us at 3.35 TB/s).  What makes it hard is that the rank is stable
-// input order while blocks run in no order: a slot taken from the order
-// of atomics would differ from run to run.
+// message; the bytes it must move are a byte of `valid` per message, the
+// arrival and dest of each valid one, F + 2 words read and written per
+// accepted message and the touched count cells read and written: about
+// 1.62 MB, ~0.48 us at 3.35 TB/s, for chip_smoke.py's route case at 2048
+// nodes x 21 sends.  What makes it hard is that the rank is stable input
+// order while blocks run in no order: a slot taken from the order of
+// atomics would differ from run to run.
 //
 // Design: the grid is (destination block, seed).  Each block owns DBLK
 // destinations, keeps their [H, DBLK] running member counts in shared
@@ -39,8 +42,10 @@ constexpr int DBLK = 16;        // destinations per block
 constexpr int THREADS = 1024;   // messages per tile
 
 __global__ void __launch_bounds__(THREADS)
-route_kernel(const int* __restrict__ hrow, const int* __restrict__ dest,
-             const int* __restrict__ valid, const int* __restrict__ msrc,
+route_kernel(const int* __restrict__ arrival,
+             const int* __restrict__ dest,
+             const unsigned char* __restrict__ valid,
+             const int* __restrict__ msrc,
              const int* __restrict__ msize, const int* __restrict__ pay,
              int* __restrict__ data, int* __restrict__ src,
              int* __restrict__ size, int* __restrict__ count,
@@ -73,7 +78,8 @@ route_kernel(const int* __restrict__ hrow, const int* __restrict__ dest,
       const int dd = dest[mo + i] - d0;
       if (dd >= 0 && dd < nd) {
         mem = true;
-        key = hrow[mo + i] * DBLK + dd;
+        const int row = arrival[mo + i] % H;
+        key = (row < 0 ? row + H : row) * DBLK + dd;
       }
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, mem);
@@ -146,7 +152,8 @@ route_kernel(const int* __restrict__ hrow, const int* __restrict__ dest,
 
 }  // namespace
 
-extern "C" int wtpu_route(const int* h, const int* dest, const int* valid,
+extern "C" int wtpu_route(const int* arrival, const int* dest,
+                          const unsigned char* valid,
                           const int* msrc, const int* msize, const int* pay,
                           int* data, int* src, int* size, int* count,
                           int* dropped, int R, int M, int F, int H, int N,
@@ -161,7 +168,7 @@ extern "C" int wtpu_route(const int* h, const int* dest, const int* valid,
   }
   const dim3 grid((N + DBLK - 1) / DBLK, R);
   route_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      h, dest, valid, msrc, msize, pay, data, src, size, count, dropped, M,
-      F, H, N, C);
+      arrival, dest, valid, msrc, msize, pay, data, src, size, count,
+      dropped, M, F, H, N, C);
   return (int)cudaGetLastError();
 }

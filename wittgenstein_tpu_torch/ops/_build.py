@@ -32,7 +32,7 @@ I = ctypes.c_int
 #: C signature of every kernel entry point: name -> argtypes (each
 #: returns the launch's cudaError_t as an int)
 SIGNATURES = {
-    # h, dest, valid, msrc, msize, payload, data, src, size, count,
+    # arrival, dest, valid, msrc, msize, payload, data, src, size, count,
     # dropped, R, M, F, H, N, C, stream
     "wtpu_route": [P] * 11 + [I] * 6 + [P],
     # q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank, ok, sig_all,

@@ -65,7 +65,9 @@ def merge_queue(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all,
     [M, Q, W] int32 words; incoming columns [M, S] (ok bool), sig_all
     [M, S, W].  Returns (q_from', q_lvl', q_rank', q_bad', q_sig',
     evicted) with evicted an int32 scalar.  The outputs are fresh
-    tensors; the inputs are not modified.  `merge_queue.launches`
+    tensors; the inputs are not modified.  The kernel reads and writes
+    the bool columns as bytes and sums `evicted` itself, so the launch
+    is the only op besides the allocations and one zero fill.  `merge_queue.launches`
     counts kernel launches."""
     _check(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all, ok,
            sig_all)
@@ -77,21 +79,20 @@ def merge_queue(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all,
     m, q = q_from.shape
     s = src.shape[1]
     w = q_sig.shape[-1]
-    bad32, ok32 = q_bad.to(I32), ok.to(I32)
-    o_from, o_lvl, o_rank, o_bad = (torch.empty_like(q_from)
-                                    for _ in range(4))
+    o_from, o_lvl, o_rank = (torch.empty_like(q_from) for _ in range(3))
+    o_bad = torch.empty_like(q_bad)
     o_sig = torch.empty_like(q_sig)
-    o_ev = torch.empty(m, dtype=I32, device=q_from.device)
+    o_ev = torch.zeros((), dtype=I32, device=q_from.device)
     err = _build.lib().wtpu_merge(
         q_from.data_ptr(), q_lvl.data_ptr(), q_rank.data_ptr(),
-        bad32.data_ptr(), q_sig.data_ptr(), src.data_ptr(),
-        level.data_ptr(), rank_all.data_ptr(), ok32.data_ptr(),
+        q_bad.data_ptr(), q_sig.data_ptr(), src.data_ptr(),
+        level.data_ptr(), rank_all.data_ptr(), ok.data_ptr(),
         sig_all.data_ptr(), o_from.data_ptr(), o_lvl.data_ptr(),
         o_rank.data_ptr(), o_bad.data_ptr(), o_sig.data_ptr(),
         o_ev.data_ptr(), m, q, s, w, _build.stream_of(q_from))
     _build.check(err, "wtpu_merge")
     merge_queue.launches += 1
-    return o_from, o_lvl, o_rank, o_bad != 0, o_sig, o_ev.sum(dtype=I32)
+    return o_from, o_lvl, o_rank, o_bad, o_sig, o_ev
 
 
 merge_queue.launches = 0

@@ -10,9 +10,11 @@ wittgenstein_tpu/core/network.py:233-285).
 
 Layout, with a leading seed axis R as the JAX launcher has it:
 ring payload planes ``data [R, F, H, N, C]``, ``src``/``size``
-``[R, H, N, C]``, ``count [R, H, N]``; messages ``h`` (the ring row
-``arrival % H``), ``dest``, ``msrc``, ``msize``, ``valid`` ``[R, M]``
-and ``payload [R, M, F]``.  `dest` lies in [0, N) for valid messages.
+``[R, H, N, C]``, ``count [R, H, N]``; messages ``arrival``, ``dest``,
+``msrc``, ``msize``, ``valid`` (bool) ``[R, M]`` and ``payload [R, M, F]``.
+A message goes to ring row ``arrival % H``, so the JAX launcher's
+already reduced row ``h`` passes unchanged.  `dest` lies in [0, N) for
+valid messages.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ I32 = torch.int32
 BIG = 0x7FFFFFFF
 
 
-def bin_into_ring_plain(data, src, size, count, h, dest, msrc, msize,
+def bin_into_ring_plain(data, src, size, count, arrival, dest, msrc, msize,
                         payload, valid):
     """Plain PyTorch binning, in place; returns dropped [R] int32.
 
@@ -36,12 +38,13 @@ def bin_into_ring_plain(data, src, size, count, h, dest, msrc, msize,
     group rank by `cummax`, the slot test, masked scatters of the
     accepted rows and a count scatter-add of the accepted ones."""
     r_, f_, hz, n, c = data.shape
-    m = h.shape[1]
-    dropped = torch.zeros(r_, dtype=I32, device=h.device)
-    idx = torch.arange(m, device=h.device)
+    m = arrival.shape[1]
+    dropped = torch.zeros(r_, dtype=I32, device=arrival.device)
+    idx = torch.arange(m, device=arrival.device)
     for r in range(r_):
-        ok = valid[r].bool()
-        h_k = torch.where(ok, h[r], BIG)
+        ok = valid[r]
+        h = arrival[r] % hz
+        h_k = torch.where(ok, h, BIG)
         d_k = torch.where(ok, dest[r], BIG)
         o1 = torch.argsort(d_k, stable=True)
         order = o1[torch.argsort(h_k[o1], stable=True)]
@@ -50,7 +53,7 @@ def bin_into_ring_plain(data, src, size, count, h, dest, msrc, msize,
         new_grp[0] = True
         rank = idx - torch.cummax(torch.where(new_grp, idx, 0), 0).values
         ok_s = ok[order]
-        h_s = torch.where(ok_s, h[r][order], 0).long()
+        h_s = torch.where(ok_s, h[order], 0).long()
         d_s = torch.where(ok_s, dest[r][order], 0).long()
         slot = count[r][h_s, d_s].long() + rank
         acc = ok_s & (slot < c)
@@ -65,11 +68,12 @@ def bin_into_ring_plain(data, src, size, count, h, dest, msrc, msize,
     return dropped
 
 
-def _check(data, src, size, count, h, dest, msrc, msize, payload, valid):
+def _check(data, src, size, count, arrival, dest, msrc, msize, payload,
+           valid):
     r_, f_, hz, n, c = data.shape
-    m = h.shape[-1]
+    m = arrival.shape[-1]
     want = {"src": (src, (r_, hz, n, c)), "size": (size, (r_, hz, n, c)),
-            "count": (count, (r_, hz, n)), "h": (h, (r_, m)),
+            "count": (count, (r_, hz, n)), "arrival": (arrival, (r_, m)),
             "dest": (dest, (r_, m)), "msrc": (msrc, (r_, m)),
             "msize": (msize, (r_, m)), "valid": (valid, (r_, m)),
             "payload": (payload, (r_, m, f_)), "data": (data, data.shape)}
@@ -80,34 +84,36 @@ def _check(data, src, size, count, h, dest, msrc, msize, payload, valid):
         if t.device != data.device:
             raise ValueError(f"bin_into_ring: {name} is on {t.device}, "
                              f"data on {data.device}")
-        if name != "valid" and t.dtype != I32:
-            raise ValueError(f"bin_into_ring: {name} must be int32, "
+        want_dtype = torch.bool if name == "valid" else I32
+        if t.dtype != want_dtype:
+            raise ValueError(f"bin_into_ring: {name} must be {want_dtype}, "
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"bin_into_ring: {name} must be contiguous")
 
 
-def bin_into_ring(data, src, size, count, h, dest, msrc, msize, payload,
-                  valid):
+def bin_into_ring(data, src, size, count, arrival, dest, msrc, msize,
+                  payload, valid):
     """Bin one batch of messages into the ring; the ring planes and
     count are updated IN PLACE.  Returns dropped [R] int32.
 
     A CUDA tensor launches `csrc/route.cu` on the current stream; a CPU
     tensor runs `bin_into_ring_plain`.  `bin_into_ring.launches` counts
     kernel launches."""
-    _check(data, src, size, count, h, dest, msrc, msize, payload, valid)
+    _check(data, src, size, count, arrival, dest, msrc, msize, payload,
+           valid)
     if data.device.type == "cpu":
-        return bin_into_ring_plain(data, src, size, count, h, dest, msrc,
-                                   msize, payload, valid)
+        return bin_into_ring_plain(data, src, size, count, arrival, dest,
+                                   msrc, msize, payload, valid)
     if data.device.type != "cuda":
         raise ValueError(f"bin_into_ring: no kernel for {data.device}")
     r_, f_, hz, n, c = data.shape
-    m = h.shape[1]
-    v32 = valid.to(I32).contiguous()
+    m = arrival.shape[1]
     dropped = torch.zeros(r_, dtype=I32, device=data.device)
     lib = _build.lib()
     err = lib.wtpu_route(
-        h.data_ptr(), dest.data_ptr(), v32.data_ptr(), msrc.data_ptr(),
+        arrival.data_ptr(), dest.data_ptr(), valid.data_ptr(),
+        msrc.data_ptr(),
         msize.data_ptr(), payload.data_ptr(), data.data_ptr(),
         src.data_ptr(), size.data_ptr(), count.data_ptr(),
         dropped.data_ptr(), r_, m, f_, hz, n, c, _build.stream_of(data))
