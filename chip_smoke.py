@@ -8,21 +8,29 @@ Phases (any failure exits non-zero; nothing is caught):
    kernels built from ``wittgenstein_tpu_torch/csrc`` with nvcc, with
    each kernel's registers and shared memory;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path (2048-node Handel): bit-equal outputs, and
-   both timed with CUDA events;
-3. the main path: the reference-default Handel (2048 nodes, 204 down)
+   shapes of the path that runs it (route at both paths' shapes):
+   bit-equal outputs, and both timed with the profiler and CUDA events;
+3. the Handel path: the reference-default Handel (2048 nodes, 204 down)
    through `Runner.run_ms` for 1000 ms, launch counters reset just
    before; it must converge (live frac_done > 0.99) with zero drops,
-   clamps and evictions, and launch every kernel once per simulated ms;
-4. against the reference: a second run of seed 0 matches the JAX
+   clamps and evictions, and launch route, merge and score once per
+   simulated ms;
+3b. the GSF path: `GSFSignature(node_count=4096)` with its defaults,
+   seed 0, for 600 ms, counters reset just before; live frac_done >
+   0.99 with zero drops and clamps, and route, gsf_merge and gsf_score
+   launched once per simulated ms;
+4. against the reference: a second Handel run of seed 0 matches the JAX
    package's golden digest at 200 ms and the first run's final state
-   at 1000 ms.
+   at 1000 ms;
+4b. a second GSF run of seed 0 matches the JAX golden digest and the
+   first run's state at 600 ms.
 
 It prints one JSON line per kernel, the ``{"kernels": [...]}`` summary,
 the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  ``--profile MS`` also profiles MS
-simulated ms with `torch.profiler` and writes the table to
-``--profile-file`` (default ``profile.txt``).
+simulated ms of each path with `torch.profiler` (Handel from t=600, GSF
+from t=300, the busiest stretches) and writes the tables to
+``--profile-file`` and ``--profile-gsf-file``.
 """
 
 from __future__ import annotations
@@ -38,6 +46,10 @@ import time
 N_NODES = 2048
 MAIN_MS = 1000
 GOLDEN_MS = 200
+GSF_NODES = 4096
+GSF_MS = 600
+GSF_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                          "golden_gsf4096_600ms.json")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
 
@@ -139,14 +151,14 @@ def max_abs_err(plain, kern):
 # ---------------------------------------------------------- kernel cases
 
 
-def route_case(dev, rng):
-    """Main-path shapes: R 1, F 3, H 256, N 2048, C 12 and M = 2048 x 21
-    messages; part-full and full cells, a few hot cells that overflow,
-    invalid messages interleaved."""
-    import numpy as np
+def route_case(dev, rng, hz=256, n=N_NODES, c=12, out_deg=21):
+    """A path's shapes (Handel: R 1, F 3, H 256, N 2048, C 12 and M =
+    2048 x 21 messages; GSF: H 512, N 4096, C 16, M = 4096 x 22);
+    part-full and full cells, a few hot cells that overflow, invalid
+    messages interleaved."""
     import torch
-    r, f, hz, n, c = 1, 3, 256, N_NODES, 12
-    m = n * 21
+    r, f = 1, 3
+    m = n * out_deg
     data = torch.tensor(rng.integers(0, 1 << 20, (r, f, hz, n, c)),
                         dtype=torch.int32, device=dev)
     src = torch.tensor(rng.integers(0, n, (r, hz, n, c)), dtype=torch.int32,
@@ -186,11 +198,11 @@ def route_bytes(ring, msg, count_after):
             4 * (2 * accepted * (f + 2) + 2 * cells.numel() + r))
 
 
-def phase_route(dev, rng):
+def phase_route(dev, rng, **shape):
     import torch
     from wittgenstein_tpu_torch.ops.route import bin_into_ring, \
         bin_into_ring_plain
-    ring, msg = route_case(dev, rng)
+    ring, msg = route_case(dev, rng, **shape)
     plain = [t.clone() for t in ring]
     kern = [t.clone() for t in ring]
     dp = bin_into_ring_plain(*plain, *msg)
@@ -316,37 +328,192 @@ def phase_score(dev, rng):
                 nbytes=nbytes)
 
 
+def phase_route_gsf(dev, rng):
+    return phase_route(dev, rng, hz=512, n=GSF_NODES, c=16, out_deg=22)
+
+
+def gsf_merge_case(dev, rng):
+    """GSF shapes: M 4096, Q 16, S 16, W 128, L 13; a queue 70% full (30%
+    individuals), 60% of inbox slots valid, planted same-sender and
+    same-(sender, level) duplicates and superseded queue entries, a
+    got_indiv row consuming a third of the senders' individuals; the
+    masks derived as `models/gsf._receive` derives them."""
+    import numpy as np
+    import torch
+    m, q, s, w, levels = GSF_NODES, 16, 16, GSF_NODES // 32, 13
+    q_from = np.where(rng.random((m, q)) < 0.7, rng.integers(0, m, (m, q)),
+                      -1)
+    q_lvl = rng.integers(0, levels, (m, q))
+    q_indiv = rng.random((m, q)) < 0.3
+    src = rng.integers(0, m, (m, s))
+    level = rng.integers(0, levels, (m, s))
+    pick = rng.random((m, s))
+    prev = rng.integers(0, s, (m, s)) % np.maximum(np.arange(s), 1)
+    rows = np.nonzero((pick < 0.3) & (np.arange(s) > 0))
+    src[rows] = src[rows[0], prev[rows]]
+    rows = np.nonzero((pick < 0.15) & (np.arange(s) > 0))
+    level[rows] = level[rows[0], prev[rows]]
+    qq = rng.integers(0, q, (m, s))
+    rows = np.nonzero((pick >= 0.3) & (pick < 0.5) &
+                      (np.take_along_axis(q_from, qq, 1) >= 0))
+    src[rows] = q_from[rows[0], qq[rows]]
+    level[rows] = q_lvl[rows[0], qq[rows]]
+    valid = rng.random((m, s)) < 0.6
+    got = rng.random((m, m)) < 1 / 3
+    same = src[:, :, None] == src[:, None, :]
+    later = np.triu(np.ones((s, s), bool), 1)[None]
+    earlier = np.tril(np.ones((s, s), bool), -1)[None]
+    dup = (same & (level[:, :, None] == level[:, None, :]) &
+           valid[:, None, :] & later).any(2)
+    agg_ok = valid & ~dup
+    sup = ((q_from[:, :, None] == src[:, None, :]) &
+           (q_lvl[:, :, None] == level[:, None, :]) &
+           ~q_indiv[:, :, None] & agg_ok[:, None, :]).any(2)
+    ex_keep = (q_from >= 0) & ~sup
+    dup_ind = (same & valid[:, None, :] & earlier).any(2)
+    ind_ok = valid & ~dup_ind & ~np.take_along_axis(got, src, 1)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
+
+    def b(a):
+        return torch.tensor(a, device=dev)
+
+    def bits(*shape):
+        return torch.tensor(rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+                            .view(np.int32), device=dev)
+    return [i32(q_from), i32(q_lvl), b(q_indiv), b(ex_keep), bits(m, q, w),
+            i32(src), i32(level), b(agg_ok), b(ind_ok), bits(m, s, w)], levels
+
+
+def gsf_merge_bytes(args, kern, levels):
+    """Least bytes: every queue and inbox column read once, the sig rows
+    kept from the queue or the inbox aggregates read (an individual's
+    one-bit row is made from its sender id, already counted), the new
+    columns, sig plane, got_add rows and kept counts written."""
+    import torch
+    q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok, ind_ok, \
+        sig_all = args
+    m, q, w = q_sig.shape
+    s = src.shape[1]
+    c = q + 2 * s
+    # The kernel's keys (csrc/gsf_merge.cu), to know which rows it keeps.
+    u_from = torch.cat([torch.where(ex_keep, q_from, -1),
+                        torch.where(agg_ok, src, -1),
+                        torch.where(ind_ok, src, -1)], 1)
+    u_lvl = torch.cat([q_lvl, level, level], 1)
+    pos = torch.arange(c, device=q_from.device)[None, :]
+    tier = torch.where(pos >= q + s, 2, torch.where(
+        torch.cat([q_indiv, torch.zeros_like(agg_ok),
+                   torch.ones_like(ind_ok)], 1), 0, 1))
+    key = torch.where(u_from >= 0, (tier * (levels + 1) + torch.where(
+        tier == 1, u_lvl, 0)) * c + pos, 0x7FFFFF00 + pos)
+    order = torch.sort(key, 1).indices[:, :q]
+    rows_read = int((order < q + s).sum())
+    cols_in = sum(t.numel() * t.element_size()
+                  for i, t in enumerate(args) if i not in (4, 9))
+    cols_out = sum(t.numel() * t.element_size()
+                   for i, t in enumerate(kern) if i != 3)
+    return cols_in + cols_out + 4 * w * (rows_read + m * q)
+
+
+def phase_gsf_merge(dev, rng):
+    import torch
+    from wittgenstein_tpu_torch.ops.gsf_merge import gsf_merge, \
+        gsf_merge_plain
+    args, levels = gsf_merge_case(dev, rng)
+    plain = gsf_merge_plain(*args, levels)
+    kern = gsf_merge(*args, levels)
+    torch.cuda.synchronize()
+    err = max_abs_err(plain, kern)
+    if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
+        fail(f"gsf_merge kernel differs from its plain version (max err "
+             f"{err})")
+    return dict(err=err, ms=device_ms(lambda: gsf_merge(*args, levels),
+                                      "gsf_merge_kernel"),
+                plain_ms=device_ms(lambda: gsf_merge_plain(*args, levels)),
+                call_ms=call_ms(lambda: gsf_merge(*args, levels)),
+                plain_call_ms=call_ms(lambda: gsf_merge_plain(*args,
+                                                              levels)),
+                nbytes=gsf_merge_bytes(args, kern, levels),
+                admitted_individuals=int((kern[4] != 0).sum()))
+
+
+def phase_gsf_score(dev, rng):
+    import numpy as np
+    import torch
+    from wittgenstein_tpu_torch.ops.score import gsf_score, gsf_score_plain
+    m, q, w = GSF_NODES, 16, GSF_NODES // 32
+
+    def bits(*shape):
+        return torch.tensor(rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+                            .view(np.int32), device=dev)
+    args = [bits(m, q, w),
+            torch.tensor(rng.integers(0, 13, (m, q)), dtype=torch.int32,
+                         device=dev),
+            torch.arange(m, dtype=torch.int32, device=dev),
+            bits(m, w), bits(m, w)]
+    plain = gsf_score_plain(*args)
+    kern = gsf_score(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(plain, kern)
+    if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
+        fail(f"gsf_score kernel differs from its plain version (max err "
+             f"{err})")
+    # Inputs: sig plane, levels, ids, two rows; outputs: four int32 and
+    # two bool [M, Q].
+    nbytes = 4 * (m * q * w + m * q + m + 2 * m * w + 4 * m * q) + 2 * m * q
+    return dict(err=err, ms=device_ms(lambda: gsf_score(*args),
+                                      "gsf_score_kernel"),
+                plain_ms=device_ms(lambda: gsf_score_plain(*args)),
+                call_ms=call_ms(lambda: gsf_score(*args)),
+                plain_call_ms=call_ms(lambda: gsf_score_plain(*args)),
+                nbytes=nbytes)
+
+
+#: kernel entries of the ``kernels`` line: (name, wrapper key, path,
+#: source, TPU kernel it replaces, phase-2 case)
 KERNELS = [
-    ("route", "wittgenstein_tpu_torch/csrc/route.cu",
+    ("route", "route", "handel", "wittgenstein_tpu_torch/csrc/route.cu",
      "wittgenstein_tpu/ops/pallas_route.py:154", phase_route),
-    ("merge", "wittgenstein_tpu_torch/csrc/merge.cu",
+    ("merge", "merge", "handel", "wittgenstein_tpu_torch/csrc/merge.cu",
      "wittgenstein_tpu/ops/pallas_merge.py:55", phase_merge),
-    ("score", "wittgenstein_tpu_torch/csrc/score.cu",
+    ("score", "score", "handel", "wittgenstein_tpu_torch/csrc/score.cu",
      "wittgenstein_tpu/ops/pallas_score.py:46", phase_score),
+    ("route_gsf", "route", "gsf", "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_gsf),
+    ("gsf_merge", "gsf_merge", "gsf",
+     "wittgenstein_tpu_torch/csrc/gsf_merge.cu",
+     "wittgenstein_tpu/ops/pallas_gsf_merge.py:51", phase_gsf_merge),
+    ("gsf_score", "gsf_score", "gsf",
+     "wittgenstein_tpu_torch/csrc/gsf_score.cu",
+     "wittgenstein_tpu/ops/pallas_score.py:94", phase_gsf_score),
 ]
+#: the wrappers each path must launch once per simulated ms
+PATH_KERNELS = {"handel": ("route", "merge", "score"),
+                "gsf": ("route", "gsf_merge", "gsf_score")}
 
 
 # ------------------------------------------------------------- main path
 
 
 def counters():
+    from wittgenstein_tpu_torch.ops.gsf_merge import gsf_merge
     from wittgenstein_tpu_torch.ops.merge import merge_queue
     from wittgenstein_tpu_torch.ops.route import bin_into_ring
-    from wittgenstein_tpu_torch.ops.score import score_queue
+    from wittgenstein_tpu_torch.ops.score import gsf_score, score_queue
     return {"route": bin_into_ring, "merge": merge_queue,
-            "score": score_queue}
+            "score": score_queue, "gsf_merge": gsf_merge,
+            "gsf_score": gsf_score}
 
 
-def main_path(dev):
-    """1000 ms of the reference-default Handel, seed 0, through the
-    entry points a user calls.  Returns the run's numbers and launch
-    counts, and its final state as numpy dicts."""
+def drive(proto, ms):
+    """Run `proto` from seed 0 for `ms` ms through `Runner.run_ms`, every
+    launch counter set to 0 just before.  Returns the run's numbers,
+    the launch counts and the final state as numpy dicts."""
     import torch
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.core.network import Runner
-    from wittgenstein_tpu_torch.models.handel import (
-        Handel, reference_default_params)
-    proto = Handel(**reference_default_params(N_NODES), device=dev)
     net, ps = proto.init(0)
     runner = Runner(proto)
     torch.cuda.synchronize()
@@ -354,18 +521,45 @@ def main_path(dev):
     for fn in counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
-    net, ps = runner.run_ms(net, ps, MAIN_MS)
+    net, ps = runner.run_ms(net, ps, ms)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters().items()}
     down = net.nodes.down
     frac = float((net.nodes.done_at[~down] > 0).float().mean())
-    res = dict(wall_s=wall, sim_ms_per_s=MAIN_MS / wall, frac_done=frac,
+    res = dict(wall_s=wall, sim_ms_per_s=ms / wall, frac_done=frac,
                dropped=int(net.dropped), clamped=int(net.clamped),
                bc_dropped=int(net.bc_dropped), evicted=int(ps.evicted),
-               time=int(net.time), peak_mem_bytes=torch.cuda.
-               max_memory_allocated())
+               time=int(net.time),
+               msg_sent=int(net.nodes.msg_sent.sum()),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
     return res, launches, convert.to_numpy(net, ps)
+
+
+def check_launches(path, launches, ms):
+    """Each kernel of the path launched once per simulated ms, the
+    others not at all."""
+    for name, count in launches.items():
+        want = ms if name in PATH_KERNELS[path] else 0
+        if count != want:
+            fail(f"{path} path: kernel {name} launched {count} times in "
+                 f"{ms} ms, want {want}")
+
+
+def main_path(dev):
+    """1000 ms of the reference-default Handel, seed 0, through the
+    entry points a user calls."""
+    from wittgenstein_tpu_torch.models.handel import (
+        Handel, reference_default_params)
+    return drive(Handel(**reference_default_params(N_NODES), device=dev),
+                 MAIN_MS)
+
+
+def gsf_path(dev):
+    """600 ms of `GSFSignature(node_count=4096)` with its defaults, seed
+    0, through the entry points a user calls."""
+    from wittgenstein_tpu_torch.models.gsf import GSFSignature
+    return drive(GSFSignature(node_count=GSF_NODES, device=dev), GSF_MS)
 
 
 def golden_and_determinism(dev, final_np):
@@ -403,17 +597,46 @@ def golden_and_determinism(dev, final_np):
     log(f"determinism: two runs of seed 0 identical at {MAIN_MS} ms")
 
 
-def profile(dev, ms, path):
-    """torch.profiler over `ms` simulated ms from t = 600 (the busiest
-    stretch of the run); the table goes to `path`."""
+def gsf_golden_and_determinism(dev, final_np):
+    """Seed 0 again: the GSF state at 600 ms against the JAX golden
+    digest and against the first run."""
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import Runner
+    from wittgenstein_tpu_torch.models.gsf import GSFSignature
+    with open(GSF_GOLDEN) as f:
+        golden = json.load(f)
+    if golden["ms"] != GSF_MS:
+        fail(f"GSF golden file is for {golden['ms']} ms, not {GSF_MS}")
+    proto = GSFSignature(node_count=GSF_NODES, device=dev)
+    net, ps = Runner(proto).run_ms(*proto.init(0), GSF_MS)
+    net_np, ps_np = convert.to_numpy(net, ps)
+    got = convert.state_digest(net_np, ps_np)
+    want = golden["leaves"]
+    bad = sorted(k for k in set(got) | set(want)
+                 if got.get(k) != want.get(k))
+    if bad:
+        fail(f"GSF state at {GSF_MS} ms differs from the JAX golden in "
+             f"{len(bad)} leaves, first {bad[:5]}")
+    log(f"GSF golden: all {len(want)} leaves match the JAX reference at "
+        f"{GSF_MS} ms (JAX counts {golden['counts']})")
+    again = convert.flatten({"net": net_np, "pstate": ps_np})
+    first = convert.flatten({"net": final_np[0], "pstate": final_np[1]})
+    diff = convert.first_difference(first, again)
+    if diff is not None:
+        fail(f"GSF seed 0 run twice differs at {diff[0]} index {diff[1]}")
+    log(f"GSF determinism: two runs of seed 0 identical at {GSF_MS} ms")
+
+
+def profile(proto, start, ms, path):
+    """torch.profiler over `ms` simulated ms of `proto` from t = `start`;
+    the table goes to `path`.  Returns the device-busy share and the
+    PyTorch ops a simulated ms."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from wittgenstein_tpu_torch.core.network import Runner
-    from wittgenstein_tpu_torch.models.handel import (
-        Handel, reference_default_params)
-    proto = Handel(**reference_default_params(N_NODES), device=dev)
     runner = Runner(proto)
-    net, ps = runner.run_ms(*proto.init(0), 600)
+    net, ps = runner.run_ms(*proto.init(0), start)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -423,13 +646,22 @@ def profile(dev, ms, path):
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
     dev_us = kernel_device_us(ka)
+    # PyTorch ops the step issued: top-level aten calls, not the ones
+    # they make inside (a cast's copy, a where's broadcast).
+    ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+              and e.cpu_parent is None and e.name.startswith("aten::"))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
-        f.write(f"{ms} simulated ms from t=600, wall {wall:.6f} s, "
-                f"device time {dev_us / 1e6:.6f} s\n")
+        f.write(f"{type(proto).__name__} {proto.node_count} nodes: {ms} "
+                f"simulated ms from t={start}, wall {wall:.6f} s, device "
+                f"time {dev_us / 1e6:.6f} s, aten ops {ops}\n")
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
-    log(f"profile: {ms} ms wall {wall:.6f} s, device busy "
-        f"{dev_us / 1e6:.6f} s ({100 * dev_us / 1e6 / wall:.1f}%)")
+    busy = dev_us / 1e6 / wall
+    log(f"profile {type(proto).__name__}: {ms} ms from t={start}, wall "
+        f"{wall:.6f} s, device busy {dev_us / 1e6:.6f} s "
+        f"({100 * busy:.1f}%), {ops / ms:.0f} aten ops a simulated ms")
+    return dict(wall_s=wall, device_s=dev_us / 1e6, busy=busy,
+                aten_ops_per_ms=ops / ms)
 
 
 # ------------------------------------------------------------------ main
@@ -439,6 +671,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="MS")
     ap.add_argument("--profile-file", default="profile.txt")
+    ap.add_argument("--profile-gsf-file", default="profile_gsf.txt")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -471,7 +704,7 @@ def main(argv=None) -> int:
     # 2. kernels against their plain versions
     rng = np.random.default_rng(0)
     results = {}
-    for name, _, _, phase in KERNELS:
+    for name, _, _, _, _, phase in KERNELS:
         results[name] = phase(dev, rng)
         r = results[name]
         log(f"kernel {name}: bit-equal to its plain version; device "
@@ -479,41 +712,63 @@ def main(argv=None) -> int:
             f" per call {r['call_ms'] * 1e3:.2f} us vs plain "
             f"{r['plain_call_ms'] * 1e3:.2f} us")
 
-    # 3. main path
+    # 3. the Handel path
     res, launches, final_np = main_path(dev)
-    log(f"main path: {json.dumps(res)} launches {launches}")
+    log(f"Handel path: {json.dumps(res)} launches {launches}")
     if not res["frac_done"] > 0.99:
         fail(f"Handel did not converge: live frac_done {res['frac_done']}")
     if res["dropped"] or res["clamped"] or res["bc_dropped"] or \
             res["evicted"]:
         fail(f"drops/clamps/evictions must be 0: {res}")
-    for name, count in launches.items():
-        if count != MAIN_MS:
-            fail(f"kernel {name} launched {count} times in {MAIN_MS} ms, "
-                 "want one per simulated ms")
+    check_launches("handel", launches, MAIN_MS)
+
+    # 3b. the GSF path
+    gres, glaunches, gfinal_np = gsf_path(dev)
+    log(f"GSF path: {json.dumps(gres)} launches {glaunches}")
+    if not gres["frac_done"] > 0.99:
+        fail(f"GSF did not converge: live frac_done {gres['frac_done']}")
+    if gres["dropped"] or gres["clamped"] or gres["bc_dropped"]:
+        fail(f"GSF drops/clamps must be 0: {gres}")
+    check_launches("gsf", glaunches, GSF_MS)
 
     # 4. against the reference
     golden_and_determinism(dev, final_np)
+    gsf_golden_and_determinism(dev, gfinal_np)
+    profiles = {}
     if args.profile:
-        profile(dev, args.profile, args.profile_file)
+        from wittgenstein_tpu_torch.models.gsf import GSFSignature
+        from wittgenstein_tpu_torch.models.handel import (
+            Handel, reference_default_params)
+        profiles["handel"] = profile(
+            Handel(**reference_default_params(N_NODES), device=dev), 600,
+            args.profile, args.profile_file)
+        profiles["gsf"] = profile(
+            GSFSignature(node_count=GSF_NODES, device=dev), 300,
+            args.profile, args.profile_gsf_file)
 
+    path_ms = {"handel": MAIN_MS, "gsf": GSF_MS}
+    path_launches = {"handel": launches, "gsf": glaunches}
     kernels = []
-    for name, source, replaces, _ in KERNELS:
+    for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
         bound_ms = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+        n_launch = path_launches[path][key]
         rec = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[name],
+               "replaces": replaces, "launches": n_launch,
                "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-               "bound_by": "bytes", "library_ms": None,
-               "launches_per_ms": launches[name] / MAIN_MS,
+               "bound_by": "bytes", "library_ms": None, "path": path,
+               "launches_by_path": {p: path_launches[p][key]
+                                    for p in path_launches},
+               "launches_per_ms": n_launch / path_ms[path],
                "kernel_us": r["ms"] * 1e3, "plain_us": r["plain_ms"] * 1e3,
                "bound_us": bound_ms * 1e3, "library_us": None,
                "bytes": r["nbytes"], "call_ms": r["call_ms"],
                "plain_call_ms": r["plain_call_ms"]}
         print(json.dumps(rec), flush=True)
         kernels.append(rec)
-    print(json.dumps({"kernels": kernels, "main_path": res}), flush=True)
+    print(json.dumps({"kernels": kernels, "main_path": res,
+                      "gsf_path": gres, "profiles": profiles}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,4 +1,5 @@
-"""The three kernel functions of the port's main path, on the cases of
+"""The five kernel functions of the port (route, Handel's merge and
+score, GSF's merge and score), on the cases of
 the JAX package's own kernel tests: each port function on the CPU (its
 plain PyTorch version) against the JAX Pallas kernel in interpret mode,
 bit for bit; and, marked `cuda`, each hand-written CUDA kernel against
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from wittgenstein_tpu_torch.ops import merge, route, score
+from wittgenstein_tpu_torch.ops import gsf_merge, merge, route, score
 
 
 def _i32(a):
@@ -155,6 +156,151 @@ def test_score_zero_and_full_rows():
     ones = np.full((n, w), 0xFFFFFFFF, np.uint32)
     _score_vs_pallas(n, levels, np.zeros((n, q, w), np.uint32), elvl, ones,
                      ones, ones)
+
+
+# -------------------------------------------------------------- GSF merge
+
+
+def _gsf_merge_case(rng, n, q_cap, s_cap, w, n_ids, levels=8, fill=0.7,
+                    got_rate=0.3):
+    """A queue and an inbox with planted same-sender and same-(sender,
+    level) duplicates and queued entries the inbox supersedes; ex_keep,
+    agg_ok and ind_ok are derived as `models/gsf._receive` derives them,
+    with a random got_indiv row consuming some senders' individuals."""
+    q_from = np.where(rng.random((n, q_cap)) < fill,
+                      rng.integers(0, n_ids, (n, q_cap)), -1).astype(
+                          np.int32)
+    q_lvl = rng.integers(0, levels, (n, q_cap)).astype(np.int32)
+    q_indiv = rng.random((n, q_cap)) < 0.3
+    q_sig = rng.integers(0, 2 ** 32, (n, q_cap, w), dtype=np.uint32)
+    src = rng.integers(0, n_ids, (n, s_cap)).astype(np.int32)
+    level = rng.integers(0, levels, (n, s_cap)).astype(np.int32)
+    for i in range(n):
+        for s in range(s_cap):
+            r = rng.random()
+            if r < 0.25 and s > 0:
+                s2 = rng.integers(0, s)
+                src[i, s] = src[i, s2]
+                if r < 0.15:
+                    level[i, s] = level[i, s2]
+            elif r < 0.5:
+                qq = rng.integers(0, q_cap)
+                if q_from[i, qq] >= 0:
+                    src[i, s], level[i, s] = q_from[i, qq], q_lvl[i, qq]
+    valid = rng.random((n, s_cap)) < 0.7
+    got = rng.random((n, n_ids)) < got_rate
+    same = src[:, :, None] == src[:, None, :]
+    later = np.triu(np.ones((s_cap, s_cap), bool), 1)[None]
+    earlier = np.tril(np.ones((s_cap, s_cap), bool), -1)[None]
+    dup = (same & (level[:, :, None] == level[:, None, :]) &
+           valid[:, None, :] & later).any(2)
+    agg_ok = valid & ~dup
+    sup = ((q_from[:, :, None] == src[:, None, :]) &
+           (q_lvl[:, :, None] == level[:, None, :]) &
+           ~q_indiv[:, :, None] & agg_ok[:, None, :]).any(2)
+    ex_keep = (q_from >= 0) & ~sup
+    dup_ind = (same & valid[:, None, :] & earlier).any(2)
+    ind_ok = valid & ~dup_ind & ~np.take_along_axis(got, src, 1)
+    sig_all = rng.integers(0, 2 ** 32, (n, s_cap, w), dtype=np.uint32)
+    return [q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
+            ind_ok, sig_all]
+
+
+def _gsf_merge_vs_pallas(case, levels=8):
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.ops.pallas_gsf_merge import gsf_merge_pallas
+    ref = gsf_merge_pallas(*[jnp.asarray(a) for a in case], levels=levels,
+                           interpret=True)
+    got = gsf_merge.gsf_merge(*[_i32(a) for a in case], levels)
+    for name, r, g in zip(("from", "lvl", "indiv", "sig", "got_add",
+                           "kept_ex_agg"), ref, got):
+        _eq(r, g, name)
+    return got
+
+
+@pytest.mark.parametrize("q_cap,s_cap,w", [(16, 16, 8), (4, 8, 4),
+                                           (8, 3, 2)])
+def test_gsf_merge_random(q_cap, s_cap, w):
+    rng = np.random.default_rng(q_cap * 100 + s_cap)
+    case = _gsf_merge_case(rng, 64, q_cap, s_cap, w, n_ids=32 * w)
+    got = _gsf_merge_vs_pallas(case)
+    assert case[8].any() and (case[2] & case[3]).any()
+    if q_cap > s_cap:                           # room left for individuals
+        assert int(got[4].ne(0).sum()) > 0
+
+
+@pytest.mark.parametrize("regime", ["empty_queue", "full_queue",
+                                    "all_consumed"])
+def test_gsf_merge_regimes(regime):
+    """An empty queue with a full inbox; a queue of valid entries with an
+    empty inbox; every sender's individual already in got_indiv."""
+    rng = np.random.default_rng(9)
+    case = _gsf_merge_case(rng, 32, 8, 8, 4, n_ids=128,
+                           got_rate=1.0 if regime == "all_consumed" else 0.3)
+    if regime == "empty_queue":
+        case[0] = np.full_like(case[0], -1)
+        case[3] = np.zeros_like(case[3])
+    elif regime == "full_queue":
+        case[0] = np.abs(case[0])
+        case[3] = np.ones_like(case[3])
+        case[7] = np.zeros_like(case[7])
+        case[8] = np.zeros_like(case[8])
+    got = _gsf_merge_vs_pallas(case)
+    if regime == "all_consumed":
+        assert not case[8].any() and int(got[4].ne(0).sum()) == 0
+
+
+def test_gsf_merge_refuses_wide_rows():
+    rng = np.random.default_rng(1)
+    case = _gsf_merge_case(rng, 2, 200, 28, 1, n_ids=16)
+    with pytest.raises(ValueError, match="255"):
+        gsf_merge.gsf_merge(*[_i32(a) for a in case], 8)
+    with pytest.raises(ValueError, match="255"):
+        gsf_merge.gsf_merge_plain(*[_i32(a) for a in case], 8)
+
+
+# -------------------------------------------------------------- GSF score
+
+
+def _gsf_score_vs_pallas(sig, elvl, ver, ind):
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.ops.pallas_score import gsf_score_pallas
+    n = sig.shape[0]
+    ids = np.arange(n, dtype=np.int32)
+    args = (sig, elvl, ids, ver, ind)
+    ref = gsf_score_pallas(*[jnp.asarray(a) for a in args], interpret=True)
+    got = score.gsf_score(*[_i32(a) for a in args])
+    for name, r, g in zip(("ver_l_card", "card_sig", "inter", "pc_wi",
+                           "pc_wv", "inter_ind"), ref, got):
+        _eq(r, g, name)
+
+
+def test_gsf_score_random():
+    """tests/test_pallas_score.py::test_gsf_score_kernel_bit_equal's case:
+    256 nodes, q 8, levels 0 to the top, random dense bitsets."""
+    n, q, levels = 256, 8, 9
+    w = n // 32
+    rng = np.random.default_rng(23)
+    u32 = dict(dtype=np.uint32)
+    _gsf_score_vs_pallas(rng.integers(0, 2 ** 32, (n, q, w), **u32),
+                         rng.integers(0, levels, (n, q)).astype(np.int32),
+                         rng.integers(0, 2 ** 32, (n, w), **u32),
+                         rng.integers(0, 2 ** 32, (n, w), **u32))
+
+
+@pytest.mark.parametrize("fill", [0, 0xFFFFFFFF])
+def test_gsf_score_zero_and_full_rows(fill):
+    """All-zero and all-ones sigs against all-ones and all-zero bitsets,
+    at level 0 (empty range), 1, the top level (full range) and 3."""
+    n, q, levels = 64, 4, 7
+    w = n // 32
+    elvl = np.tile(np.array([0, 1, levels - 1, 3], np.int32), (n, 1))
+    sig = np.full((n, q, w), fill, np.uint32)
+    other = np.full((n, w), 0xFFFFFFFF - fill, np.uint32)
+    _gsf_score_vs_pallas(sig, elvl, other, np.full((n, w), 0xFFFFFFFF,
+                                                   np.uint32))
 
 
 # ------------------------------------------------------------------ route
@@ -319,6 +465,34 @@ def test_cuda_score_matches_plain():
         rng.integers(0, 2 ** 32, (n, w), dtype=np.uint32) for _ in range(3)]
     plain = score.score_queue(*[_i32(a) for a in args])
     kern = score.score_queue(*[_i32(a).to(dev) for a in args])
+    torch.cuda.synchronize()
+    for a, b in zip(plain, kern):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_gsf_merge_matches_plain():
+    dev = _cuda()
+    case = _gsf_merge_case(np.random.default_rng(5), 512, 16, 16, 128,
+                           n_ids=4096, levels=13)
+    plain = gsf_merge.gsf_merge(*[_i32(a) for a in case], 13)
+    kern = gsf_merge.gsf_merge(*[_i32(a).to(dev) for a in case], 13)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, kern):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_gsf_score_matches_plain():
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    n, q, w, levels = 4096, 16, 128, 13
+    args = [rng.integers(0, 2 ** 32, (n, q, w), dtype=np.uint32),
+            rng.integers(0, levels, (n, q)).astype(np.int32),
+            np.arange(n, dtype=np.int32)] + [
+        rng.integers(0, 2 ** 32, (n, w), dtype=np.uint32) for _ in range(2)]
+    plain = score.gsf_score(*[_i32(a) for a in args])
+    kern = score.gsf_score(*[_i32(a).to(dev) for a in args])
     torch.cuda.synchronize()
     for a, b in zip(plain, kern):
         assert torch.equal(a, b.cpu())

@@ -38,10 +38,13 @@ def test_port_imports_no_jax():
 
 def test_default_device_refuses_without_card(monkeypatch):
     from wittgenstein_tpu_torch.core.state import resolve_device
+    from wittgenstein_tpu_torch.models.gsf import GSFSignature
     from wittgenstein_tpu_torch.models.handel import Handel
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Handel(node_count=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GSFSignature(node_count=64)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"

@@ -1,12 +1,15 @@
 """Shared helpers of the `tests/test_torch_*.py` parity tests: the JAX
 package's state as nested numpy dicts, a leaf-by-leaf comparison that
-names the first difference, and the generators of the two artifacts the
-port ships (the distance-latency table and the 2048-node golden digest).
+names the first difference, and the generators of the artifacts the
+port ships (the distance-latency table, the 2048-node Handel golden
+digest and the 4096-node GSF golden digest).
 
-Regenerate both artifacts with ``JAX_PLATFORMS=cpu python
-tests/torch_parity.py``; ``... tests/torch_parity.py check N MS`` runs
-the N-node reference-default Handel in both packages on the CPU for MS
-ms and compares the full state every 100 ms.
+Regenerate all three with ``JAX_PLATFORMS=cpu python
+tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
+GSF digest alone); ``... tests/torch_parity.py check N MS`` runs the
+N-node reference-default Handel in both packages on the CPU for MS ms
+and compares the full state every 100 ms, and ``... check N MS gsf``
+does the same for ``GSFSignature(node_count=N)`` with its defaults.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ PORT_DATA = os.path.join(ROOT, "wittgenstein_tpu_torch", "data")
 TABLE_FILE = os.path.join(PORT_DATA, "latency_by_distance_w_jitter.npy")
 GOLDEN_FILE = os.path.join(PORT_DATA, "golden_handel2048_200ms.json")
 GOLDEN_MS = 200
+GSF_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_gsf4096_600ms.json")
+GSF_GOLDEN_N = 4096
+GSF_GOLDEN_MS = 600
 
 
 def jax_nested(obj):
@@ -113,18 +119,58 @@ def jax_golden_digest():
     return convert.state_digest(*jax_state(net, ps))
 
 
-def check(n: int, ms: int, every: int = 100):
+def jax_gsf_golden():
+    """Leaf sha256s of the JAX package's (net, pstate) after
+    GSF_GOLDEN_MS ms of `GSFSignature(node_count=GSF_GOLDEN_N)` with its
+    defaults, seed 0, through `Runner.run_ms` in 100-ms calls on its
+    default path; with the run's counters beside them."""
+    from wittgenstein_tpu.core.network import Runner
+    from wittgenstein_tpu.models.gsf import GSFSignature
+
+    proto = GSFSignature(node_count=GSF_GOLDEN_N)
+    net, ps = proto.init(0)
+    runner = Runner(proto)
+    for _ in range(GSF_GOLDEN_MS // 100):
+        net, ps = runner.run_ms(net, ps, 100)
+    live = ~np.asarray(net.nodes.down)
+    counts = {"evicted": int(ps.evicted), "dropped": int(net.dropped),
+              "clamped": int(net.clamped),
+              "msg_sent": int(np.asarray(net.nodes.msg_sent).sum()),
+              "frac_done": float((np.asarray(net.nodes.done_at)[live]
+                                  > 0).mean())}
+    return convert.state_digest(*jax_state(net, ps)), counts
+
+
+def write_gsf_golden():
+    digest, counts = jax_gsf_golden()
+    with open(GSF_GOLDEN_FILE, "w") as f:
+        json.dump({"config": f"GSFSignature(node_count={GSF_GOLDEN_N}), "
+                   "seed 0", "ms": GSF_GOLDEN_MS, "counts": counts,
+                   "leaves": digest}, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def _protocols(n: int, protocol: str):
+    """(JAX protocol, port protocol on the CPU) for `check`."""
+    if protocol == "gsf":
+        from wittgenstein_tpu.models.gsf import GSFSignature as JGSF
+        from wittgenstein_tpu_torch.models.gsf import GSFSignature
+        return JGSF(node_count=n), GSFSignature(node_count=n, device="cpu")
+    from wittgenstein_tpu.models.handel import Handel as JHandel
+    from wittgenstein_tpu_torch.models.handel import (
+        Handel, reference_default_params)
+    params = reference_default_params(n)
+    return JHandel(**params), Handel(**params, device="cpu")
+
+
+def check(n: int, ms: int, protocol: str = "handel", every: int = 100):
     """Both packages from their own init, full state compared every
     `every` ms; prints each checkpoint and stops at the first
     difference."""
     from wittgenstein_tpu.core.network import Runner as JRunner
-    from wittgenstein_tpu.models.handel import Handel as JHandel
     from wittgenstein_tpu_torch.core.network import Runner
-    from wittgenstein_tpu_torch.models.handel import (
-        Handel, reference_default_params)
 
-    params = reference_default_params(n)
-    jproto, proto = JHandel(**params), Handel(**params, device="cpu")
+    jproto, proto = _protocols(n, protocol)
     jstate, state = jproto.init(0), proto.init(0)
     jrun, run = JRunner(jproto), Runner(proto)
     for t in range(every, ms + 1, every):
@@ -135,7 +181,7 @@ def check(n: int, ms: int, every: int = 100):
         b = convert.flatten(dict(zip(("net", "pstate"),
                                      convert.to_numpy(*state))))
         diff = convert.first_difference(a, b)
-        print(f"{n} nodes, {t} ms: "
+        print(f"{protocol} {n} nodes, {t} ms: "
               f"{'equal' if diff is None else f'DIFFERENT {diff}'}",
               flush=True)
         if diff is not None:
@@ -145,7 +191,11 @@ def check(n: int, ms: int, every: int = 100):
 
 def main():
     if sys.argv[1:2] == ["check"]:
-        sys.exit(check(int(sys.argv[2]), int(sys.argv[3])))
+        sys.exit(check(int(sys.argv[2]), int(sys.argv[3]),
+                       *sys.argv[4:5]))
+    if sys.argv[1:2] == ["gsf-golden"]:
+        write_gsf_golden()
+        return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()
     with open(GOLDEN_FILE, "w") as f:
@@ -153,6 +203,7 @@ def main():
                    "ms": GOLDEN_MS, "leaves": digest}, f, indent=1,
                   sort_keys=True)
         f.write("\n")
+    write_gsf_golden()
 
 
 if __name__ == "__main__":

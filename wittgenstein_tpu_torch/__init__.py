@@ -6,8 +6,10 @@ each function's counterpart is found under the same name, and runs on
 one NVIDIA Hopper card: the TPU's Pallas kernels become hand-written
 CUDA C++ under `csrc/`, built at first use by `ops/_build.py`.
 
-Entry points (`Handel(..., device=...)`, `Handel.init`, `core.network.
-Runner`) run on ``cuda`` unless the caller passes ``device="cpu"``; with
-no card the default raises instead of falling back to the CPU.  On CPU
-tensors every kernel wrapper runs its plain PyTorch version.
+Entry points (`models.handel.Handel(..., device=...)`,
+`models.gsf.GSFSignature(..., device=...)`, their `init`, and
+`core.network.Runner`) run on ``cuda`` unless the caller passes
+``device="cpu"``; with no card the default raises instead of falling
+back to the CPU.  On CPU tensors every kernel wrapper runs its plain
+PyTorch version.
 """

@@ -2,7 +2,8 @@
 
 Both sides meet as nested dicts of numpy arrays under the JAX field
 names: ``{"time": ..., "nodes": {"x": ...}, "box_data": [plane, ...],
-...}`` for the `NetState` and the same for the `HandelState`.  The JAX
+...}`` for the `NetState` and the same for the protocol state (a
+`HandelState` or a `GSFState`, told apart by their leaf names).  The JAX
 side builds them from its dataclasses (the tests do so with
 `jax.tree_util`); `from_reference` turns them into the port's state and
 `to_numpy` back.  uint32 leaves (bitsets) are reinterpreted, never
@@ -18,11 +19,26 @@ import numpy as np
 import torch
 
 from .core.state import NetState, NodeState
+from .models.gsf import GSFState
 from .models.handel import HandelState
 
-#: HandelState leaves the JAX package stores as uint32 bitsets
-U32_LEAVES = ("ver_ind", "last_agg", "finished_peers", "blacklist",
-              "demoted", "q_sig", "pool", "pend_sig")
+#: per protocol state class: the leaves the JAX package stores as uint32
+#: bitsets, and whether its q_sig is a list of `state_split` pieces
+#: (Handel) rather than one [N, Q, W] array (GSF)
+STATES = {
+    HandelState: (("ver_ind", "last_agg", "finished_peers", "blacklist",
+                   "demoted", "q_sig", "pool", "pend_sig"), True),
+    GSFState: (("verified", "ver_indiv", "got_indiv", "q_sig", "pend_sig",
+                "pool"), False),
+}
+
+
+def state_class(pstate_np: dict):
+    """The port's state class whose fields are exactly these leaves."""
+    for cls in STATES:
+        if {f.name for f in dataclasses.fields(cls)} == set(pstate_np):
+            return cls
+    raise ValueError(f"no protocol state has the leaves {sorted(pstate_np)}")
 
 
 def _tensor(a, device):
@@ -38,9 +54,9 @@ def _numpy(t: torch.Tensor, u32: bool = False):
 
 
 def from_reference(net_np: dict, pstate_np: dict, device):
-    """``(NetState, HandelState)`` on `device` from the JAX package's
-    state as nested dicts of numpy arrays (one ring sub-plane, one
-    q_sig piece).  Every leaf is copied."""
+    """``(NetState, protocol state)`` on `device` from the JAX package's
+    state as nested dicts of numpy arrays (one ring sub-plane; for
+    Handel one q_sig piece).  Every leaf is copied."""
     dev = torch.device(device)
     nodes = NodeState(**{k: _tensor(v, dev)
                          for k, v in net_np["nodes"].items()})
@@ -60,15 +76,17 @@ def from_reference(net_np: dict, pstate_np: dict, device):
             if k not in ("nodes", "box_data", "box_src", "box_size")}
     net = NetState(nodes=nodes, **ring, **rest)
 
+    cls = state_class(pstate_np)
     ps = dict(pstate_np)
-    if len(ps["q_sig"]) != 1:
-        raise NotImplementedError("state_split > 1 is not ported yet")
-    ps["q_sig"] = ps["q_sig"][0]
-    pstate = HandelState(**{k: _tensor(v, dev) for k, v in ps.items()})
+    if STATES[cls][1]:
+        if len(ps["q_sig"]) != 1:
+            raise NotImplementedError("state_split > 1 is not ported yet")
+        ps["q_sig"] = ps["q_sig"][0]
+    pstate = cls(**{k: _tensor(v, dev) for k, v in ps.items()})
     return net, pstate
 
 
-def to_numpy(net: NetState, pstate: HandelState):
+def to_numpy(net: NetState, pstate):
     """The port's state as ``(net_np, pstate_np)`` nested dicts under
     the JAX names, dtypes and layouts (ring planes flat, uint32
     bitsets)."""
@@ -85,10 +103,11 @@ def to_numpy(net: NetState, pstate: HandelState):
             net_np[fld.name] = [_numpy(v).reshape(-1)]
         else:
             net_np[fld.name] = _numpy(v)
+    u32, split = STATES[type(pstate)]
     ps_np = {}
     for fld in dataclasses.fields(pstate):
-        a = _numpy(getattr(pstate, fld.name), fld.name in U32_LEAVES)
-        ps_np[fld.name] = [a] if fld.name == "q_sig" else a
+        a = _numpy(getattr(pstate, fld.name), fld.name in u32)
+        ps_np[fld.name] = [a] if split and fld.name == "q_sig" else a
     return net_np, ps_np
 
 

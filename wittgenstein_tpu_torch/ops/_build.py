@@ -41,6 +41,13 @@ SIGNATURES = {
     # q_sig, q_lvl, ids, total_inc, ver_ind, last_agg, s_inc, pc_sig,
     # pc_sv, inter_agg, M, Q, W, stream
     "wtpu_score": [P] * 10 + [I] * 3 + [P],
+    # q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok, ind_ok,
+    # sig_all, o_from, o_lvl, o_indiv, o_sig, o_got, o_kept, M, Q, S, W,
+    # L, stream
+    "wtpu_gsf_merge": [P] * 16 + [I] * 5 + [P],
+    # q_sig, q_lvl, ids, verified, ver_indiv, ver_l_card, card_sig, inter,
+    # pc_wi, pc_wv, inter_ind, M, Q, W, stream
+    "wtpu_gsf_score": [P] * 11 + [I] * 3 + [P],
 }
 
 _lock = threading.Lock()
