@@ -496,3 +496,313 @@ def test_cuda_gsf_score_matches_plain():
     torch.cuda.synchronize()
     for a, b in zip(plain, kern):
         assert torch.equal(a, b.cpu())
+
+
+# ------------------------------------- route kernel's bucket index math
+
+
+def _route_consts():
+    """TILE, RT, CB_MIN and MAX_B as `csrc/route.cu` declares them."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(route.__file__), os.pardir, "csrc",
+                        "route.cu")
+    with open(path) as f:
+        text = f.read()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+            for k in ("TILE", "RT", "CB_MIN", "MAX_B")}
+
+
+def _cells_per_bucket(cells):
+    """`dims` in route.cu: CB_MIN cells a bucket, more (a multiple of 16)
+    where that would make more than MAX_B buckets."""
+    k = _route_consts()
+    cb = -(-cells // k["MAX_B"])
+    return k["CB_MIN"] if cb < k["CB_MIN"] else -(-cb // 16) * 16
+
+
+def _warp_groups(keys):
+    """Per lane of one warp: rank among the earlier lanes with the same
+    key (`__popc(peers & lanemask_lt)`) and the group size."""
+    rank = np.zeros(len(keys), np.int64)
+    size = np.zeros(len(keys), np.int64)
+    for lane, k in enumerate(keys):
+        same = keys == k
+        rank[lane] = same[:lane].sum()
+        size[lane] = same.sum()
+    return rank, size
+
+
+def _bucket_model(arrival, dest, valid, count, cb):
+    """numpy model of `route_bucket_kernel` for one seed, with cb cells a
+    bucket: per tile of TILE messages, the members sorted stably by
+    bucket (cell // cb, cells row-major) into the tile's stretch of the
+    lists, and the tile's segment starts off[t, 0..B] from the [32 x B]
+    warp-count table.  Returns the lists as message indices (where the
+    kernel copies the message's fields), the cells within the bucket,
+    the cells' counts before the batch, and off."""
+    tile = _route_consts()["TILE"]
+    hz, n = count.shape
+    m = len(arrival)
+    n_t = max(1, -(-m // tile))
+    n_b = max(1, -(-(hz * n) // cb))
+    lidx = np.full(n_t * tile, -1, np.int64)
+    lkey = np.full(n_t * tile, -1, np.int64)
+    lcnt = np.full(n_t * tile, -1, np.int64)
+    off = np.zeros((n_t, n_b + 1), np.int64)
+    for t in range(n_t):
+        i = np.arange(t * tile, (t + 1) * tile)
+        ic = np.minimum(i, m - 1)
+        ok = (i < m) & valid[ic] & (dest[ic] >= 0) & (dest[ic] < n)
+        cell = (arrival[ic] % hz) * n + dest[ic]
+        b = np.where(ok, cell // cb, -1)
+        rank_w = np.zeros(tile, np.int64)
+        size_w = np.zeros(tile, np.int64)
+        for w in range(tile // 32):
+            sl = slice(32 * w, 32 * w + 32)
+            rank_w[sl], size_w[sl] = _warp_groups(b[sl])
+        warp = np.arange(tile) // 32
+        wc = np.zeros((tile // 32, n_b), np.int64)
+        lead = ok & (rank_w == 0)
+        wc[warp[lead], b[lead]] = size_w[lead]
+        wex = np.cumsum(wc, 0) - wc
+        tot = wc.sum(0)
+        seg = np.cumsum(tot) - tot
+        pos = seg[b] + wex[warp, b] + rank_w
+        off[t, :n_b] = seg
+        off[t, n_b] = ok.sum()
+        at = t * tile + pos[ok]
+        lidx[at] = i[ok]
+        lkey[at] = cell[ok] % cb
+        lcnt[at] = count.reshape(-1)[cell[ok]]
+    return lidx, lkey, lcnt, off
+
+
+def _bucket_members(lidx, off, b, tile):
+    """Bucket b's list as the rank kernel walks it: each tile's segment
+    off[t, b] .. off[t, b+1], tiles in order."""
+    return np.concatenate([lidx[t * tile + off[t, b]:t * tile + off[t, b + 1]]
+                           for t in range(off.shape[0])])
+
+
+def _rank_model(ring, lidx, lkey, lcnt, off, cb, msrc, msize, payload,
+                rt=None):
+    """numpy model of `route_rank_kernel` for one seed, in place on the
+    ring arrays; returns dropped.  Tile groups of RT, chunks of RT
+    members, each member found by the binary search over the group's
+    member prefix; a member's slot is its cell's count before the
+    batch, the bucket's running count of the cell, the group sizes of
+    the chunk's earlier warps and its rank in its warp; the last warp
+    holding a cell advances the running count and writes the count."""
+    k = _route_consts()
+    tile, rt = k["TILE"], rt or k["RT"]
+    f, hz, n, c = ring[0].shape[1:]
+    data = ring[0][0].reshape(f, hz * n, c)       # views, cells row-major
+    src = ring[1][0].reshape(hz * n, c)
+    size = ring[2][0].reshape(hz * n, c)
+    count = ring[3][0].reshape(-1)
+    n_t, n_b = off.shape[0], off.shape[1] - 1
+    dropped = 0
+    for b in range(n_b):
+        run = np.zeros(cb, np.int64)
+        for t0 in range(0, n_t, rt):
+            ts = np.arange(t0, min(n_t, t0 + rt))
+            lens = off[ts, b + 1] - off[ts, b]
+            pre = np.cumsum(lens) - lens
+            segst = ts * tile + off[ts, b]
+            total = int(lens.sum())
+            for c0 in range(0, total, rt):
+                js = np.arange(c0, min(total, c0 + rt))
+                s = np.searchsorted(pre, js, side="right") - 1
+                at = segst[s] + js - pre[s]
+                mi, key, cnt0 = lidx[at], lkey[at], lcnt[at]
+                posted = []                     # per warp: {key: size}
+                for w0 in range(0, len(js), 32):
+                    rank_w, size_w = _warp_groups(key[w0:w0 + 32])
+                    posted.append((rank_w, size_w))
+                sizes = [dict(zip(key[32 * w:32 * w + 32], sz))
+                         for w, (_, sz) in enumerate(posted)]
+                new_run = run.copy()
+                for w, (rank_w, _) in enumerate(posted):
+                    for lane in range(len(rank_w)):
+                        j = 32 * w + lane
+                        kk = key[j]
+                        before = run[kk] + sum(sizes[v].get(kk, 0)
+                                               for v in range(w))
+                        if rank_w[lane] == 0 and not any(
+                                kk in sizes[v]
+                                for v in range(w + 1, len(sizes))):
+                            new_run[kk] = before + sizes[w][kk]
+                            cell = b * cb + kk
+                            count[cell] = cnt0[j] + max(
+                                0, min(c - cnt0[j], new_run[kk]))
+                        slot = cnt0[j] + before + rank_w[lane]
+                        if slot < c:
+                            cell = b * cb + kk
+                            data[:, cell, slot] = payload[mi[j]]
+                            src[cell, slot] = msrc[mi[j]]
+                            size[cell, slot] = msize[mi[j]]
+                        else:
+                            dropped += 1
+                run = new_run
+    return dropped
+
+
+def _route_model_cases():
+    """The route cases of the tests above (random 40 and 600, arrivals
+    past the ring, the full-cell drop order, the same-cell tie break),
+    plus three tiles of messages over 300 destinations."""
+    cases = {}
+    for m in (40, 600):
+        rng = np.random.default_rng(m)
+        ring = _ring(rng, 1, 2, 32, 16, 3, fill=1)
+        cases[f"random{m}"] = (ring, _messages(rng, m, 16, 32, 2, 5))
+    rng = np.random.default_rng(5)
+    ring = _ring(rng, 1, 2, 16, 16, 3, fill=1)
+    msg = list(_messages(rng, 300, 16, 16, 2, 6))
+    msg[0] = msg[0] + 7 * 16
+    cases["past_ring"] = (ring, tuple(msg))
+    msrc = np.arange(8, dtype=np.int32)
+    cases["full_cell"] = (
+        _ring(np.random.default_rng(0), 1, 2, 8, 8, 4, fill=0),
+        (np.full(8, 3, np.int32), np.zeros(8, np.int32), msrc,
+         np.full(8, 5, np.int32), np.stack([msrc, msrc], 1),
+         np.ones(8, bool)))
+    msrc = np.arange(6, dtype=np.int32)[::-1].copy()
+    cases["tie_break"] = (
+        _ring(np.random.default_rng(1), 1, 3, 8, 6, 8, fill=0),
+        (np.full(6, 2, np.int32), np.full(6, 4, np.int32), msrc,
+         np.ones(6, np.int32), np.stack([msrc] * 3, 1), np.ones(6, bool)))
+    rng = np.random.default_rng(8)
+    ring = _ring(rng, 1, 2, 16, 300, 4, fill=1)
+    cases["three_tiles"] = (ring, _messages(rng, 2500, 300, 16, 2, 300))
+    return cases
+
+
+@pytest.mark.parametrize("cells", ["kernel", 16], ids=["cb_kernel",
+                                                       "cb_16"])
+@pytest.mark.parametrize("case", ["random40", "random600", "past_ring",
+                                  "full_cell", "tie_break", "three_tiles"])
+def test_route_bucket_model(case, cells):
+    """The route kernel's index math, rehearsed in numpy: the bucket
+    lists, read bucket by bucket as the rank kernel reads them, are the
+    stable argsort of the valid messages by bucket; ranking them as the
+    rank kernel does reproduces `bin_into_ring_plain` (tile groups of 2
+    in a second pass, to walk several groups).  Once with the kernel's
+    cells per bucket, once with 16, for many buckets."""
+    tile = _route_consts()["TILE"]
+    ring, (arrival, dest, msrc, msize, payload, valid) = \
+        _route_model_cases()[case]
+    _, f, hz, n, c = ring[0].shape
+    cb = _cells_per_bucket(hz * n) if cells == "kernel" else cells
+    lidx, lkey, lcnt, off = _bucket_model(arrival, dest, valid, ring[3][0],
+                                          cb)
+    lists = np.concatenate([_bucket_members(lidx, off, b, tile)
+                            for b in range(off.shape[1] - 1)])
+    members = np.nonzero(valid)[0]
+    cell = (arrival[members] % hz) * n + dest[members]
+    want = members[np.argsort(cell // cb, kind="stable")]
+    np.testing.assert_array_equal(lists, want)
+
+    plain = [torch.tensor(a) for a in ring]
+    dp = route.bin_into_ring_plain(
+        *plain, torch.tensor(arrival)[None],
+        *[torch.tensor(a)[None] for a in (dest, msrc, msize, payload,
+                                          valid)])
+    for rt in (None, 2):
+        model = [a.copy() for a in ring]
+        dm = _rank_model(model, lidx, lkey, lcnt, off, cb, msrc, msize,
+                         payload, rt)
+        for name, a, b in zip(("data", "src", "size", "count"), plain,
+                              model):
+            _eq(b, a, f"{name} (rt {rt})")
+        assert dm == int(dp[0])
+
+
+def test_route_cells_per_bucket():
+    """Buckets hold CB_MIN cells until the ring has more than
+    CB_MIN x MAX_B cells, then grow (in multiples of 16) so that there
+    are at most MAX_B."""
+    k = _route_consts()
+    assert _cells_per_bucket(256 * 2048) == k["CB_MIN"]
+    big = 3 * k["CB_MIN"] * k["MAX_B"] + 5
+    cb = _cells_per_bucket(big)
+    assert cb % 16 == 0 and -(-big // cb) <= k["MAX_B"]
+
+
+def _route_cuda_vs_plain(ring, msg):
+    dev = _cuda()
+    plain = [torch.tensor(a) for a in ring]
+    kern = [torch.tensor(a, device=dev) for a in ring]
+    dp = route.bin_into_ring(*plain, *[torch.tensor(a) for a in msg])
+    dk = route.bin_into_ring(*kern, *[torch.tensor(a, device=dev)
+                                      for a in msg])
+    torch.cuda.synchronize()
+    for a, b in zip(plain + [dp], kern + [dk]):
+        assert torch.equal(a, b.cpu())
+    return int(dp.sum())
+
+
+def _route_cuda_case(name):
+    """(ring, messages [R, ...]) for the route kernel's layout limits."""
+    k = _route_consts()
+    rng = np.random.default_rng(len(name))
+    if name == "one_cell":              # one bucket holds all of M
+        hz, n, c, f, m = 16, 64, 6, 2, 20000
+        msg = list(_messages(rng, m, n, hz, f, n))
+        msg[0][:], msg[1][:], msg[5][:] = 7 + 3 * hz, 33, True
+    elif name == "ragged_tile":         # M not a multiple of the tile
+        hz, n, c, f, m = 32, 256, 4, 3, 3 * k["TILE"] + 77
+        msg = list(_messages(rng, m, n, hz, f, n))
+    elif name == "no_valid":
+        hz, n, c, f, m = 32, 256, 4, 3, 5000
+        msg = list(_messages(rng, m, n, hz, f, n))
+        msg[5][:] = False
+    elif name == "max_buckets":         # MAX_B buckets of CB_MIN cells
+        hz, n, c, f, m = 64, k["CB_MIN"] * k["MAX_B"] // 64, 2, 1, 60000
+        msg = list(_messages(rng, m, n, hz, f, n))
+        msg[1][: m // 10] = rng.integers(0, 40, m // 10)
+    else:                               # "tables_in_scratch": wider ring
+        hz, n, c, f, m = 2, 9_000_000, 1, 1, 60000
+        msg = list(_messages(rng, m, n, hz, f, n))
+        msg[0][: m // 10], msg[1][: m // 10] = 5, 123    # one deep cell
+    ring = _ring(rng, 1, f, hz, n, c, fill=1)
+    return ring, [a[None] for a in msg]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_cell", "ragged_tile", "no_valid",
+                                  "max_buckets", "tables_in_scratch"])
+def test_cuda_route_layouts(case):
+    """The route kernel bit-equal to its plain version where its layout
+    has limits: one bucket holding every message, a ragged last tile,
+    no valid message, the most buckets (the bucket kernel's largest
+    table), and a ring so wide that a bucket's tables go to device
+    scratch (the rank kernel's second path)."""
+    ring, msg = _route_cuda_case(case)
+    drops = _route_cuda_vs_plain(ring, msg)
+    if case == "one_cell":
+        assert drops > 0
+    if case == "no_valid":
+        assert drops == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,levels", [(64, 5, 7), (4096, 16, 13)],
+                         ids=["odd_q_w2", "q16_w128"])
+def test_cuda_gsf_score_shapes(n, q, levels):
+    """W 2 with odd Q (rows not 16-byte multiples: the ordinary-load
+    path) and the GSF path's Q 16, W 128 (bulk copies), with node ids
+    not equal to the row index."""
+    dev = _cuda()
+    rng = np.random.default_rng(n + q)
+    w = n // 32
+    args = [rng.integers(0, 2 ** 32, (n, q, w), dtype=np.uint32),
+            rng.integers(0, levels, (n, q)).astype(np.int32),
+            rng.permutation(n).astype(np.int32)] + [
+        rng.integers(0, 2 ** 32, (n, w), dtype=np.uint32) for _ in range(2)]
+    plain = score.gsf_score(*[_i32(a) for a in args])
+    kern = score.gsf_score(*[_i32(a).to(dev) for a in args])
+    torch.cuda.synchronize()
+    for a, b in zip(plain, kern):
+        assert torch.equal(a, b.cpu())

@@ -30,11 +30,14 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 #: C signature of every kernel entry point: name -> argtypes (each
-#: returns the launch's cudaError_t as an int)
+#: returns the launch's cudaError_t as an int, unless RESTYPES says
+#: otherwise)
 SIGNATURES = {
     # arrival, dest, valid, msrc, msize, payload, data, src, size, count,
-    # dropped, R, M, F, H, N, C, stream
-    "wtpu_route": [P] * 11 + [I] * 6 + [P],
+    # dropped, scratch, R, M, F, H, N, C, stream
+    "wtpu_route": [P] * 12 + [I] * 6 + [P],
+    # R, M, F, H, N -> int32 elements of scratch wtpu_route needs
+    "wtpu_route_scratch": [I] * 5,
     # q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank, ok, sig_all,
     # o_from, o_lvl, o_rank, o_bad, o_sig, o_evicted, M, Q, S, W, stream
     "wtpu_merge": [P] * 16 + [I] * 4 + [P],
@@ -49,6 +52,9 @@ SIGNATURES = {
     # pc_wi, pc_wv, inter_ind, M, Q, W, stream
     "wtpu_gsf_score": [P] * 11 + [I] * 3 + [P],
 }
+
+#: entry points that return something else than an error code
+RESTYPES = {"wtpu_route_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -130,7 +136,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = handle
     return _lib
 

@@ -97,9 +97,10 @@ def bin_into_ring(data, src, size, count, arrival, dest, msrc, msize,
     """Bin one batch of messages into the ring; the ring planes and
     count are updated IN PLACE.  Returns dropped [R] int32.
 
-    A CUDA tensor launches `csrc/route.cu` on the current stream; a CPU
-    tensor runs `bin_into_ring_plain`.  `bin_into_ring.launches` counts
-    kernel launches."""
+    A CUDA tensor launches `csrc/route.cu` (its two phases, bucketing
+    and ranking, with scratch allocated here) on the current stream; a
+    CPU tensor runs `bin_into_ring_plain`.  `bin_into_ring.launches`
+    counts calls that launched the kernel."""
     _check(data, src, size, count, arrival, dest, msrc, msize, payload,
            valid)
     if data.device.type == "cpu":
@@ -109,14 +110,18 @@ def bin_into_ring(data, src, size, count, arrival, dest, msrc, msize,
         raise ValueError(f"bin_into_ring: no kernel for {data.device}")
     r_, f_, hz, n, c = data.shape
     m = arrival.shape[1]
-    dropped = torch.zeros(r_, dtype=I32, device=data.device)
     lib = _build.lib()
+    # The kernel sets dropped to 0 before it adds the drops.
+    dropped = torch.empty(r_, dtype=I32, device=data.device)
+    scratch = torch.empty(lib.wtpu_route_scratch(r_, m, f_, hz, n), dtype=I32,
+                          device=data.device)
     err = lib.wtpu_route(
         arrival.data_ptr(), dest.data_ptr(), valid.data_ptr(),
         msrc.data_ptr(),
         msize.data_ptr(), payload.data_ptr(), data.data_ptr(),
         src.data_ptr(), size.data_ptr(), count.data_ptr(),
-        dropped.data_ptr(), r_, m, f_, hz, n, c, _build.stream_of(data))
+        dropped.data_ptr(), scratch.data_ptr(), r_, m, f_, hz, n, c,
+        _build.stream_of(data))
     _build.check(err, "wtpu_route")
     bin_into_ring.launches += 1
     return dropped
