@@ -32,7 +32,8 @@ It prints one JSON line per kernel, the ``{"kernels": [...]}`` summary,
 the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  ``--profile MS`` also profiles MS
 simulated ms of each path with `torch.profiler` (Handel from t=600, GSF
-from t=300, the busiest stretches) and writes the tables to
+from t=300, the busiest stretches), reports the device us a simulated
+ms of each path's kernels by name, and writes the tables to
 ``--profile-file`` and ``--profile-gsf-file``.
 """
 
@@ -363,7 +364,9 @@ def phase_score(dev, rng):
     err = max_abs_err(plain, kern)
     if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
         fail(f"score kernel differs from its plain version (max err {err})")
-    nbytes = 4 * (m * q * w + m * q + m + 3 * m * w + 4 * m * q)
+    # Inputs: sig plane, levels, ids, three rows; outputs: three int32
+    # and one bool [M, Q].
+    nbytes = 4 * (m * q * w + m * q + m + 3 * m * w + 3 * m * q) + m * q
     return dict(err=err, ms=device_ms(lambda: score_queue(*args),
                                       "score_kernel", cold()),
                 warm_ms=device_ms(lambda: score_queue(*args),
@@ -679,10 +682,20 @@ def gsf_golden_and_determinism(dev, final_np):
     log(f"GSF determinism: two runs of seed 0 identical at {GSF_MS} ms")
 
 
-def profile(proto, start, ms, path):
+#: kernel names (substrings of the profiler's keys) whose device time
+#: a simulated ms `--profile` reports for each path
+PROFILE_KERNELS = {
+    "handel": {"route": "route_", "merge": "merge_kernel",
+               "score": "score_kernel"},
+    "gsf": {"route": "route_", "gsf_merge": "gsf_merge_kernel",
+            "gsf_score": "gsf_score_kernel"}}
+
+
+def profile(proto, start, ms, path, kernels):
     """torch.profiler over `ms` simulated ms of `proto` from t = `start`;
-    the table goes to `path`.  Returns the device-busy share and the
-    PyTorch ops a simulated ms."""
+    the table goes to `path`.  Returns the device-busy share, the
+    PyTorch ops a simulated ms and the device us a simulated ms of each
+    of `kernels` (name -> substring of its kernels' names)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -709,11 +722,16 @@ def profile(proto, start, ms, path):
                 f"time {dev_us / 1e6:.6f} s, aten ops {ops}\n")
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     busy = dev_us / 1e6 / wall
+    per_ms = {k: kernel_device_us(ka, match) / ms
+              for k, match in kernels.items()}
     log(f"profile {type(proto).__name__}: {ms} ms from t={start}, wall "
         f"{wall:.6f} s, device busy {dev_us / 1e6:.6f} s "
-        f"({100 * busy:.1f}%), {ops / ms:.0f} aten ops a simulated ms")
+        f"({100 * busy:.1f}%), {ops / ms:.0f} aten ops a simulated ms, "
+        f"device {dev_us / ms:.2f} us a simulated ms, of which kernels "
+        f"(us) {json.dumps(per_ms)}")
     return dict(wall_s=wall, device_s=dev_us / 1e6, busy=busy,
-                aten_ops_per_ms=ops / ms)
+                aten_ops_per_ms=ops / ms, device_us_per_ms=dev_us / ms,
+                kernel_us_per_ms=per_ms)
 
 
 # ------------------------------------------------------------------ main
@@ -795,10 +813,10 @@ def main(argv=None) -> int:
             Handel, reference_default_params)
         profiles["handel"] = profile(
             Handel(**reference_default_params(N_NODES), device=dev), 600,
-            args.profile, args.profile_file)
+            args.profile, args.profile_file, PROFILE_KERNELS["handel"])
         profiles["gsf"] = profile(
             GSFSignature(node_count=GSF_NODES, device=dev), 300,
-            args.profile, args.profile_gsf_file)
+            args.profile, args.profile_gsf_file, PROFILE_KERNELS["gsf"])
 
     path_ms = {"handel": MAIN_MS, "gsf": GSF_MS}
     path_launches = {"handel": launches, "gsf": glaunches}

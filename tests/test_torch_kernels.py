@@ -806,3 +806,232 @@ def test_cuda_gsf_score_shapes(n, q, levels):
     torch.cuda.synchronize()
     for a, b in zip(plain, kern):
         assert torch.equal(a, b.cpu())
+
+
+# ------------------------------ merge and score kernels' warp designs
+
+
+def _warp_merge_model(case):
+    """numpy model of `csrc/merge.cu`'s narrow path, one warp per row:
+    lane c holds candidate c; its match group is the lanes with the same
+    (from, lvl) (`__match_any_sync`); an ok inbox lane is dropped if its
+    group holds a later ok inbox lane, a queued lane if its group holds a
+    kept inbox lane; output position = count of smaller keys; columns and
+    sig rows gathered through the position map."""
+    q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all, ok, \
+        sig_all = case
+    n, q = q_from.shape
+    s = src.shape[1]
+    c_all = q + s
+    big0 = 0x7FFFFF00
+    out = [np.zeros((n, q), np.int32) for _ in range(3)] + [
+        np.zeros((n, q), bool), np.zeros_like(q_sig)]
+    evicted = 0
+    for i in range(n):
+        frm = np.concatenate([q_from[i], src[i]]).astype(np.int64)
+        lvl = np.concatenate([q_lvl[i], level[i]]).astype(np.int64)
+        rnk = np.concatenate([q_rank[i], rank_all[i]]).astype(np.int64)
+        bad = np.concatenate([q_bad[i], np.zeros(s, bool)])
+        lane = np.arange(c_all)
+        inbox = lane >= q
+        raw_ok = np.concatenate([np.zeros(q, bool), ok[i]])
+        key64 = (frm & 0xFFFFFFFF) << 32 | (lvl & 0xFFFFFFFF)
+        peers = key64[:, None] == key64[None, :]          # [lane, other]
+        ok_in = inbox & raw_ok
+        keep_inc = ok_in & ~(peers & ok_in[None, :] &
+                             (lane[None, :] > lane[:, None])).any(1)
+        ex_keep = ~inbox & (frm >= 0) & ~(peers & keep_inc[None, :]).any(1)
+        valid = np.where(inbox, keep_inc, ex_keep)
+        key = np.where(valid, rnk * (c_all + 1) + lane, big0 + lane)
+        pos = (key[None, :] < key[:, None]).sum(1)
+        from_c = np.zeros(q, np.int64)
+        from_c[pos[pos < q]] = lane[pos < q]
+        evicted += int(ex_keep.sum() - (ex_keep & (pos < q)).sum())
+        out[0][i] = np.where(valid, frm, -1)[from_c]
+        out[1][i] = lvl[from_c]
+        out[2][i] = rnk[from_c]
+        out[3][i] = bad[from_c]
+        rows = np.concatenate([q_sig[i], sig_all[i]])
+        out[4][i] = rows[from_c]
+    return out + [np.int32(evicted)]
+
+
+@pytest.mark.parametrize("q_cap,s_cap,w,seed", [(16, 12, 64, 0),
+                                                (8, 4, 2, 1), (4, 16, 8, 2),
+                                                (16, 16, 4, 3)])
+def test_merge_warp_model(q_cap, s_cap, w, seed):
+    """The merge kernel's warp arithmetic (match groups for dup and
+    supersede, position = count of smaller keys) against the plain
+    version, on random rows with planted collisions, empty and full
+    queues among them."""
+    rng = np.random.default_rng(40 + seed)
+    case = _merge_case(rng, 48, q_cap, s_cap, w, n_ids=64, dup_rate=0.3)
+    case[0][:4] = -1                                    # empty queues
+    case[0][4:8] = np.abs(case[0][4:8])                 # full queues
+    got = _warp_merge_model(case)
+    want = merge.merge_queue_plain(*[_i32(a) for a in case])
+    for name, a, b in zip(("from", "lvl", "rank", "bad", "sig", "evicted"),
+                          want, got):
+        _eq(b, a, name)
+
+
+def _level_range(ids, lvl):
+    """`level_range` of csrc/warp_util.cuh, elementwise: the range's first
+    word w0, its word count nw and the word mask pm."""
+    ids = ids.astype(np.int64)
+    lvl = lvl.astype(np.int64)
+    h = np.where(lvl > 0, 1 << np.clip(lvl - 1, 0, 30), 0)
+    h_nz = np.maximum(h, 1)
+    base = np.where(h > 0, (ids & ~(2 * h_nz - 1)) +
+                    np.where(ids & h_nz, 0, h_nz), 0)
+    nw = np.where(h >= 32, h >> 5, 1)
+    pm = np.where(h >= 32, 0xFFFFFFFF,
+                  np.where(h == 0, 0, ((1 << np.minimum(h, 31)) - 1)
+                           << (base & 31))) & 0xFFFFFFFF
+    return base >> 5, nw, pm
+
+
+def _popc(a):
+    a = a.astype(np.uint64)
+    return np.unpackbits(a.astype(np.uint32).view(np.uint8)).reshape(
+        a.shape + (32,)).sum(-1).astype(np.int64)
+
+
+def _warp_score_model(sig, lvl, ids, inc, ver, agg):
+    """numpy model of `csrc/score.cu`'s vector path: pc_sig over every
+    word; x_all = popc((inc_e | ver_e) & ~sig), x_sv = popc(ver_e & ~sig)
+    and the hit flags over the 16-byte vectors of the level range only;
+    the lanes' sums packed two fields a word as the kernel packs them
+    (each field checked against its width); s_inc = hit_inc ? n_sv :
+    n_all."""
+    m, q, w = sig.shape
+    nv = w // 4
+    sig = sig.astype(np.uint32)
+    w0, nw, pm = _level_range(np.repeat(ids[:, None], q, 1), lvl)
+    word = np.arange(w)
+    em = np.where((word[None, None] >= w0[..., None]) &
+                  (word[None, None] < (w0 + nw)[..., None]), pm[..., None],
+                  0).astype(np.uint32)
+    vec = np.arange(nv)
+    in_rng = ((4 * vec[None, None] < (w0 + nw)[..., None]) &
+              (4 * vec[None, None] + 4 > w0[..., None]) &
+              (pm != 0)[..., None])                       # [m, q, nv]
+    in_word = np.repeat(in_rng, 4, -1)
+    inc_e = inc.astype(np.uint32)[:, None] & em
+    ver_e = ver.astype(np.uint32)[:, None] & em
+    agg_e = agg.astype(np.uint32)[:, None] & em
+    n_sig = _popc(sig).sum(-1)
+    x_all = np.where(in_word, _popc((inc_e | ver_e) & ~sig), 0).sum(-1)
+    x_sv = np.where(in_word, _popc(ver_e & ~sig), 0).sum(-1)
+    hit_inc = (np.where(in_word, sig & inc_e, 0).reshape(m, q, nv, 4) != 0
+               ).any(-1).sum(-1)
+    hit_agg = (np.where(in_word, sig & agg_e, 0).reshape(m, q, nv, 4) != 0
+               ).any(-1).sum(-1)
+    assert n_sig.max() < 1 << 16 and x_sv.max() < 1 << 16
+    assert x_all.max() < 1 << 16 and max(hit_inc.max(), hit_agg.max()) < 256
+    p1 = (n_sig + (x_sv << 16)) & 0xFFFFFFFF
+    p2 = (x_all + (hit_inc << 16) + (hit_agg << 24)) & 0xFFFFFFFF
+    pc_sig = p1 & 0xFFFF
+    n_sv = pc_sig + (p1 >> 16)
+    n_all = pc_sig + (p2 & 0xFFFF)
+    s_inc = np.where((p2 >> 16) & 0xFF, n_sv, n_all)
+    return s_inc, pc_sig, n_sv, (p2 >> 24) != 0
+
+
+@pytest.mark.parametrize("n,q,w,fill", [(2048, 4, 64, None),
+                                        (256, 8, 8, None),
+                                        (4096, 3, 128, None),
+                                        (8192, 2, 256, None),
+                                        (2048, 4, 64, 0),
+                                        (2048, 4, 64, 0xFFFFFFFF)])
+def test_score_range_model(n, q, w, fill):
+    """The score kernel's range-only identities for n_all, n_sv and the
+    two hits, with its packed sums, against the plain version: every
+    level 0..log2(n) present, node ids spread over n, random rows or
+    all-zero / all-ones sigs against all-ones / all-zero rows."""
+    rng = np.random.default_rng(n + q + w)
+    levels = int(np.log2(n)) + 1
+    m = 48
+    ids = rng.choice(n, m, replace=False).astype(np.int32)
+    lvl = rng.integers(0, levels, (m, q)).astype(np.int32)
+    lvl.reshape(-1)[:levels] = np.arange(levels)
+    if fill is None:
+        sig = rng.integers(0, 2 ** 32, (m, q, w), dtype=np.uint32)
+        rows = [rng.integers(0, 2 ** 32, (m, w), dtype=np.uint32)
+                for _ in range(3)]
+    else:
+        sig = np.full((m, q, w), fill, np.uint32)
+        rows = [np.full((m, w), 0xFFFFFFFF - fill, np.uint32),
+                np.full((m, w), 0xFFFFFFFF, np.uint32),
+                np.full((m, w), 0xFFFFFFFF - fill, np.uint32)]
+    got = _warp_score_model(sig, lvl, ids, *rows)
+    want = score.score_queue_plain(*[_i32(a) for a in (sig, lvl, ids,
+                                                        *rows)])
+    for name, a, b in zip(("s_inc", "pc_sig", "pc_sv", "inter_agg"), want,
+                          got):
+        _eq(b, a, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,s,w,offset", [
+    (2048, 16, 12, 64, 0), (512, 32, 32, 64, 0), (64, 8, 4, 2, 0),
+    (256, 16, 12, 8, 0), (512, 16, 16, 128, 0), (512, 16, 12, 64, 1)],
+    ids=["path", "c64_wide", "w2", "w8", "w128", "unaligned"])
+def test_cuda_merge_shapes(n, q, s, w, offset):
+    """The merge kernel bit-equal to its plain version: at the Handel
+    path's shapes; at C = 64 > 32 (the wide path); at W 2 (word-by-word
+    gather), W 8 and W 128; and with sig rows 4 bytes off a 16-byte
+    boundary (the word-by-word gather at W 64)."""
+    dev = _cuda()
+    rng = np.random.default_rng(n + q + s + w + offset)
+    case = _merge_case(rng, n, q, s, w, n_ids=max(64, n))
+    case[0][:8] = -1
+    case[0][8:16] = np.abs(case[0][8:16])
+    plain = merge.merge_queue(*[_i32(a) for a in case])
+    args = [_i32(a).to(dev) for a in case]
+    if offset:
+        for i in (4, 9):                # sig planes at an odd word offset
+            flat = torch.empty(args[i].numel() + offset, dtype=torch.int32,
+                               device=dev)
+            args[i] = flat[offset:].view(args[i].shape).copy_(args[i])
+    kern = merge.merge_queue(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, kern):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,w,fill", [
+    (2048, 16, 64, None), (2048, 16, 64, 0), (2048, 16, 64, 0xFFFFFFFF),
+    (64, 5, 2, None), (256, 16, 8, None), (4096, 16, 128, None),
+    (8192, 16, 256, None), (32768, 3, 1024, None)],
+    ids=["path", "path_zero", "path_ones", "w2", "w8", "w128", "w256",
+         "w1024"])
+def test_cuda_score_shapes(n, q, w, fill):
+    """The score kernel bit-equal to its plain version, every level
+    0..log2(n) present, node ids permuted: at the path's shapes with
+    random, all-zero and all-ones sigs (against all-ones and all-zero
+    rows); W 2 (ordinary loads), W 8 (sixteen entries a pass), W 128 (one
+    entry a pass), W 256 (two vectors a lane), W 1024 (beyond the packed
+    sums: ordinary loads)."""
+    dev = _cuda()
+    rng = np.random.default_rng(n + q + w)
+    levels = int(np.log2(n)) + 1
+    m = min(n, 2048)
+    ids = rng.permutation(n)[:m].astype(np.int32)
+    lvl = rng.integers(0, levels, (m, q)).astype(np.int32)
+    lvl.reshape(-1)[:levels] = np.arange(levels)
+    if fill is None:
+        sig = rng.integers(0, 2 ** 32, (m, q, w), dtype=np.uint32)
+        rows = [rng.integers(0, 2 ** 32, (m, w), dtype=np.uint32)
+                for _ in range(3)]
+    else:
+        sig = np.full((m, q, w), fill, np.uint32)
+        rows = [np.full((m, w), 0xFFFFFFFF - fill, np.uint32)] * 3
+    args = [sig, lvl, ids] + rows
+    plain = score.score_queue(*[_i32(a) for a in args])
+    kern = score.score_queue(*[_i32(a).to(dev) for a in args])
+    torch.cuda.synchronize()
+    assert kern[3].dtype == torch.bool
+    for a, b in zip(plain, kern):
+        assert torch.equal(a, b.cpu())

@@ -28,7 +28,8 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "kernel_ab.py"]
     assert len(files) > 10
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p)
@@ -73,3 +74,15 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_kernel_ab_fails_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "kernel_ab.py", "merge"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and not out.stdout

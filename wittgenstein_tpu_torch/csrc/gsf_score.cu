@@ -49,6 +49,10 @@
 
 #include <algorithm>
 
+#include "warp_util.cuh"
+
+using namespace wtpu;
+
 namespace {
 
 constexpr int WARPS = 4;                  // nodes in flight per block
@@ -56,31 +60,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int STAGES = 2;
 constexpr int STAGE_MAX = 5 * 1024;       // bytes of one stage
 constexpr unsigned FULL = 0xffffffffu;
-
-// The level-l mask of node id covers words [w0, w0 + nw) with the same
-// word mask pm in each: the range [base, base + half) is aligned to its
-// power-of-two length, so it is either whole words or inside one word.
-struct Range {
-  int w0, nw;
-  unsigned pm;
-};
-
-__device__ __forceinline__ Range level_range(int id, int lvl) {
-  const int h = lvl > 0 ? 1 << min(max(lvl - 1, 0), 30) : 0;
-  const int h_nz = max(h, 1);
-  const int base =
-      h > 0 ? (id & ~(2 * h_nz - 1)) + ((id & h_nz) ? 0 : h_nz) : 0;
-  Range rg;
-  rg.w0 = base >> 5;
-  rg.nw = h >= 32 ? h >> 5 : 1;
-  rg.pm = h >= 32 ? 0xffffffffu
-                  : h == 0 ? 0u : ((1u << h) - 1u) << (base & 31);
-  return rg;
-}
-
-__device__ __forceinline__ unsigned emask_of(const Range& rg, int w) {
-  return (unsigned)(w - rg.w0) < (unsigned)rg.nw ? rg.pm : 0u;
-}
 
 // ----------------------------------------------- ordinary-load path
 
@@ -101,34 +80,6 @@ __device__ __forceinline__ void acc_word(Acc& a, unsigned sig, unsigned ver,
 }
 
 // ------------------------------------------------------ bulk path
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         unsigned bytes,
-                                         unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(unsigned long long* bar,
-                                         unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 template <bool kBulk>
 __global__ void __launch_bounds__(THREADS, 6)
@@ -168,11 +119,7 @@ gsf_score_kernel(const unsigned* __restrict__ q_sig,
     // The stage was last read with ordinary loads: order those reads
     // before the async proxy writes it again.
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-            smem_u32(b)),
-        "r"(row * (2u + (unsigned)nq))
-        : "memory");
+    bar_expect(b, row * (2u + (unsigned)nq));
     bulk_g2s(st, ver + (size_t)m * W, row, b);
     bulk_g2s(st + W, ind + (size_t)m * W, row, b);
     bulk_g2s(st + 2 * W, q_sig + ((size_t)m * Q + q0) * W, row * nq, b);
@@ -180,12 +127,8 @@ gsf_score_kernel(const unsigned* __restrict__ q_sig,
 
   if (kBulk) {
     if (lane == 0) {
-      for (int s = 0; s < STAGES; ++s)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                         smem_u32(bar + s)),
-                     "r"(1)
-                     : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int s = 0; s < STAGES; ++s) bar_init(bar + s);
+      bar_init_fence();
       for (long long p = 0; p < pieces && p < STAGES; ++p) fetch(p);
     }
     __syncwarp();
@@ -297,8 +240,6 @@ gsf_score_kernel(const unsigned* __restrict__ q_sig,
     }
   }
 }
-
-bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
 }  // namespace
 

@@ -42,7 +42,7 @@ SIGNATURES = {
     # o_from, o_lvl, o_rank, o_bad, o_sig, o_evicted, M, Q, S, W, stream
     "wtpu_merge": [P] * 16 + [I] * 4 + [P],
     # q_sig, q_lvl, ids, total_inc, ver_ind, last_agg, s_inc, pc_sig,
-    # pc_sv, inter_agg, M, Q, W, stream
+    # pc_sv, inter_agg (bool), M, Q, W, stream
     "wtpu_score": [P] * 10 + [I] * 3 + [P],
     # q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok, ind_ok,
     # sig_all, o_from, o_lvl, o_indiv, o_sig, o_got, o_kept, M, Q, S, W,

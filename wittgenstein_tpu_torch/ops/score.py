@@ -56,7 +56,9 @@ def score_queue(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg):
     """Per-entry verification summaries.  q_sig [M, Q, W] int32 words,
     q_lvl [M, Q], ids [M] (global node ids), bitset rows [M, W].
     Returns (s_inc, pc_sig, pc_sig_ver) int32 [M, Q] and inter_agg bool
-    [M, Q].  `score_queue.launches` counts kernel launches."""
+    [M, Q].  The kernel writes inter_agg as bytes, so the launch is the
+    only op besides the allocations.  `score_queue.launches` counts
+    kernel launches."""
     _check("score_queue", q_sig, q_lvl, ids, total_inc=total_inc,
            ver_ind=ver_ind, last_agg=last_agg)
     if q_sig.device.type == "cpu":
@@ -65,8 +67,8 @@ def score_queue(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg):
     if q_sig.device.type != "cuda":
         raise ValueError(f"score_queue: no kernel for {q_sig.device}")
     m, q, w = q_sig.shape
-    s_inc, pc_sig, pc_sv, inter = (torch.empty_like(q_lvl)
-                                   for _ in range(4))
+    s_inc, pc_sig, pc_sv = (torch.empty_like(q_lvl) for _ in range(3))
+    inter = torch.empty(q_lvl.shape, dtype=torch.bool, device=q_lvl.device)
     err = _build.lib().wtpu_score(
         q_sig.data_ptr(), q_lvl.data_ptr(), ids.data_ptr(),
         total_inc.data_ptr(), ver_ind.data_ptr(), last_agg.data_ptr(),
@@ -74,7 +76,7 @@ def score_queue(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg):
         inter.data_ptr(), m, q, w, _build.stream_of(q_sig))
     _build.check(err, "wtpu_score")
     score_queue.launches += 1
-    return s_inc, pc_sig, pc_sv, inter != 0
+    return s_inc, pc_sig, pc_sv, inter
 
 
 score_queue.launches = 0
