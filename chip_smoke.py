@@ -26,15 +26,31 @@ Phases (any failure exits non-zero; nothing is caught):
    package's golden digest at 200 ms and the first run's final state
    at 1000 ms;
 4b. a second GSF run of seed 0 matches the JAX golden digest and the
-   first run's state at 600 ms.
+   first run's state at 600 ms;
+5. the benchmark headline (`bench_torch.py`'s path): 16 seeds of the
+   2048-node Handel in one batch on the seed-folded engine
+   (`core/batched.scan_chunk_batched`, superstep K=2, phase hints,
+   t0_mod=0), five 200-ms chunks, counters reset just before; mean live
+   frac_done > 0.99 with zero drops, clamps and evictions, and route
+   launched once a K=2 window (500), merge once a ms (1000), score on
+   the verification ms (250), each launch for all 16 seeds;
+5b. a second batched run: every seed's state at 200 ms matches the JAX
+   golden digests, and at 1000 ms the first run's; seed 0 matches the
+   dense path's state of phase 3.
+
+Phase 2 holds route, merge and score at the headline's shapes too:
+route with R 16 on a K=2 window, merge and score through their vmap
+rules at 32,768 rows.
 
 It prints one JSON line per kernel, the ``{"kernels": [...]}`` summary,
 the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  ``--profile MS`` also profiles MS
-simulated ms of each path with `torch.profiler` (Handel from t=600, GSF
-from t=300, the busiest stretches), reports the device us a simulated
-ms of each path's kernels by name, and writes the tables to
-``--profile-file`` and ``--profile-gsf-file``.
+simulated ms of each path with `torch.profiler` (Handel and the
+headline from t=600, the headline's MS rounded up to its 20-ms schedule,
+GSF from t=300, the busiest stretches), reports the device us a
+simulated ms of each path's kernels by name, and writes the tables to
+``--profile-file``, ``--profile-gsf-file`` and
+``--profile-headline-file``.
 """
 
 from __future__ import annotations
@@ -54,6 +70,11 @@ GSF_NODES = 4096
 GSF_MS = 600
 GSF_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                           "golden_gsf4096_600ms.json")
+HEADLINE_SEEDS = 16
+HEADLINE_MS = 1000
+HEADLINE_CHUNK = 200
+HEADLINE_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                               "golden_handel2048_r16_k2_200ms.json")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
 
@@ -186,33 +207,35 @@ def max_abs_err(plain, kern):
 # ---------------------------------------------------------- kernel cases
 
 
-def route_case(dev, rng, hz=256, n=N_NODES, c=12, out_deg=21):
+def route_case(dev, rng, hz=256, n=N_NODES, c=12, out_deg=21, r=1,
+               hot=0.05, full_rows=8):
     """A path's shapes (Handel: R 1, F 3, H 256, N 2048, C 12 and M =
-    2048 x 21 messages; GSF: H 512, N 4096, C 16, M = 4096 x 22);
-    part-full and full cells, a few hot cells that overflow, invalid
-    messages interleaved."""
+    2048 x 21 messages; GSF: H 512, N 4096, C 16, M = 4096 x 22; the
+    headline: R 16 and one K=2 window, M = 2 x 2048 x 21 a seed);
+    part-full cells and `full_rows` rows of full ones, a share `hot` of
+    the messages sent to four hot cells that overflow, invalid messages
+    interleaved.  At R 1 the draws are those of a one-seed case with 1-D
+    message vectors."""
     import torch
-    r, f = 1, 3
+    f = 3
     m = n * out_deg
-    data = torch.tensor(rng.integers(0, 1 << 20, (r, f, hz, n, c)),
-                        dtype=torch.int32, device=dev)
-    src = torch.tensor(rng.integers(0, n, (r, hz, n, c)), dtype=torch.int32,
-                       device=dev)
-    size = torch.tensor(rng.integers(0, 300, (r, hz, n, c)),
-                        dtype=torch.int32, device=dev)
+
+    def i32(a):
+        return torch.tensor(a, dtype=torch.int32, device=dev)
+    data = i32(rng.integers(0, 1 << 20, (r, f, hz, n, c)))
+    src = i32(rng.integers(0, n, (r, hz, n, c)))
+    size = i32(rng.integers(0, 300, (r, hz, n, c)))
     count = rng.integers(0, 4, (r, hz, n))
-    count[:, :8] = c                                    # full rows
-    count = torch.tensor(count, dtype=torch.int32, device=dev)
-    arrival = rng.integers(0, hz, m) + 3 * hz           # rows wrap
-    dest = rng.integers(0, n, m)
-    hot = rng.random(m) < 0.05                          # overflowing cells
-    arrival[hot], dest[hot] = 100, rng.integers(0, 4, hot.sum())
-    msg = [torch.tensor(a[None], dtype=torch.int32, device=dev)
-           for a in (arrival, dest, rng.integers(0, n, m),
-                     rng.integers(1, 300, m))]
-    payload = torch.tensor(rng.integers(0, 1 << 20, (r, m, f)),
-                           dtype=torch.int32, device=dev)
-    valid = torch.tensor((rng.random(m) < 0.7)[None], device=dev)
+    count[:, :full_rows] = c
+    count = i32(count)
+    arrival = rng.integers(0, hz, (r, m)) + 3 * hz      # rows wrap
+    dest = rng.integers(0, n, (r, m))
+    to_hot = rng.random((r, m)) < hot                   # overflowing cells
+    arrival[to_hot], dest[to_hot] = 100, rng.integers(0, 4, to_hot.sum())
+    msg = [i32(a) for a in (arrival, dest, rng.integers(0, n, (r, m)),
+                            rng.integers(1, 300, (r, m)))]
+    payload = i32(rng.integers(0, 1 << 20, (r, m, f)))
+    valid = torch.tensor(rng.random((r, m)) < 0.7, device=dev)
     return [data, src, size, count], msg + [payload, valid]
 
 
@@ -220,16 +243,16 @@ def route_bytes(ring, msg, count_after):
     """Least bytes this batch needs: `valid` (bool) of every message,
     the arrival and dest of the valid ones, F + 2 words read and F + 2
     written per accepted message, the touched count cells read and
-    written, the drop counter written."""
+    written, the drop counters written."""
     import torch
     data = ring[0]
-    r, f = data.shape[:2]
-    hz, n = data.shape[2], data.shape[3]
+    r, f, hz, n = data.shape[:4]
     arrival, dest, _, _, _, valid = msg
-    v = valid[0]
-    cells = torch.unique((arrival[0][v].long() % hz) * n + dest[0][v])
+    seed = torch.arange(r, device=valid.device)[:, None].expand_as(valid)
+    cells = torch.unique(((seed * hz + arrival.long() % hz) * n +
+                          dest)[valid])
     accepted = int((count_after - ring[3]).sum())
-    return (valid.numel() * valid.element_size() + 8 * int(v.sum()) +
+    return (valid.numel() * valid.element_size() + 8 * int(valid.sum()) +
             4 * (2 * accepted * (f + 2) + 2 * cells.numel() + r))
 
 
@@ -269,7 +292,7 @@ def phase_route(dev, rng, **shape):
                 plain_ms=device_ms(plain_fn, None, reset),
                 call_ms=call_ms(kern_fn, reset),
                 plain_call_ms=call_ms(plain_fn, reset), nbytes=nbytes,
-                drops=int(dk[0]))
+                drops=int(dk.sum()))
 
 
 def merge_case(dev, rng):
@@ -321,60 +344,105 @@ def merge_bytes(args):
     return cols_in + cols_out + 2 * q_sig.numel() * q_sig.element_size() + 4
 
 
-def phase_merge(dev, rng):
+def phase_merge(dev, rng, seeds=None):
+    """K2 at the Handel path's shapes; with `seeds`, that many cases in
+    one batch through `merge_queue`'s vmap rule (one launch at seeds x
+    2048 rows, the headline's), against the plain version on the folded
+    rows."""
     import torch
-    from wittgenstein_tpu_torch.ops.merge import merge_queue, \
-        merge_queue_plain
-    args = merge_case(dev, rng)
-    plain = merge_queue_plain(*args)
-    kern = merge_queue(*args)
+    from wittgenstein_tpu_torch.ops.merge import (fold_seeds, merge_queue,
+                                                  merge_queue_plain)
+    if seeds is None:
+        args = flat = merge_case(dev, rng)
+
+        def kern_fn():
+            return merge_queue(*args)
+    else:
+        args = [torch.stack(a) for a in
+                zip(*(merge_case(dev, rng) for _ in range(seeds)))]
+        flat = [fold_seeds(a, 0, seeds) for a in args]
+
+        def kern_fn():
+            return torch.func.vmap(merge_queue)(*args)
+
+    def plain_fn():
+        return merge_queue_plain(*flat, seeds=seeds)
+    plain = plain_fn()
+    kern = [k.reshape(p.shape) for k, p in zip(kern_fn(), plain)]
     torch.cuda.synchronize()
     err = max_abs_err(plain, kern)
     if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
         fail(f"merge kernel differs from its plain version (max err {err})")
-    nbytes = merge_bytes(args)
-    return dict(err=err, ms=device_ms(lambda: merge_queue(*args),
-                                      "merge_kernel", cold()),
-                warm_ms=device_ms(lambda: merge_queue(*args),
-                                  "merge_kernel"),
-                plain_ms=device_ms(lambda: merge_queue_plain(*args)),
-                call_ms=call_ms(lambda: merge_queue(*args)),
-                plain_call_ms=call_ms(lambda: merge_queue_plain(*args)),
-                nbytes=nbytes, evicted=int(kern[5]))
+    nbytes = merge_bytes(flat) + 4 * ((seeds or 1) - 1)
+    return dict(err=err, ms=device_ms(kern_fn, "merge_kernel", cold()),
+                warm_ms=device_ms(kern_fn, "merge_kernel"),
+                plain_ms=device_ms(plain_fn), call_ms=call_ms(kern_fn),
+                plain_call_ms=call_ms(plain_fn), nbytes=nbytes,
+                evicted=int(kern[5].sum()))
 
 
-def phase_score(dev, rng):
+def phase_score(dev, rng, seeds=None):
+    """K3 at the Handel path's shapes; with `seeds`, a batch through
+    `score_queue`'s vmap rule (the node ids unbatched, as in the step),
+    against the plain version on the folded rows."""
     import numpy as np
     import torch
+    from wittgenstein_tpu_torch.ops.merge import fold_seeds
     from wittgenstein_tpu_torch.ops.score import score_queue, \
         score_queue_plain
     m, q, w = N_NODES, 16, N_NODES // 32
+    lead = () if seeds is None else (seeds,)
 
     def bits(*shape):
-        return torch.tensor(rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
-                            .view(np.int32), device=dev)
+        return torch.tensor(rng.integers(0, 2 ** 32, lead + shape,
+                                         dtype=np.uint32).view(np.int32),
+                            device=dev)
     args = [bits(m, q, w),
-            torch.tensor(rng.integers(0, 12, (m, q)), dtype=torch.int32,
-                         device=dev),
+            torch.tensor(rng.integers(0, 12, lead + (m, q)),
+                         dtype=torch.int32, device=dev),
             torch.arange(m, dtype=torch.int32, device=dev),
             bits(m, w), bits(m, w), bits(m, w)]
-    plain = score_queue_plain(*args)
-    kern = score_queue(*args)
+    if seeds is None:
+        flat = args
+
+        def kern_fn():
+            return score_queue(*args)
+    else:
+        dims = (0, 0, None, 0, 0, 0)
+        flat = [fold_seeds(a, d, seeds) for a, d in zip(args, dims)]
+
+        def kern_fn():
+            return torch.func.vmap(score_queue, in_dims=dims)(*args)
+
+    def plain_fn():
+        return score_queue_plain(*flat)
+    plain = plain_fn()
+    kern = [k.reshape(p.shape) for k, p in zip(kern_fn(), plain)]
     torch.cuda.synchronize()
     err = max_abs_err(plain, kern)
     if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
         fail(f"score kernel differs from its plain version (max err {err})")
     # Inputs: sig plane, levels, ids, three rows; outputs: three int32
-    # and one bool [M, Q].
+    # and one bool [M, Q]; M = all rows of the batch.
+    m = flat[2].numel()
     nbytes = 4 * (m * q * w + m * q + m + 3 * m * w + 3 * m * q) + m * q
-    return dict(err=err, ms=device_ms(lambda: score_queue(*args),
-                                      "score_kernel", cold()),
-                warm_ms=device_ms(lambda: score_queue(*args),
-                                  "score_kernel"),
-                plain_ms=device_ms(lambda: score_queue_plain(*args)),
-                call_ms=call_ms(lambda: score_queue(*args)),
-                plain_call_ms=call_ms(lambda: score_queue_plain(*args)),
-                nbytes=nbytes)
+    return dict(err=err, ms=device_ms(kern_fn, "score_kernel", cold()),
+                warm_ms=device_ms(kern_fn, "score_kernel"),
+                plain_ms=device_ms(plain_fn), call_ms=call_ms(kern_fn),
+                plain_call_ms=call_ms(plain_fn), nbytes=nbytes)
+
+
+def phase_route_headline(dev, rng):
+    """K1 on one K=2 window of the headline: R 16, M = 2 x 2048 x 21."""
+    return phase_route(dev, rng, out_deg=2 * 21, r=HEADLINE_SEEDS)
+
+
+def phase_merge_headline(dev, rng):
+    return phase_merge(dev, rng, seeds=HEADLINE_SEEDS)
+
+
+def phase_score_headline(dev, rng):
+    return phase_score(dev, rng, seeds=HEADLINE_SEEDS)
 
 
 def phase_route_gsf(dev, rng):
@@ -543,10 +611,25 @@ KERNELS = [
     ("gsf_score", "gsf_score", "gsf",
      "wittgenstein_tpu_torch/csrc/gsf_score.cu",
      "wittgenstein_tpu/ops/pallas_score.py:94", phase_gsf_score),
+    ("route_headline", "route", "headline",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_headline),
+    ("merge_headline", "merge", "headline",
+     "wittgenstein_tpu_torch/csrc/merge.cu",
+     "wittgenstein_tpu/ops/pallas_merge.py:55", phase_merge_headline),
+    ("score_headline", "score", "headline",
+     "wittgenstein_tpu_torch/csrc/score.cu",
+     "wittgenstein_tpu/ops/pallas_score.py:46", phase_score_headline),
 ]
-#: the wrappers each path must launch once per simulated ms
-PATH_KERNELS = {"handel": ("route", "merge", "score"),
-                "gsf": ("route", "gsf_merge", "gsf_score")}
+#: the launches each path's run must make, by wrapper (others: none).
+#: The per-ms paths launch each kernel once a simulated ms; the headline
+#: bins once a K=2 window, merges every ms and scores on the
+#: verification ms (t = 1 mod pairing 4), each launch for all seeds.
+PATH_LAUNCHES = {
+    "handel": {"route": MAIN_MS, "merge": MAIN_MS, "score": MAIN_MS},
+    "gsf": {"route": GSF_MS, "gsf_merge": GSF_MS, "gsf_score": GSF_MS},
+    "headline": {"route": HEADLINE_MS // 2, "merge": HEADLINE_MS,
+                 "score": HEADLINE_MS // 4}}
 
 
 # ------------------------------------------------------------- main path
@@ -591,14 +674,14 @@ def drive(proto, ms):
     return res, launches, convert.to_numpy(net, ps)
 
 
-def check_launches(path, launches, ms):
-    """Each kernel of the path launched once per simulated ms, the
-    others not at all."""
+def check_launches(path, launches):
+    """The path's kernels launched as PATH_LAUNCHES says, the others
+    not at all."""
     for name, count in launches.items():
-        want = ms if name in PATH_KERNELS[path] else 0
+        want = PATH_LAUNCHES[path].get(name, 0)
         if count != want:
-            fail(f"{path} path: kernel {name} launched {count} times in "
-                 f"{ms} ms, want {want}")
+            fail(f"{path} path: kernel {name} launched {count} times, "
+                 f"want {want}")
 
 
 def main_path(dev):
@@ -682,6 +765,95 @@ def gsf_golden_and_determinism(dev, final_np):
     log(f"GSF determinism: two runs of seed 0 identical at {GSF_MS} ms")
 
 
+def headline_init(dev):
+    """The headline's protocol and batch: 16 seeds of the 2048-node
+    reference-default Handel, as `bench_torch.py` builds them."""
+    import torch
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.handel import (
+        Handel, reference_default_params)
+    proto = Handel(**reference_default_params(N_NODES), device=dev)
+    return proto, init_batched(proto, torch.arange(HEADLINE_SEEDS))
+
+
+def headline_run(dev, golden=None):
+    """The benchmark headline through `bench_torch.py`'s path: five
+    200-ms chunks of `scan_chunk_batched` (superstep 2, t0_mod 0), every
+    launch counter set to 0 just before.  With `golden` (the JAX
+    package's per-seed digests at 200 ms) every seed's state is checked
+    after the first chunk, outside the timed wall.  Returns the run's
+    numbers, the launch counts and each seed's final digest."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    proto, (nets, ps) = headline_init(dev)
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in pytree.tree_leaves((nets, ps)))
+    run = scan_chunk_batched(proto, HEADLINE_CHUNK, t0_mod=0, superstep=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    wall = 0.0
+    for i in range(HEADLINE_MS // HEADLINE_CHUNK):
+        t0 = time.perf_counter()
+        nets, ps = run(nets, ps, t=i * HEADLINE_CHUNK)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        if golden is not None and i == 0:
+            check_headline_golden(golden, nets, ps)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    frac = [float((nets.nodes.done_at[r][~nets.nodes.down[r]] > 0)
+                  .float().mean()) for r in range(HEADLINE_SEEDS)]
+    res = dict(wall_s=wall, sim_ms_per_s=HEADLINE_MS / wall,
+               agg_sim_ms_per_s=HEADLINE_SEEDS * HEADLINE_MS / wall,
+               frac_done=sum(frac) / len(frac), frac_done_min=min(frac),
+               dropped=int(nets.dropped.sum()),
+               clamped=int(nets.clamped.sum()),
+               bc_dropped=int(nets.bc_dropped.sum()),
+               evicted=int(ps.evicted.sum()), time=nets.time.tolist(),
+               msg_sent=int(nets.nodes.msg_sent.sum()),
+               state_bytes=state_bytes,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return res, launches, convert.seed_digests(*convert.to_numpy(nets, ps))
+
+
+def check_headline_golden(golden, nets, ps):
+    from wittgenstein_tpu_torch import convert
+    got = convert.seed_digests(*convert.to_numpy(nets, ps))
+    for r, (g, w) in enumerate(zip(got, golden["seeds"])):
+        bad = sorted(k for k in set(g) | set(w) if g.get(k) != w.get(k))
+        if bad:
+            fail(f"headline seed {r} at {golden['ms']} ms differs from the "
+                 f"JAX golden in {len(bad)} leaves, first {bad[:5]}")
+    log(f"headline golden: all {len(got)} seeds match the JAX reference "
+        f"at {golden['ms']} ms, {len(got[0])} leaves each")
+
+
+def headline_golden_and_determinism(dev, digests, dense_final_np):
+    """A second headline run: every seed at 200 ms against the JAX
+    golden digests, every seed at 1000 ms against the first run; seed 0
+    against the dense path's state of phase 3."""
+    from wittgenstein_tpu_torch import convert
+    with open(HEADLINE_GOLDEN) as f:
+        golden = json.load(f)
+    if golden["ms"] != HEADLINE_CHUNK or \
+            len(golden["seeds"]) != HEADLINE_SEEDS:
+        fail(f"headline golden is for {len(golden['seeds'])} seeds at "
+             f"{golden['ms']} ms, not {HEADLINE_SEEDS} at {HEADLINE_CHUNK}")
+    res, _, again = headline_run(dev, golden)
+    bad = [r for r, (a, b) in enumerate(zip(digests, again)) if a != b]
+    if bad:
+        fail(f"headline run twice differs in seeds {bad}")
+    log(f"headline determinism: two runs identical at {HEADLINE_MS} ms "
+        f"(second run wall {res['wall_s']:.3f} s)")
+    if digests[0] != convert.state_digest(*dense_final_np):
+        fail("headline seed 0 differs from the dense path's state at "
+             f"{HEADLINE_MS} ms")
+    log(f"headline seed 0 equals the dense path's state at {HEADLINE_MS} ms")
+
+
 #: kernel names (substrings of the profiler's keys) whose device time
 #: a simulated ms `--profile` reports for each path
 PROFILE_KERNELS = {
@@ -689,24 +861,42 @@ PROFILE_KERNELS = {
                "score": "score_kernel"},
     "gsf": {"route": "route_", "gsf_merge": "gsf_merge_kernel",
             "gsf_score": "gsf_score_kernel"}}
+PROFILE_KERNELS["headline"] = PROFILE_KERNELS["handel"]
 
 
-def profile(proto, start, ms, path, kernels):
-    """torch.profiler over `ms` simulated ms of `proto` from t = `start`;
-    the table goes to `path`.  Returns the device-busy share, the
-    PyTorch ops a simulated ms and the device us a simulated ms of each
-    of `kernels` (name -> substring of its kernels' names)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
+def dense_window(proto, start, ms):
+    """A closure that runs `ms` simulated ms of `proto` from t = `start`
+    (seed 0, `Runner.run_ms`), the run to `start` done here."""
     from wittgenstein_tpu_torch.core.network import Runner
     runner = Runner(proto)
     net, ps = runner.run_ms(*proto.init(0), start)
+    return lambda: runner.run_ms(net, ps, ms)
+
+
+def headline_window(dev, start, ms):
+    """The same for the headline batch, in phase-specialized chunks."""
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    proto, (nets, ps) = headline_init(dev)
+    run = scan_chunk_batched(proto, HEADLINE_CHUNK, t0_mod=0)
+    for t in range(0, start, HEADLINE_CHUNK):
+        nets, ps = run(nets, ps, t=t)
+    window = scan_chunk_batched(proto, ms, t0_mod=0)
+    return lambda: window(nets, ps, t=start)
+
+
+def profile(label, window, start, ms, path, kernels):
+    """torch.profiler over `window()`, `ms` simulated ms from t =
+    `start`; the table goes to `path`.  Returns the device-busy share,
+    the PyTorch ops a simulated ms and the device us a simulated ms of
+    each of `kernels` (name -> substring of its kernels' names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.run_ms(net, ps, ms)
+        window()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -717,21 +907,21 @@ def profile(proto, start, ms, path, kernels):
               and e.cpu_parent is None and e.name.startswith("aten::"))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
-        f.write(f"{type(proto).__name__} {proto.node_count} nodes: {ms} "
-                f"simulated ms from t={start}, wall {wall:.6f} s, device "
-                f"time {dev_us / 1e6:.6f} s, aten ops {ops}\n")
+        f.write(f"{label}: {ms} simulated ms from t={start}, wall "
+                f"{wall:.6f} s, device time {dev_us / 1e6:.6f} s, aten ops "
+                f"{ops}\n")
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     busy = dev_us / 1e6 / wall
     per_ms = {k: kernel_device_us(ka, match) / ms
               for k, match in kernels.items()}
-    log(f"profile {type(proto).__name__}: {ms} ms from t={start}, wall "
+    log(f"profile {label}: {ms} ms from t={start}, wall "
         f"{wall:.6f} s, device busy {dev_us / 1e6:.6f} s "
         f"({100 * busy:.1f}%), {ops / ms:.0f} aten ops a simulated ms, "
         f"device {dev_us / ms:.2f} us a simulated ms, of which kernels "
         f"(us) {json.dumps(per_ms)}")
     return dict(wall_s=wall, device_s=dev_us / 1e6, busy=busy,
                 aten_ops_per_ms=ops / ms, device_us_per_ms=dev_us / ms,
-                kernel_us_per_ms=per_ms)
+                kernel_us_per_ms=per_ms, ms=ms, start=start)
 
 
 # ------------------------------------------------------------------ main
@@ -742,6 +932,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", type=int, default=0, metavar="MS")
     ap.add_argument("--profile-file", default="profile.txt")
     ap.add_argument("--profile-gsf-file", default="profile_gsf.txt")
+    ap.add_argument("--profile-headline-file",
+                    default="profile_headline.txt")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -792,7 +984,7 @@ def main(argv=None) -> int:
     if res["dropped"] or res["clamped"] or res["bc_dropped"] or \
             res["evicted"]:
         fail(f"drops/clamps/evictions must be 0: {res}")
-    check_launches("handel", launches, MAIN_MS)
+    check_launches("handel", launches)
 
     # 3b. the GSF path
     gres, glaunches, gfinal_np = gsf_path(dev)
@@ -801,25 +993,54 @@ def main(argv=None) -> int:
         fail(f"GSF did not converge: live frac_done {gres['frac_done']}")
     if gres["dropped"] or gres["clamped"] or gres["bc_dropped"]:
         fail(f"GSF drops/clamps must be 0: {gres}")
-    check_launches("gsf", glaunches, GSF_MS)
+    check_launches("gsf", glaunches)
 
     # 4. against the reference
     golden_and_determinism(dev, final_np)
     gsf_golden_and_determinism(dev, gfinal_np)
+
+    # 5. the benchmark headline, 16 seeds in one batch
+    hres, hlaunches, hdigests = headline_run(dev)
+    log(f"headline: {json.dumps(hres)} launches {hlaunches}")
+    if not hres["frac_done"] > 0.99:
+        fail(f"headline did not converge: mean live frac_done "
+             f"{hres['frac_done']}")
+    if hres["dropped"] or hres["clamped"] or hres["bc_dropped"] or \
+            hres["evicted"]:
+        fail(f"headline drops/clamps/evictions must be 0: {hres}")
+    check_launches("headline", hlaunches)
+
+    # 5b. against the reference and the dense path
+    headline_golden_and_determinism(dev, hdigests, final_np)
+
     profiles = {}
     if args.profile:
         from wittgenstein_tpu_torch.models.gsf import GSFSignature
         from wittgenstein_tpu_torch.models.handel import (
             Handel, reference_default_params)
+        handel = Handel(**reference_default_params(N_NODES), device=dev)
         profiles["handel"] = profile(
-            Handel(**reference_default_params(N_NODES), device=dev), 600,
-            args.profile, args.profile_file, PROFILE_KERNELS["handel"])
+            "Handel 2048 nodes", dense_window(handel, 600, args.profile),
+            600, args.profile, args.profile_file, PROFILE_KERNELS["handel"])
         profiles["gsf"] = profile(
-            GSFSignature(node_count=GSF_NODES, device=dev), 300,
-            args.profile, args.profile_gsf_file, PROFILE_KERNELS["gsf"])
+            "GSFSignature 4096 nodes",
+            dense_window(GSFSignature(node_count=GSF_NODES, device=dev), 300,
+                         args.profile),
+            300, args.profile, args.profile_gsf_file, PROFILE_KERNELS["gsf"])
+        # The headline's window is whole schedule periods (20 ms).
+        hms = -(-args.profile // handel.schedule_lcm) * handel.schedule_lcm
+        profiles["headline"] = profile(
+            f"headline {HEADLINE_SEEDS} seeds x {N_NODES} nodes",
+            headline_window(dev, 600, hms), 600, hms,
+            args.profile_headline_file, PROFILE_KERNELS["headline"])
+        if profiles["headline"]["aten_ops_per_ms"] > \
+                profiles["handel"]["aten_ops_per_ms"]:
+            fail("the headline issues more PyTorch ops a simulated ms than "
+                 "the dense one-seed path")
 
-    path_ms = {"handel": MAIN_MS, "gsf": GSF_MS}
-    path_launches = {"handel": launches, "gsf": glaunches}
+    path_ms = {"handel": MAIN_MS, "gsf": GSF_MS, "headline": HEADLINE_MS}
+    path_launches = {"handel": launches, "gsf": glaunches,
+                     "headline": hlaunches}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -844,7 +1065,8 @@ def main(argv=None) -> int:
         print(json.dumps(rec), flush=True)
         kernels.append(rec)
     print(json.dumps({"kernels": kernels, "main_path": res,
-                      "gsf_path": gres, "profiles": profiles}), flush=True)
+                      "gsf_path": gres, "headline_path": hres,
+                      "profiles": profiles}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,8 +14,14 @@ and run, in turns::
     (cd _parent && python3 ../kernel_ab.py --tag parent merge score)
 
 Kernels are named as in `chip_smoke.KERNELS` (route, merge, score,
-route_gsf, gsf_merge, gsf_score).  ``--path MS`` also profiles windows
-of MS simulated ms of the 2048-node Handel path, from each time given
+route_gsf, gsf_merge, gsf_score, and route_headline, merge_headline,
+score_headline at the 16-seed headline's shapes).  ``route:K=V,...``
+times K1 on `chip_smoke.route_case` with those arguments, for example
+``route:r=16,out_deg=42,hot=0`` (the headline's window without hot
+cells) or ``route:r=16,out_deg=42,full_rows=256`` (every cell full:
+no message is written); the route entries also report each of K1's two
+launches alone (``phases_us``).  ``--path MS`` also
+profiles windows of MS simulated ms of the 2048-node Handel path, from each time given
 with ``--at`` (600 by default, as `chip_smoke.py --profile`), and
 reports for each window the merge and score kernels' device us a
 simulated ms and where the merge's output rows came from.  ``--dirty`` times "cold" after a flush
@@ -144,11 +150,20 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     out = {}
     for name in args.kernels:
-        r = phases[name](dev, np.random.default_rng(0))
+        kind, _, spec = name.partition(":")
+        shape = {k: float(v) if k == "hot" else int(v) for k, v in
+                 (kv.split("=") for kv in spec.split(",") if kv)}
+        if shape and kind != "route":
+            ap.error(f"only route takes case arguments: {name}")
+        rng = np.random.default_rng(0)
+        r = (chip_smoke.phase_route(dev, rng, **shape) if shape
+             else phases[kind](dev, rng))
         out[name] = {"cold_us": r["ms"] * 1e3, "warm_us": r["warm_ms"] * 1e3,
                      "bound_us": r["nbytes"] /
                      chip_smoke.HBM_BYTES_PER_S * 1e6,
                      "max_abs_err": r["err"]}
+        if "phases_us" in r:
+            out[name].update(phases_us=r["phases_us"], drops=r["drops"])
     path = path_profile(dev, args.path, args.at) if args.path else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

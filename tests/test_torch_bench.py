@@ -1,0 +1,87 @@
+"""The port's benchmark line: `utils/measure.timed_chunks` (median of the
+repetitions, the synchronous cross-check and its override) on a stand-in
+step, and `bench_torch.py` end to end on the CPU at a small size (32
+nodes, 2 seeds, 600 ms: converged, no drops), its JSON line in
+`bench.py`'s shape."""
+
+import json
+import time
+
+import pytest
+import torch
+
+import bench_torch
+from wittgenstein_tpu_torch.utils.measure import timed_chunks
+
+
+class _Clock:
+    """A state's clock whose read-back takes `delay` seconds, as a
+    device synchronisation does."""
+
+    def __init__(self, delay):
+        self.delay = delay
+
+    def sum(self):
+        return self
+
+    def cpu(self):
+        return self
+
+    def __int__(self):
+        time.sleep(self.delay)
+        return 0
+
+
+class _Nets:
+    def __init__(self, delay):
+        self.time = _Clock(delay)
+
+
+def _measure(step_s, sync_s):
+    checks = []
+
+    def step(nets, ps):
+        time.sleep(step_s)
+        return nets, ps
+
+    def check(nets, ps):
+        checks.append(1)
+        return {"checked": len(checks)}
+
+    return timed_chunks(step, lambda: (_Nets(sync_s), None), steps=4,
+                        batch=3, chunk_ms=10, check=check, reps=3), checks
+
+
+def test_timed_chunks_protocol():
+    res, checks = _measure(0.02, 0.0)
+    assert res["crosscheck"] == "ok" and res["reps"] == 3
+    assert len(checks) == 4 and res["checked"] == 4  # 3 reps + the sync one
+    assert res["wall_min_s"] <= res["wall_median_s"] <= res["wall_max_s"]
+    assert res["value"] == pytest.approx(3 * 4 * 10 / res["wall_median_s"],
+                                         rel=0.01)
+
+
+def test_timed_chunks_sync_override():
+    """Chunks that return before the work is done (only the read-back
+    waits) fail the cross-check: the synchronous rate is reported."""
+    res, _ = _measure(0.0, 0.02)
+    assert res["crosscheck"] == "sync_override"
+    assert res["value"] == res["sync_rate"]
+
+
+def test_bench_torch_cpu_line(capsys):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert bench_torch.main(["--device", "cpu", "--nodes", "32",
+                                 "--seeds", "2", "--ms", "600",
+                                 "--reps", "1"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "handel_32n_2seeds_agg_sim_ms_per_sec"
+    assert (line["platform"], line["engine"], line["superstep"]) == (
+        "cpu", "batched", 2)
+    assert line["sim_ms"] == 600 and line["value"] > 0
+    assert line["frac_done"] > 0.99
+    assert line["dropped"] == line["clamped"] == line["evicted"] == 0

@@ -1035,3 +1035,71 @@ def test_cuda_score_shapes(n, q, w, fill):
     assert kern[3].dtype == torch.bool
     for a, b in zip(plain, kern):
         assert torch.equal(a, b.cpu())
+
+
+# ------------------------------------------- the seed-folded engine's shapes
+
+
+@pytest.mark.cuda
+def test_cuda_route_seed_batch_window():
+    """The route kernel with R = 4 seeds on one K=2 window's batch (the
+    seed axis is the kernel's grid.y): arrivals t + rel for rel in
+    [2, H], some on the just-cleared rows, bit-equal to the plain
+    version."""
+    rng = np.random.default_rng(21)
+    r, hz, n, c, f, m, t = 4, 256, 2048, 12, 3, 2 * 2048 * 21, 6
+    ring = list(_ring(rng, r, f, hz, n, c, fill=1))
+    ring[3][:, t:t + 2] = 0
+    msg = [np.stack(a) for a in zip(*[_messages(rng, m, n, hz, f, n)
+                                      for _ in range(r)])]
+    msg[0] = t + rng.integers(2, hz + 1, (r, m)).astype(np.int32)
+    msg[0][:, ::9] = t + hz
+    assert _route_cuda_vs_plain(ring, msg) > 0
+
+
+def _vmapped(fn, args, in_dims, dev):
+    got = torch.func.vmap(fn, in_dims=in_dims)(*[a.to(dev) for a in args])
+    torch.cuda.synchronize()
+    return [g.cpu() for g in got]
+
+
+@pytest.mark.cuda
+def test_cuda_merge_vmap_rule():
+    """K2 through its vmap rule (16 seeds x 2048 rows folded into one
+    launch of 32,768 rows, evictions counted per seed) against the plain
+    version called per seed."""
+    dev = _cuda()
+    r, n = 16, 2048
+    cases = [_merge_case(np.random.default_rng(40 + i), n, 16, 12, 64,
+                         n_ids=n, fill=0.9) for i in range(r)]
+    args = [torch.stack([_i32(c[j]) for c in cases]) for j in range(10)]
+    before = merge.merge_queue.launches
+    got = _vmapped(merge.merge_queue, args, 0, dev)
+    assert merge.merge_queue.launches == before + 1
+    for i in range(r):
+        want = merge.merge_queue(*[a[i] for a in args])
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+    assert got[5].sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_score_vmap_rule():
+    """K3 through its vmap rule, the node ids unbatched (repeated per
+    seed), 16 seeds x 2048 rows in one launch."""
+    dev = _cuda()
+    rng = np.random.default_rng(41)
+    r, n, q, w, levels = 16, 2048, 16, 64, 12
+    args = [_i32(rng.integers(0, 2 ** 32, (r, n, q, w), dtype=np.uint32)),
+            _i32(rng.integers(0, levels, (r, n, q)).astype(np.int32)),
+            torch.arange(n, dtype=torch.int32)] + [
+        _i32(rng.integers(0, 2 ** 32, (r, n, w), dtype=np.uint32))
+        for _ in range(3)]
+    before = score.score_queue.launches
+    got = _vmapped(score.score_queue, args, (0, 0, None, 0, 0, 0), dev)
+    assert score.score_queue.launches == before + 1
+    for i in range(r):
+        want = score.score_queue(args[0][i], args[1][i], args[2],
+                                 *[a[i] for a in args[3:]])
+        for g, w_ in zip(got, want):
+            assert torch.equal(g[i], w_)

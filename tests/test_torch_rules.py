@@ -29,7 +29,8 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "kernel_ab.py"]
+                                          ROOT / "kernel_ab.py",
+                                          ROOT / "bench_torch.py"]
     assert len(files) > 10
     bad = [(str(p.relative_to(ROOT)), name) for p in files
            for name in _imports(p)
@@ -86,3 +87,15 @@ def test_kernel_ab_fails_without_card():
                          timeout=120)
     assert out.returncode != 0
     assert "CUDA" in out.stderr and not out.stdout
+
+
+def test_bench_torch_fails_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr and not out.stdout

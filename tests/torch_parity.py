@@ -2,11 +2,13 @@
 package's state as nested numpy dicts, a leaf-by-leaf comparison that
 names the first difference, and the generators of the artifacts the
 port ships (the distance-latency table, the 2048-node Handel golden
-digest and the 4096-node GSF golden digest).
+digest, the 4096-node GSF golden digest and the per-seed digests of the
+benchmark headline's 16-seed batch).
 
-Regenerate all three with ``JAX_PLATFORMS=cpu python
+Regenerate the first three with ``JAX_PLATFORMS=cpu python
 tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
-GSF digest alone); ``... tests/torch_parity.py check N MS`` runs the
+GSF digest alone, ``... headline-golden`` for the headline's, about 5
+minutes and 4.5 GB of JAX on the CPU); ``... tests/torch_parity.py check N MS`` runs the
 N-node reference-default Handel in both packages on the CPU for MS ms
 and compares the full state every 100 ms, and ``... check N MS gsf``
 does the same for ``GSFSignature(node_count=N)`` with its defaults.
@@ -34,6 +36,9 @@ GOLDEN_MS = 200
 GSF_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_gsf4096_600ms.json")
 GSF_GOLDEN_N = 4096
 GSF_GOLDEN_MS = 600
+HEADLINE_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                    "golden_handel2048_r16_k2_200ms.json")
+HEADLINE_N, HEADLINE_SEEDS, HEADLINE_MS = 2048, 16, 200
 
 
 def jax_nested(obj):
@@ -150,6 +155,39 @@ def write_gsf_golden():
         f.write("\n")
 
 
+def jax_headline_digests(n=HEADLINE_N, seeds=HEADLINE_SEEDS,
+                         ms=HEADLINE_MS):
+    """Per-seed leaf sha256s of the JAX package's benchmark headline:
+    ``scan_chunk_batched(proto, ms, t0_mod=0, superstep=2)`` over
+    ``jax.vmap(proto.init)(arange(seeds))`` for the n-node
+    reference-default Handel (bench.py `_handel_setup`)."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.batched import scan_chunk_batched
+    from wittgenstein_tpu.models.handel import Handel
+    from wittgenstein_tpu_torch.models.handel import reference_default_params
+
+    proto = Handel(**reference_default_params(n))
+    nets, ps = jax.vmap(proto.init)(jnp.arange(seeds, dtype=jnp.int32))
+    run = jax.jit(scan_chunk_batched(proto, ms, t0_mod=0, superstep=2))
+    return convert.seed_digests(*jax_state(*run(nets, ps)))
+
+
+def write_headline_golden():
+    digests = jax_headline_digests()
+    with open(HEADLINE_GOLDEN_FILE, "w") as f:
+        json.dump({"config": f"reference_default_params({HEADLINE_N}), "
+                   f"seeds 0-{HEADLINE_SEEDS - 1}",
+                   "call": f"jax.jit(wittgenstein_tpu.core.batched."
+                   f"scan_chunk_batched(proto, {HEADLINE_MS}, t0_mod=0, "
+                   f"superstep=2))(*jax.vmap(proto.init)(jnp.arange("
+                   f"{HEADLINE_SEEDS})))",
+                   "ms": HEADLINE_MS, "seeds": digests}, f, indent=1,
+                  sort_keys=True)
+        f.write("\n")
+
+
 def _protocols(n: int, protocol: str):
     """(JAX protocol, port protocol on the CPU) for `check`."""
     if protocol == "gsf":
@@ -195,6 +233,9 @@ def main():
                        *sys.argv[4:5]))
     if sys.argv[1:2] == ["gsf-golden"]:
         write_gsf_golden()
+        return
+    if sys.argv[1:2] == ["headline-golden"]:
+        write_headline_golden()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

@@ -89,7 +89,10 @@ def from_reference(net_np: dict, pstate_np: dict, device):
 def to_numpy(net: NetState, pstate):
     """The port's state as ``(net_np, pstate_np)`` nested dicts under
     the JAX names, dtypes and layouts (ring planes flat, uint32
-    bitsets)."""
+    bitsets).  A seed batch (`core/state.init_batched`, ``time`` of shape
+    [R]) comes out as the JAX package's ``jax.vmap`` lays it out: every
+    leaf with a leading R axis, each ring plane [R, H*N*C]."""
+    lead = tuple(net.time.shape)                # () or (R,)
     net_np = {}
     for fld in dataclasses.fields(net):
         v = getattr(net, fld.name)
@@ -97,10 +100,11 @@ def to_numpy(net: NetState, pstate):
             net_np["nodes"] = {g.name: _numpy(getattr(v, g.name))
                                for g in dataclasses.fields(v)}
         elif fld.name == "box_data":
-            net_np["box_data"] = [_numpy(v[i]).reshape(-1)
-                                  for i in range(v.shape[0])]
+            net_np["box_data"] = [
+                _numpy(v[..., i, :, :, :]).reshape(*lead, -1)
+                for i in range(v.shape[len(lead)])]
         elif fld.name in ("box_src", "box_size"):
-            net_np[fld.name] = [_numpy(v).reshape(-1)]
+            net_np[fld.name] = [_numpy(v).reshape(*lead, -1)]
         else:
             net_np[fld.name] = _numpy(v)
     u32, split = STATES[type(pstate)]
@@ -138,6 +142,15 @@ def state_digest(net_np: dict, pstate_np: dict) -> dict:
     """``{leaf name: sha256}`` over both states' leaves."""
     flat = flatten({"net": net_np, "pstate": pstate_np})
     return {k: leaf_digest(v) for k, v in flat.items()}
+
+
+def seed_digests(net_np: dict, pstate_np: dict) -> list:
+    """Per seed of a batched state (leading R axis on every leaf), the
+    `state_digest` that seed's state alone would have."""
+    flat = flatten({"net": net_np, "pstate": pstate_np})
+    r = len(flat["net.time"])
+    return [{k: leaf_digest(v[i]) for k, v in flat.items()}
+            for i in range(r)]
 
 
 def first_difference(a: dict, b: dict):

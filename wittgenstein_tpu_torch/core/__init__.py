@@ -1,1 +1,2 @@
-"""Engine core: state, latency physics, node builders, the per-ms step."""
+"""Engine core: state, latency physics, node builders, the per-ms and
+superstep engines, the seed-folded engine and the multi-run harness."""

@@ -2,10 +2,12 @@
 port of `wittgenstein_tpu/core/state.py`.
 
 `flax.struct` dataclasses become frozen dataclasses of tensors with a
-``.replace()``.  The ring is stored as ``[F, H, N, C]`` payload planes
-plus ``[H, N, C]`` src and size planes (the JAX package keeps the same
-cells as F+2 flat ``[H*N*C]`` buffers; `convert.py` maps one onto the
-other).  The engine updates the ring IN PLACE (see `core/network.py`);
+``.replace()``, registered as pytrees (`register_struct`) so that
+`torch.func.vmap` maps over them as `jax.vmap` does; `init_batched`
+stacks a batch of runs on a leading seed axis.  The ring is stored as
+``[F, H, N, C]`` payload planes plus ``[H, N, C]`` src and size planes
+(the JAX package keeps the same cells as F+2 flat ``[H*N*C]`` buffers;
+`convert.py` maps one onto the other).  The engine updates the ring IN PLACE (see `core/network.py`);
 every other leaf is replaced, not mutated.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils import _pytree as pytree
 
 # World map (wittgenstein_tpu/core/state.py:27-29).
 MAX_X = 2000
@@ -43,6 +46,28 @@ class _Struct:
         return dataclasses.replace(self, **kw)
 
 
+def register_struct(cls, static=()):
+    """Register a state dataclass as a pytree, so that `torch.func.vmap`
+    and `torch.utils._pytree` take and return it as `jax.vmap` does a
+    `flax.struct` dataclass: every field is a leaf except the `static`
+    ones (Python values such as `Outbox.slot0`), which travel in the
+    tree's context."""
+    names = tuple(f.name for f in dataclasses.fields(cls)
+                  if f.name not in static)
+
+    def flatten(obj):
+        return ([getattr(obj, k) for k in names],
+                tuple(getattr(obj, k) for k in static))
+
+    def unflatten(leaves, ctx):
+        return cls(**dict(zip(names, leaves)), **dict(zip(static, ctx)))
+
+    pytree.register_pytree_node(
+        cls, flatten, unflatten,
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
+    return cls
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static engine shape (wittgenstein_tpu/core/state.py:33-75)."""
@@ -62,6 +87,7 @@ class EngineConfig:
         return self.n // self.box_split
 
 
+@register_struct
 @dataclasses.dataclass(frozen=True)
 class NodeState(_Struct):
     """Per-node engine state, ``[N]``-shaped
@@ -99,6 +125,7 @@ def default_nodes(n: int, device) -> NodeState:
         bytes_sent=zi(), bytes_received=zi())
 
 
+@register_struct
 @dataclasses.dataclass(frozen=True)
 class NetState(_Struct):
     """Full simulator state (wittgenstein_tpu/core/state.py:129-168).
@@ -171,6 +198,7 @@ def init_net(cfg: EngineConfig, nodes: NodeState, seed) -> NetState:
         sp_dropped=scalar(0))
 
 
+@register_struct
 @dataclasses.dataclass(frozen=True)
 class Inbox(_Struct):
     """What a node sees at time t (wittgenstein_tpu/core/state.py:218-228)."""
@@ -193,6 +221,18 @@ class Outbox(_Struct):
     bcast_payload: torch.Tensor
     bcast_size: torch.Tensor
     slot0: int = 0
+
+
+register_struct(Outbox, static=("slot0",))
+
+
+def init_batched(protocol, seeds):
+    """``(NetState, protocol state)`` of a batch of runs: every leaf
+    with a leading seed axis R, the layout of the JAX package's
+    ``jax.vmap(protocol.init)(seeds)``.  Each seed's state is built by
+    `protocol.init` and the leaves stacked."""
+    states = [protocol.init(s) for s in torch.as_tensor(seeds).tolist()]
+    return pytree.tree_map(lambda *xs: torch.stack(xs), *states)
 
 
 def empty_outbox(cfg: EngineConfig, device, k: int | None = None,

@@ -10,9 +10,11 @@
 // key rank * (C + 1) + position and invalid ones BIG0 + position, so
 // every key of a row is unique; the Q smallest keys are kept in
 // ascending order and every column (from, lvl, rank, bad, the W-word sig
-// row) is gathered through that order.  *evicted gains, per row, the
-// queued entries that survived superseding but were pushed out (an
-// integer atomicAdd, so the sum does not depend on warp order).  The
+// row) is gathered through that order.  evicted[m / seed_rows] gains,
+// per row m, the queued entries that survived superseding but were
+// pushed out (an integer atomicAdd, so the sum does not depend on warp
+// order); seed_rows is M for one counter, or the rows of one seed when
+// a seed batch is folded into M (ops/merge.py's vmap rule).  The
 // bool columns (bad, ok) are read and written as the bytes of torch's
 // bool tensors.
 //
@@ -66,7 +68,7 @@ merge_kernel(const int* __restrict__ q_from, const int* __restrict__ q_lvl,
              int* __restrict__ o_lvl, int* __restrict__ o_rank,
              unsigned char* __restrict__ o_bad,
              int* __restrict__ o_sig, int* __restrict__ o_evicted, int M,
-             int Q, int S, int W, bool vec, int warp_bytes) {
+             int Q, int S, int W, int seed_rows, bool vec, int warp_bytes) {
   extern __shared__ __align__(16) unsigned char dyn[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m = blockIdx.x * WARPS + warp;
@@ -178,7 +180,8 @@ merge_kernel(const int* __restrict__ q_from, const int* __restrict__ q_lvl,
       o_bad[qrow + p] = (unsigned char)u_bad[c];
     }
   }
-  if (lane == 0 && evict != 0) atomicAdd(o_evicted, evict);
+  if (lane == 0 && evict != 0)
+    atomicAdd(o_evicted + m / seed_rows, evict);
 
   // Gather the kept sig rows: output row p from candidate from_c[p].
   if (vec) {
@@ -232,8 +235,9 @@ extern "C" int wtpu_merge(const int* q_from, const int* q_lvl,
                           const int* sig_all, int* o_from, int* o_lvl,
                           int* o_rank, unsigned char* o_bad,
                           int* o_sig, int* o_evicted, int M, int Q, int S,
-                          int W, void* stream) {
+                          int W, int seed_rows, void* stream) {
   if (M == 0 || Q == 0) return 0;
+  if (seed_rows <= 0 || M % seed_rows) return (int)cudaErrorInvalidValue;
   const int C = Q + S;
   if (C > 255) return (int)cudaErrorInvalidValue;
   const bool wide = C > 32;
@@ -256,12 +260,12 @@ extern "C" int wtpu_merge(const int* q_from, const int* q_lvl,
   if (wide)
     merge_kernel<true><<<blocks, THREADS, smem, s>>>(
         q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank, ok, sig_all,
-        o_from, o_lvl, o_rank, o_bad, o_sig, o_evicted, M, Q, S, W, vec,
-        warp_bytes);
+        o_from, o_lvl, o_rank, o_bad, o_sig, o_evicted, M, Q, S, W,
+        seed_rows, vec, warp_bytes);
   else
     merge_kernel<false><<<blocks, THREADS, smem, s>>>(
         q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank, ok, sig_all,
-        o_from, o_lvl, o_rank, o_bad, o_sig, o_evicted, M, Q, S, W, vec,
-        warp_bytes);
+        o_from, o_lvl, o_rank, o_bad, o_sig, o_evicted, M, Q, S, W,
+        seed_rows, vec, warp_bytes);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,8 @@ bit-equal to its f32 one-hot einsum; there is no float in it.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -19,6 +21,33 @@ from ..ops.flat import gather2d
 
 I32 = torch.int32
 BIG = 0x7FFFFFFF
+
+
+class StaticScheduleMixin:
+    """Static task schedule of Handel (wittgenstein_tpu/models/
+    _levels.py:27-52): verification picks, and their ``pend_at = t +
+    pairing`` completions, fire at t = 1 (mod pairing_time), periodic
+    dissemination at t = 1 (mod period).  The schedule is static only
+    when every node shares the start (no desynchronized start) and the
+    pairing time (constant-speed builder); otherwise ``schedule_lcm`` is
+    None and `core/network.scan_chunk` never specializes.  The JAX
+    mixin's `next_action_time` serves the fast-forward engine, which is
+    not ported (ROADMAP.md).  Requires self.desynchronized_start,
+    self.builder, self.pairing_time, self.period."""
+
+    @property
+    def schedule_lcm(self):
+        """Period (ms) after which the task schedule repeats, or None
+        when it is data-dependent."""
+        if self.desynchronized_start or self.builder.speed != "constant":
+            return None
+        return math.lcm(max(1, self.pairing_time), max(1, self.period))
+
+    def phase_hints(self, tmod):
+        """Static phase hints for ``time % schedule_lcm == tmod``: which
+        gated sub-computations can fire this ms."""
+        return {"verify": (tmod - 1) % max(1, self.pairing_time) == 0,
+                "periodic": (tmod - 1) % max(1, self.period) == 0}
 
 
 def sibling_base(ids, half):
@@ -79,7 +108,8 @@ def merge_bounded_queue(q_from, q_lvl, q_rank, src, level, rank_all, ok,
     (wittgenstein_tpu/models/_levels.py:132-182): one entry per (sender,
     level), the newest inbox message winning; keep the `q_cap` lowest
     keys ``rank * (Q+S+1) + position``.  Returns (sel2, sel3,
-    evicted_delta)."""
+    evicted), `evicted` [M] int32: per row, the queued entries that
+    survived superseding but were pushed out."""
     q = q_cap
     s = src.shape[1]
     dev = src.device
@@ -109,9 +139,7 @@ def merge_bounded_queue(q_from, q_lvl, q_rank, src, level, rank_all, ok,
     sel2, sel3, order = select_queue(keyv, valid_u, q, u2, u3)
     kept_existing = ((order < q) &
                      torch.gather(valid_u, 1, order)).sum(1, dtype=I32)
-    evicted_delta = (ex_keep.sum(1, dtype=I32) - kept_existing).sum(
-        dtype=I32)
-    return sel2, sel3, evicted_delta
+    return sel2, sel3, ex_keep.sum(1, dtype=I32) - kept_existing
 
 
 def select_queue(keyv, valid, q_cap, cols2d, cols3d):

@@ -29,12 +29,13 @@ from ..core import builders
 from ..core import latency as latency_mod
 from ..core.protocol import register
 from ..core.state import (EngineConfig, _Struct, empty_outbox, init_net,
-                          resolve_device)
+                          register_struct, resolve_device)
 from ..ops import bitset, prng
 from ..ops.flat import add2d, gather2d, gather_rows, set2d
 from ..ops.merge import merge_queue
 from ..ops.score import score_queue
-from ._levels import LevelMixin, get_bit_rows, msb, sibling_base
+from ._levels import (LevelMixin, StaticScheduleMixin, get_bit_rows, msb,
+                      sibling_base)
 
 TAG_RANK = 0x48524E4B     # reception-rank permutation keys
 TAG_BAD = 0x48424144      # bad-node choice
@@ -45,6 +46,7 @@ I32 = torch.int32
 BIG = 1 << 30
 
 
+@register_struct
 @dataclasses.dataclass(frozen=True)
 class HandelState(_Struct):
     """wittgenstein_tpu/models/handel.py:84-123.  Bitset leaves are int32
@@ -98,9 +100,16 @@ def _later(what: str):
 
 
 @register
-class Handel(LevelMixin):
+class Handel(LevelMixin, StaticScheduleMixin):
     """Parameters mirror wittgenstein_tpu/models/handel.py:155-288; the
     port adds `device` (``cuda`` unless the caller asks for another)."""
+
+    # Every unicast dest comes from a level peer set, the sibling half of
+    # the node's 2^l-aligned block, which never holds the node itself, so
+    # the latency model's floor licenses superstep windows beyond 2
+    # (core/network.unicast_floor_ms; wittgenstein_tpu/models/handel.py:
+    # 134-138).
+    may_self_send = False
 
     def __init__(self, node_count=2048, threshold=None, pairing_time=3,
                  level_wait_time=50, extra_cycle=10,
@@ -262,17 +271,23 @@ class Handel(LevelMixin):
 
     # ---------------------------------------------------------------- step
 
-    def step(self, p: HandelState, nodes, inbox, t: int):
+    def step(self, p: HandelState, nodes, inbox, t: int, hints=None):
         """One ms for every node (wittgenstein_tpu/models/handel.py:
-        420-435, without phase hints)."""
+        420-435).  `hints` are `phase_hints` for this ms: a false
+        ``verify`` skips applying and picking verifications, a false
+        ``periodic`` the period's dissemination; on such a ms both are
+        the identity they would have computed."""
+        h = hints or {}
         ids = self._ids
         active = (~nodes.down) & (p.start_at + 1 <= t)
         subm = self._subword_masks()
         hi = ids >> 5
         p = self._receive(p, nodes, inbox, t)
-        p, nodes = self._apply_pending(p, nodes, t, subm, hi)
-        p = self._pick_verification(p, t, active, subm, hi)
-        p, out = self._disseminate(p, nodes, t, active, subm, hi)
+        if h.get("verify", True):
+            p, nodes = self._apply_pending(p, nodes, t, subm, hi)
+            p = self._pick_verification(p, t, active, subm, hi)
+        p, out = self._disseminate(p, nodes, t, active, subm, hi,
+                                   periodic=h.get("periodic", True))
         return p, nodes, out
 
     # -- receive: queue incoming aggregates (onNewSig, Handel.java:753-786)
@@ -459,9 +474,14 @@ class Handel(LevelMixin):
 
     # -- dissemination (doCycle, :331-343,:470-504) + outbox assembly
 
-    def _disseminate(self, p: HandelState, nodes, t: int, active, subm, hi):
-        """wittgenstein_tpu/models/handel.py:810-952 (periodic path,
-        stored emission, snapshot pool)."""
+    def _disseminate(self, p: HandelState, nodes, t: int, active, subm, hi,
+                     periodic=True):
+        """wittgenstein_tpu/models/handel.py:810-952 (stored emission,
+        snapshot pool).  A non-periodic ms (phase hint) can only fill the
+        fast-path slots: its outbox is narrow, those columns alone, with
+        their slot ids kept through `Outbox.slot0`.  The outbox is built
+        out of place (column blocks concatenated), so the step runs under
+        `torch.func.vmap`."""
         n, L = self.node_count, self.levels
         ids = self._ids
         dev = ids.device
@@ -470,54 +490,61 @@ class Handel(LevelMixin):
         total_inc = p.last_agg | p.ver_ind
         bad_bits = p.finished_peers | p.blacklist
         rslot = (t // self.period) % self.rounds
-        K, koff = self.cfg.out_deg, L - 1
-        dest = torch.full((n, K), -1, dtype=I32, device=dev)
-        payload = torch.zeros((n, K, 3), dtype=I32, device=dev)
-        sizes = torch.ones((n, K), dtype=I32, device=dev)
+        dest, payload, sizes = [], [], []
 
-        per_due = active & ((t - (p.start_at + 1)) % self.period == 0)
-        send_ok = per_due & (~done | (p.added_cycle > 0))
-        added_cycle = torch.where(per_due & done,
-                                  (p.added_cycle - 1).clamp_min(0),
-                                  p.added_cycle)
+        def column_block(d, lvl, flag, sz):
+            """One block of outbox columns: dests [N, k], payload (level,
+            flag, round slot) and sizes."""
+            k = d.shape[1]
+            dest.append(d)
+            payload.append(torch.stack(
+                [lvl.expand(n, k), flag.expand(n, k),
+                 torch.full((n, k), rslot, dtype=I32, device=dev)], -1))
+            sizes.append(sz.expand(n, k))
 
-        inc_pc = self._level_pc(total_inc, subm, hi)
-        og_size = 1 + inc_pc.cumsum(1, dtype=I32) - inc_pc
-        og_complete = og_size >= halfs
-        inc_complete = inc_pc >= halfs
-        lvl_idx = torch.arange(L, dtype=I32, device=dev)[None, :]
-        is_open = (((lvl_idx - 1) * self.level_wait_time <= t) |
-                   og_complete) & (halfs > 0)
+        pos, added_cycle = p.pos, p.added_cycle
+        if periodic:
+            per_due = active & ((t - (p.start_at + 1)) % self.period == 0)
+            send_ok = per_due & (~done | (p.added_cycle > 0))
+            added_cycle = torch.where(per_due & done,
+                                      (p.added_cycle - 1).clamp_min(0),
+                                      p.added_cycle)
 
-        fin_pc = self._level_pc(bad_bits, subm, hi)
-        any_cand = (halfs - fin_pc) > 0
+            inc_pc = self._level_pc(total_inc, subm, hi)
+            og_size = 1 + inc_pc.cumsum(1, dtype=I32) - inc_pc
+            og_complete = og_size >= halfs
+            inc_complete = inc_pc >= halfs
+            lvl_idx = torch.arange(L, dtype=I32, device=dev)[None, :]
+            is_open = (((lvl_idx - 1) * self.level_wait_time <= t) |
+                       og_complete) & (halfs > 0)
 
-        # Round-robin pick: next non-finished peer in emission order,
-        # looking ahead `look` entries from posInLevel.
-        look = self.emission_lookahead
-        ar_look = torch.arange(look, dtype=I32, device=dev)
-        half_cols = halfs.clamp_min(1)
-        offs = (p.pos[:, :, None] + ar_look[None, None, :]) % \
-            half_cols[:, :, None]
-        cols = (half_cols[:, :, None] + offs).clamp_max(n - 1)
-        cand_ids = gather2d(p.emission, ids[:, None, None], cols)
-        okc = ~get_bit_rows(bad_bits, cand_ids)                  # [N, L, k]
-        found = okc.any(2)
-        first = okc.to(I32).argmax(2).to(I32)
-        peer = torch.where(okc & (ar_look[None, None, :] == first[..., None]),
-                           cand_ids, -1).amax(2)
+            fin_pc = self._level_pc(bad_bits, subm, hi)
+            any_cand = (halfs - fin_pc) > 0
 
-        send_l = send_ok[:, None] & is_open & any_cand & found
-        adv = per_due[:, None] & is_open & any_cand
-        pos = torch.where(adv, (p.pos + torch.where(found, first + 1, look))
-                          % half_cols, p.pos)
+            # Round-robin pick: next non-finished peer in emission order,
+            # looking ahead `look` entries from posInLevel.
+            look = self.emission_lookahead
+            ar_look = torch.arange(look, dtype=I32, device=dev)
+            half_cols = halfs.clamp_min(1)
+            offs = (p.pos[:, :, None] + ar_look[None, None, :]) % \
+                half_cols[:, :, None]
+            cols = (half_cols[:, :, None] + offs).clamp_max(n - 1)
+            cand_ids = gather2d(p.emission, ids[:, None, None], cols)
+            okc = ~get_bit_rows(bad_bits, cand_ids)              # [N, L, k]
+            found = okc.any(2)
+            first = okc.to(I32).argmax(2).to(I32)
+            peer = torch.where(
+                okc & (ar_look[None, None, :] == first[..., None]),
+                cand_ids, -1).amax(2)
 
-        sz_l = 1 + halfs // 8 + 192                              # [1, L]
-        dest[:, :L - 1] = torch.where(send_l, peer, -1)[:, 1:]
-        payload[:, :L - 1, 0] = lvl_idx[:, 1:]
-        payload[:, :L - 1, 1] = inc_complete.to(I32)[:, 1:]
-        payload[:, :L - 1, 2] = rslot
-        sizes[:, :L - 1] = sz_l[:, 1:]
+            send_l = send_ok[:, None] & is_open & any_cand & found
+            adv = per_due[:, None] & is_open & any_cand
+            pos = torch.where(
+                adv, (p.pos + torch.where(found, first + 1, look))
+                % half_cols, p.pos)
+            column_block(torch.where(send_l, peer, -1)[:, 1:],
+                         lvl_idx[:, 1:], inc_complete.to(I32)[:, 1:],
+                         (1 + halfs // 8 + 192)[:, 1:])
 
         # Fast-path sends on level completion (:738-743), bypassing the
         # period gate: drain the lowest queued level's fast_path peers.
@@ -534,25 +561,31 @@ class Handel(LevelMixin):
             fids = gather2d(p.emission, ids[:, None], fcols)
             fok = ~get_bit_rows(bad_bits, fids)
             fsend = (fl > 0) & active & ~done
-            fdest = torch.where(fsend[:, None] & fok, fids, -1)
-            dest[:, koff:koff + fp] = fdest
-            payload[:, koff:koff + fp, 0] = fl[:, None]
-            payload[:, koff:koff + fp, 2] = rslot
-            sizes[:, koff:koff + fp] = (1 + fhalf // 8 + 192)[:, None]
+            column_block(torch.where(fsend[:, None] & fok, fids, -1),
+                         fl[:, None], torch.zeros_like(fl)[:, None],
+                         (1 + fhalf // 8 + 192)[:, None])
             pos = add2d(pos, ids, fl.clamp_min(1),
                         torch.where(fsend, fok.sum(1, dtype=I32), 0))
             fast_pending = torch.where(fsend, fast_pending & ~lsb,
                                        fast_pending)
             fast_pending = torch.where(done, 0, fast_pending)
 
+        # slot0 clamped into [0, out_deg): with fast_path == 0 the narrow
+        # non-periodic outbox is one always-empty column, whose slot id
+        # must not collide with the next node's slot 0 (:944-948).
+        slot0 = 0 if periodic else min(L - 1, self.cfg.out_deg - 1)
+        out = empty_outbox(self.cfg, dev, k=sum(d.shape[1] for d in dest)
+                           or 1, slot0=slot0)
+        if dest:
+            out = out.replace(dest=torch.cat(dest, 1),
+                              payload=torch.cat(payload, 1),
+                              size=torch.cat(sizes, 1))
+
         # Snapshot pool: every sender this ms records its total_inc.
-        wrote = (dest >= 0).any(1)
+        wrote = (out.dest >= 0).any(1)
         pool = p.pool.clone()
         pool[:, rslot] = torch.where(wrote[:, None], total_inc,
                                      p.pool[:, rslot])
-
-        out = empty_outbox(self.cfg, dev, k=K, slot0=0).replace(
-            dest=dest, payload=payload, size=sizes)
         return p.replace(pos=pos, added_cycle=added_cycle, pool=pool,
                          fast_pending=fast_pending), out
 

@@ -39,8 +39,9 @@ SIGNATURES = {
     # R, M, F, H, N -> int32 elements of scratch wtpu_route needs
     "wtpu_route_scratch": [I] * 5,
     # q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank, ok, sig_all,
-    # o_from, o_lvl, o_rank, o_bad, o_sig, o_evicted, M, Q, S, W, stream
-    "wtpu_merge": [P] * 16 + [I] * 4 + [P],
+    # o_from, o_lvl, o_rank, o_bad, o_sig, o_evicted, M, Q, S, W,
+    # seed_rows, stream
+    "wtpu_merge": [P] * 16 + [I] * 5 + [P],
     # q_sig, q_lvl, ids, total_inc, ver_ind, last_agg, s_inc, pc_sig,
     # pc_sv, inter_agg (bool), M, Q, W, stream
     "wtpu_score": [P] * 10 + [I] * 3 + [P],

@@ -6,6 +6,12 @@
 `merge_queue_plain` (the XLA path, `_levels.merge_bounded_queue` +
 `select_queue` in the Handel receive configuration,
 wittgenstein_tpu/models/_levels.py:132-207) on CPU tensors.
+
+`merge_queue` is a `torch.library` custom op with a vmap rule, so that
+the protocol step runs under `torch.func.vmap` over a seed batch (the
+seed-folded engine, `core/batched.py`): the rule folds the seed axis R
+into the kernel's row axis, M = R x rows, and launches the kernel once
+for all seeds, with one eviction counter a seed.
 """
 
 from __future__ import annotations
@@ -19,13 +25,17 @@ I32 = torch.int32
 
 
 def merge_queue_plain(q_from, q_lvl, q_rank, q_bad, q_sig, src, level,
-                      rank_all, ok, sig_all):
+                      rank_all, ok, sig_all, seeds=None):
     """Plain PyTorch merge (wittgenstein_tpu/models/_levels.py:132-207
     with cols2d={"bad"}, cols3d={"sig"}, as called at
-    wittgenstein_tpu/models/handel.py:497-501)."""
+    wittgenstein_tpu/models/handel.py:497-501).  The eviction count is
+    a scalar, or [seeds] over equal runs of rows when `seeds` is
+    given."""
     sel2, sel3, ev = merge_bounded_queue(
         q_from, q_lvl, q_rank, src, level, rank_all, ok, q_from.shape[1],
         {"bad": (q_bad, torch.zeros_like(ok))}, {"sig": (q_sig, sig_all)})
+    ev = (ev.sum(dtype=I32) if seeds is None else
+          ev.reshape(seeds, -1).sum(1, dtype=I32))
     return (sel2["from"], sel2["lvl"], sel2["rank"], sel2["bad"],
             sel3["sig"], ev)
 
@@ -59,21 +69,15 @@ def _check(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all, ok,
                          f"(got {q} + {s})")
 
 
-def merge_queue(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all,
-                ok, sig_all):
-    """Bounded-queue merge.  Queue columns [M, Q] (q_bad bool), q_sig
-    [M, Q, W] int32 words; incoming columns [M, S] (ok bool), sig_all
-    [M, S, W].  Returns (q_from', q_lvl', q_rank', q_bad', q_sig',
-    evicted) with evicted an int32 scalar.  The outputs are fresh
-    tensors; the inputs are not modified.  The kernel reads and writes
-    the bool columns as bytes and sums `evicted` itself, so the launch
-    is the only op besides the allocations and one zero fill.  `merge_queue.launches`
-    counts kernel launches."""
-    _check(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all, ok,
-           sig_all)
+def _merge(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all, ok,
+           sig_all, seeds=None):
+    """The merge of M rows; `seeds` splits the rows into that many equal
+    runs, each with its own eviction counter (None: one scalar)."""
+    args = (q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all, ok,
+            sig_all)
+    _check(*args)
     if q_from.device.type == "cpu":
-        return merge_queue_plain(q_from, q_lvl, q_rank, q_bad, q_sig, src,
-                                 level, rank_all, ok, sig_all)
+        return merge_queue_plain(*args, seeds=seeds)
     if q_from.device.type != "cuda":
         raise ValueError(f"merge_queue: no kernel for {q_from.device}")
     m, q = q_from.shape
@@ -82,17 +86,56 @@ def merge_queue(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all,
     o_from, o_lvl, o_rank = (torch.empty_like(q_from) for _ in range(3))
     o_bad = torch.empty_like(q_bad)
     o_sig = torch.empty_like(q_sig)
-    o_ev = torch.zeros((), dtype=I32, device=q_from.device)
+    o_ev = torch.zeros(() if seeds is None else (seeds,), dtype=I32,
+                       device=q_from.device)
     err = _build.lib().wtpu_merge(
         q_from.data_ptr(), q_lvl.data_ptr(), q_rank.data_ptr(),
         q_bad.data_ptr(), q_sig.data_ptr(), src.data_ptr(),
         level.data_ptr(), rank_all.data_ptr(), ok.data_ptr(),
         sig_all.data_ptr(), o_from.data_ptr(), o_lvl.data_ptr(),
         o_rank.data_ptr(), o_bad.data_ptr(), o_sig.data_ptr(),
-        o_ev.data_ptr(), m, q, s, w, _build.stream_of(q_from))
+        o_ev.data_ptr(), m, q, s, w, m // (seeds or 1),
+        _build.stream_of(q_from))
     _build.check(err, "wtpu_merge")
     merge_queue.launches += 1
     return o_from, o_lvl, o_rank, o_bad, o_sig, o_ev
 
 
+@torch.library.custom_op("wtpu::merge_queue", mutates_args=())
+def merge_queue(q_from: torch.Tensor, q_lvl: torch.Tensor,
+                q_rank: torch.Tensor, q_bad: torch.Tensor,
+                q_sig: torch.Tensor, src: torch.Tensor, level: torch.Tensor,
+                rank_all: torch.Tensor, ok: torch.Tensor,
+                sig_all: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bounded-queue merge.  Queue columns [M, Q] (q_bad bool), q_sig
+    [M, Q, W] int32 words; incoming columns [M, S] (ok bool), sig_all
+    [M, S, W].  Returns (q_from', q_lvl', q_rank', q_bad', q_sig',
+    evicted) with evicted an int32 scalar ([R] under vmap).  The outputs
+    are fresh tensors; the inputs are not modified.  The kernel reads
+    and writes the bool columns as bytes and sums `evicted` itself, so
+    the launch is the only op besides the allocations and one zero fill.
+    `merge_queue.launches` counts kernel launches."""
+    return _merge(q_from, q_lvl, q_rank, q_bad, q_sig, src, level,
+                  rank_all, ok, sig_all)
+
+
+def fold_seeds(x, in_dim, r):
+    """A vmapped argument as one contiguous tensor with the seed axis
+    folded into its first axis: [R * rows, ...]; an unbatched argument
+    (in_dim None) is repeated R times."""
+    x = (x.expand(r, *x.shape) if in_dim is None else x.movedim(in_dim, 0))
+    return x.reshape(r * x.shape[1], *x.shape[2:]).contiguous()
+
+
+def _merge_vmap(info, in_dims, *args):
+    r = info.batch_size
+    outs = _merge(*(fold_seeds(x, d, r) for x, d in zip(args, in_dims)),
+                  seeds=r)
+    return (tuple(o.reshape(r, -1, *o.shape[1:]) for o in outs[:5]) +
+            (outs[5],)), (0,) * 6
+
+
+torch.library.register_vmap(merge_queue, _merge_vmap)
 merge_queue.launches = 0

@@ -33,10 +33,13 @@ def bin_into_ring_plain(data, src, size, count, arrival, dest, msrc, msize,
 
     The two-pass stable radix sort of
     wittgenstein_tpu/core/network.py:233-285 on (row, dest): equal to
-    its (rel, dest) grouping because the engine's arrivals satisfy
-    rel in [1, H-1], on which rel -> rel % H is injective.  Then the
-    group rank by `cummax`, the slot test, masked scatters of the
-    accepted rows and a count scatter-add of the accepted ones."""
+    its (rel, dest) grouping because the engine's arrivals span at most
+    H - 1 consecutive values of rel = arrival - t, on which rel -> rel %
+    H is injective: [1, H-1] for the per-ms step, [K, H+K-2] for a K-ms
+    window, whose rel >= H land on the window's own rows, cleared before
+    the bin.  Then the group rank by `cummax`, the slot test, masked
+    scatters of the accepted rows and a count scatter-add of the
+    accepted ones."""
     r_, f_, hz, n, c = data.shape
     m = arrival.shape[1]
     dropped = torch.zeros(r_, dtype=I32, device=arrival.device)

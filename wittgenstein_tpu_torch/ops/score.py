@@ -7,6 +7,11 @@ Handel: `score_queue` (`_score_kernel`, launched by
 `score_queue_plain` (the XLA block of
 wittgenstein_tpu/models/handel.py:638-647) on CPU tensors.
 
+`score_queue` is a `torch.library` custom op with a vmap rule (see
+`ops/merge.py`): under `torch.func.vmap` over a seed batch the rule
+folds the seed axis into the row axis, M = R x rows, repeats the node
+ids R times, and launches the kernel once for all seeds.
+
 GSF: `gsf_score` (`_gsf_score_kernel`, launched by `gsf_score_pallas`)
 launches `csrc/gsf_score.cu` on CUDA tensors and runs `gsf_score_plain`
 (the XLA block of wittgenstein_tpu/models/gsf.py:450-459) on CPU
@@ -19,6 +24,7 @@ import torch
 
 from ..models._levels import range_mask_dyn
 from . import _build, bitset
+from .merge import fold_seeds
 
 I32 = torch.int32
 
@@ -52,13 +58,7 @@ def _check(fn, q_sig, q_lvl, ids, **rows):
             raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def score_queue(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg):
-    """Per-entry verification summaries.  q_sig [M, Q, W] int32 words,
-    q_lvl [M, Q], ids [M] (global node ids), bitset rows [M, W].
-    Returns (s_inc, pc_sig, pc_sig_ver) int32 [M, Q] and inter_agg bool
-    [M, Q].  The kernel writes inter_agg as bytes, so the launch is the
-    only op besides the allocations.  `score_queue.launches` counts
-    kernel launches."""
+def _score(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg):
     _check("score_queue", q_sig, q_lvl, ids, total_inc=total_inc,
            ver_ind=ver_ind, last_agg=last_agg)
     if q_sig.device.type == "cpu":
@@ -79,6 +79,28 @@ def score_queue(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg):
     return s_inc, pc_sig, pc_sv, inter
 
 
+@torch.library.custom_op("wtpu::score_queue", mutates_args=())
+def score_queue(q_sig: torch.Tensor, q_lvl: torch.Tensor, ids: torch.Tensor,
+                total_inc: torch.Tensor, ver_ind: torch.Tensor,
+                last_agg: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """Per-entry verification summaries.  q_sig [M, Q, W] int32 words,
+    q_lvl [M, Q], ids [M] (global node ids), bitset rows [M, W].
+    Returns (s_inc, pc_sig, pc_sig_ver) int32 [M, Q] and inter_agg bool
+    [M, Q].  The kernel writes inter_agg as bytes, so the launch is the
+    only op besides the allocations.  `score_queue.launches` counts
+    kernel launches."""
+    return _score(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg)
+
+
+def _score_vmap(info, in_dims, *args):
+    r = info.batch_size
+    outs = _score(*(fold_seeds(x, d, r) for x, d in zip(args, in_dims)))
+    return tuple(o.reshape(r, -1, *o.shape[1:]) for o in outs), (0,) * 4
+
+
+torch.library.register_vmap(score_queue, _score_vmap)
 score_queue.launches = 0
 
 
