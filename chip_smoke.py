@@ -36,21 +36,43 @@ Phases (any failure exits non-zero; nothing is caught):
    the verification ms (250), each launch for all 16 seeds;
 5b. a second batched run: every seed's state at 200 ms matches the JAX
    golden digests, and at 1000 ms the first run's; seed 0 matches the
-   dense path's state of phase 3.
+   dense path's state of phase 3;
+6. PingPong on the per-ms engine: `PingPong(1000)`, seed 0, through
+   `Runner.run_ms` in 8 steps of 100 ms, counters reset just before;
+   the reference's curve (80 < pongs@100 < 400, 500 < pongs@300 <=
+   1000, pongs@800 == 1000, monotone), zero drops, broadcast drops and
+   clamps, and route launched once a simulated ms (800);
+6b. a second PingPong run of seed 0 matches the JAX golden digest at
+   800 ms and the first run;
+6c. the harness: `run_multiple_times(PingPong(1000), 16, chunk=200)` on
+   the seed batch at K=2, counters reset just before: every run stopped
+   with 1000 pongs and zero drops and clamps, route launched once a
+   window for all seeds; a 200-ms run of the same 16 seeds matches the
+   JAX golden digests of `jax.vmap(scan_chunk(PingPong(1000), 200,
+   superstep=2))`, and seed 0 at its stop time the per-ms run of 6b;
+6d. the spill buffer: the JAX engine tests' probe (a unicast with delay
+   500 past horizon 64) through `Runner.run_ms` with 8 spill slots
+   delivers at exactly 511 with route launched twice a ms (the drain,
+   then the sends); with 2 slots and 4 such sends, 2 are dropped and
+   the 2 lowest senders' deliver (got [0, 1, 1, 0]); two seeds of the
+   first through the harness at K = 1 deliver at 511 each.
 
 Phase 2 holds route, merge and score at the headline's shapes too:
 route with R 16 on a K=2 window, merge and score through their vmap
-rules at 32,768 rows.
+rules at 32,768 rows; and route on PingPong's batches: one K=2 window
+of pongs at R 16 (H 1024, N 1000, C 32, F 1, 2 x 1000 messages a seed,
+1% valid, all to the witness) and a spill drain of 4096 entries, half
+selected, at R 1.
 
 It prints one JSON line per kernel, the ``{"kernels": [...]}`` summary,
 the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  ``--profile MS`` also profiles MS
 simulated ms of each path with `torch.profiler` (Handel and the
 headline from t=600, the headline's MS rounded up to its 20-ms schedule,
-GSF from t=300, the busiest stretches), reports the device us a
-simulated ms of each path's kernels by name, and writes the tables to
-``--profile-file``, ``--profile-gsf-file`` and
-``--profile-headline-file``.
+GSF from t=300, PingPong from t=0, the busiest stretches), reports the
+device us a simulated ms of each path's kernels by name, and writes the
+tables to ``--profile-file``, ``--profile-gsf-file``,
+``--profile-headline-file`` and ``--profile-pingpong-file``.
 """
 
 from __future__ import annotations
@@ -75,6 +97,15 @@ HEADLINE_MS = 1000
 HEADLINE_CHUNK = 200
 HEADLINE_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                                "golden_handel2048_r16_k2_200ms.json")
+PP_NODES = 1000
+PP_MS = 800
+PP_SEEDS = 16
+PP_CHUNK = 200
+PP_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                         "golden_pingpong1000_800ms.json")
+PP_HARNESS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                                 "golden_pingpong1000_r16_k2_200ms.json")
+SPILL_MS = 520
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
 
@@ -256,11 +287,38 @@ def route_bytes(ring, msg, count_after):
             4 * (2 * accepted * (f + 2) + 2 * cells.numel() + r))
 
 
-def phase_route(dev, rng, **shape):
+def route_pingpong_case(dev, rng, kind, r):
+    """PingPong's batches at its ring's shapes (H 1024, N 1000, C 32, F
+    1), the ring empty but for a few counts as PingPong leaves it:
+    ``window``, one K=2 window of pongs (M = 2 x 1000 a seed, 1% valid,
+    all to the witness, rel in [2, H]); ``drain``, a spill drain of S =
+    4096 entries, half selected, rel in [1, H-2], to any node."""
+    import torch
+    hz, n, c, f, t = 1024, PP_NODES, 32, 1, 4096 + 6
+    if kind == "window":
+        m, lo, hi, share, dests = 2 * n, 2, hz + 1, 0.01, 1
+    else:
+        m, lo, hi, share, dests = 4096, 1, hz - 1, 0.5, n
+
+    def i32(a):
+        return torch.tensor(a, dtype=torch.int32, device=dev)
+    ring = [torch.zeros((r, f, hz, n, c), dtype=torch.int32, device=dev),
+            torch.zeros((r, hz, n, c), dtype=torch.int32, device=dev),
+            torch.zeros((r, hz, n, c), dtype=torch.int32, device=dev),
+            i32(rng.integers(0, 3, (r, hz, n)))]
+    msg = [i32(t + rng.integers(lo, hi, (r, m))),
+           i32(rng.integers(0, dests, (r, m))),
+           i32(rng.integers(0, n, (r, m))), i32(rng.integers(1, 9, (r, m))),
+           i32(rng.integers(0, 2, (r, m, f))),
+           torch.tensor(rng.random((r, m)) < share, device=dev)]
+    return ring, msg
+
+
+def phase_route(dev, rng, make=route_case, **shape):
     import torch
     from wittgenstein_tpu_torch.ops.route import bin_into_ring, \
         bin_into_ring_plain
-    ring, msg = route_case(dev, rng, **shape)
+    ring, msg = make(dev, rng, **shape)
     plain = [t.clone() for t in ring]
     kern = [t.clone() for t in ring]
     dp = bin_into_ring_plain(*plain, *msg)
@@ -449,6 +507,17 @@ def phase_route_gsf(dev, rng):
     return phase_route(dev, rng, hz=512, n=GSF_NODES, c=16, out_deg=22)
 
 
+def phase_route_pingpong(dev, rng):
+    """K1 on one K=2 window of PingPong's pongs for 16 seeds."""
+    return phase_route(dev, rng, route_pingpong_case, kind="window",
+                       r=PP_SEEDS)
+
+
+def phase_route_drain(dev, rng):
+    """K1 on a spill drain's batch."""
+    return phase_route(dev, rng, route_pingpong_case, kind="drain", r=1)
+
+
 def gsf_merge_case(dev, rng):
     """GSF shapes: M 4096, Q 16, S 16, W 128, L 13; a queue 70% full (30%
     individuals), 60% of inbox slots valid, planted same-sender and
@@ -620,16 +689,27 @@ KERNELS = [
     ("score_headline", "score", "headline",
      "wittgenstein_tpu_torch/csrc/score.cu",
      "wittgenstein_tpu/ops/pallas_score.py:46", phase_score_headline),
+    ("route_pingpong", "route", "pingpong_harness",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_pingpong),
+    ("route_drain", "route", "spill", "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_drain),
 ]
 #: the launches each path's run must make, by wrapper (others: none).
 #: The per-ms paths launch each kernel once a simulated ms; the headline
 #: bins once a K=2 window, merges every ms and scores on the
 #: verification ms (t = 1 mod pairing 4), each launch for all seeds.
+#: PingPong bins its pongs once a ms; the spill probe bins twice a ms
+#: (the drain, then the sends).  The PingPong harness bins once a K=2
+#: window for all seeds, so its count follows its stop time (set when
+#: it has run).
 PATH_LAUNCHES = {
     "handel": {"route": MAIN_MS, "merge": MAIN_MS, "score": MAIN_MS},
     "gsf": {"route": GSF_MS, "gsf_merge": GSF_MS, "gsf_score": GSF_MS},
     "headline": {"route": HEADLINE_MS // 2, "merge": HEADLINE_MS,
-                 "score": HEADLINE_MS // 4}}
+                 "score": HEADLINE_MS // 4},
+    "pingpong": {"route": PP_MS},
+    "spill": {"route": 2 * SPILL_MS}}
 
 
 # ------------------------------------------------------------- main path
@@ -645,6 +725,23 @@ def counters():
             "gsf_score": gsf_score}
 
 
+def reset_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def check_digest(what, got, want):
+    bad = sorted(k for k in set(got) | set(want)
+                 if got.get(k) != want.get(k))
+    if bad:
+        fail(f"{what} differs from the JAX golden in {len(bad)} leaves, "
+             f"first {bad[:5]}")
+
+
 def drive(proto, ms):
     """Run `proto` from seed 0 for `ms` ms through `Runner.run_ms`, every
     launch counter set to 0 just before.  Returns the run's numbers,
@@ -656,13 +753,12 @@ def drive(proto, ms):
     runner = Runner(proto)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters().values():
-        fn.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     net, ps = runner.run_ms(net, ps, ms)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = read_counters()
     down = net.nodes.down
     frac = float((net.nodes.done_at[~down] > 0).float().mean())
     res = dict(wall_s=wall, sim_ms_per_s=ms / wall, frac_done=frac,
@@ -716,15 +812,11 @@ def golden_and_determinism(dev, final_np):
     proto = Handel(**reference_default_params(N_NODES), device=dev)
     runner = Runner(proto)
     net, ps = runner.run_ms(*proto.init(0), GOLDEN_MS)
-    got = convert.state_digest(*convert.to_numpy(net, ps))
-    want = golden["leaves"]
-    bad = sorted(k for k in set(got) | set(want)
-                 if got.get(k) != want.get(k))
-    if bad:
-        fail(f"state at {GOLDEN_MS} ms differs from the JAX golden in "
-             f"{len(bad)} leaves, first {bad[:5]}")
-    log(f"golden: all {len(want)} leaves match the JAX reference at "
-        f"{GOLDEN_MS} ms")
+    check_digest(f"state at {GOLDEN_MS} ms",
+                 convert.state_digest(*convert.to_numpy(net, ps)),
+                 golden["leaves"])
+    log(f"golden: all {len(golden['leaves'])} leaves match the JAX "
+        f"reference at {GOLDEN_MS} ms")
     net, ps = runner.run_ms(net, ps, MAIN_MS - GOLDEN_MS)
     net_np, ps_np = convert.to_numpy(net, ps)
     again = convert.flatten({"net": net_np, "pstate": ps_np})
@@ -748,15 +840,10 @@ def gsf_golden_and_determinism(dev, final_np):
     proto = GSFSignature(node_count=GSF_NODES, device=dev)
     net, ps = Runner(proto).run_ms(*proto.init(0), GSF_MS)
     net_np, ps_np = convert.to_numpy(net, ps)
-    got = convert.state_digest(net_np, ps_np)
-    want = golden["leaves"]
-    bad = sorted(k for k in set(got) | set(want)
-                 if got.get(k) != want.get(k))
-    if bad:
-        fail(f"GSF state at {GSF_MS} ms differs from the JAX golden in "
-             f"{len(bad)} leaves, first {bad[:5]}")
-    log(f"GSF golden: all {len(want)} leaves match the JAX reference at "
-        f"{GSF_MS} ms (JAX counts {golden['counts']})")
+    check_digest(f"GSF state at {GSF_MS} ms",
+                 convert.state_digest(net_np, ps_np), golden["leaves"])
+    log(f"GSF golden: all {len(golden['leaves'])} leaves match the JAX "
+        f"reference at {GSF_MS} ms (JAX counts {golden['counts']})")
     again = convert.flatten({"net": net_np, "pstate": ps_np})
     first = convert.flatten({"net": final_np[0], "pstate": final_np[1]})
     diff = convert.first_difference(first, again)
@@ -793,8 +880,7 @@ def headline_run(dev, golden=None):
     run = scan_chunk_batched(proto, HEADLINE_CHUNK, t0_mod=0, superstep=2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters().values():
-        fn.launches = 0
+    reset_counters()
     wall = 0.0
     for i in range(HEADLINE_MS // HEADLINE_CHUNK):
         t0 = time.perf_counter()
@@ -803,7 +889,7 @@ def headline_run(dev, golden=None):
         wall += time.perf_counter() - t0
         if golden is not None and i == 0:
             check_headline_golden(golden, nets, ps)
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = read_counters()
     frac = [float((nets.nodes.done_at[r][~nets.nodes.down[r]] > 0)
                   .float().mean()) for r in range(HEADLINE_SEEDS)]
     res = dict(wall_s=wall, sim_ms_per_s=HEADLINE_MS / wall,
@@ -823,10 +909,7 @@ def check_headline_golden(golden, nets, ps):
     from wittgenstein_tpu_torch import convert
     got = convert.seed_digests(*convert.to_numpy(nets, ps))
     for r, (g, w) in enumerate(zip(got, golden["seeds"])):
-        bad = sorted(k for k in set(g) | set(w) if g.get(k) != w.get(k))
-        if bad:
-            fail(f"headline seed {r} at {golden['ms']} ms differs from the "
-                 f"JAX golden in {len(bad)} leaves, first {bad[:5]}")
+        check_digest(f"headline seed {r} at {golden['ms']} ms", g, w)
     log(f"headline golden: all {len(got)} seeds match the JAX reference "
         f"at {golden['ms']} ms, {len(got[0])} leaves each")
 
@@ -854,6 +937,206 @@ def headline_golden_and_determinism(dev, digests, dense_final_np):
     log(f"headline seed 0 equals the dense path's state at {HEADLINE_MS} ms")
 
 
+def pingpong_run(dev):
+    """`PingPong(1000)`, seed 0, through `Runner.run_ms` in 8 steps of 100
+    ms, every launch counter set to 0 just before.  Returns the run's
+    numbers (the pong curve among them), the launch counts, the state
+    digest after each step and the final state as numpy dicts."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import Runner
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    proto = PingPong(node_count=PP_NODES, device=dev)
+    net, ps = proto.init(0)
+    runner = Runner(proto)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    curve, digests, wall = [], {}, 0.0
+    for t in range(100, PP_MS + 1, 100):
+        t0 = time.perf_counter()
+        net, ps = runner.run_ms(net, ps, 100)
+        curve.append(int(ps.pongs))
+        wall += time.perf_counter() - t0
+        digests[t] = convert.state_digest(*convert.to_numpy(net, ps))
+    launches = read_counters()
+    res = dict(wall_s=wall, sim_ms_per_s=PP_MS / wall, pongs=curve,
+               dropped=int(net.dropped), bc_dropped=int(net.bc_dropped),
+               clamped=int(net.clamped), time=int(net.time),
+               msg_sent=int(net.nodes.msg_sent.sum()),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return res, launches, digests, convert.to_numpy(net, ps)
+
+
+def check_pingpong(res):
+    """tests/test_pingpong.py's curve, and nothing dropped or clamped."""
+    c = res["pongs"]
+    if not (80 < c[0] < 400 and 500 < c[2] <= 1000 and c[-1] == PP_NODES
+            and c == sorted(c)):
+        fail(f"PingPong's pong curve is off the reference's: {c}")
+    if res["dropped"] or res["bc_dropped"] or res["clamped"]:
+        fail(f"PingPong drops/broadcast drops/clamps must be 0: {res}")
+
+
+def pingpong_golden_and_determinism(dev, final_np):
+    """Seed 0 again: the state at 800 ms against the JAX golden digest
+    and against the first run.  Returns the run's digests by ms."""
+    from wittgenstein_tpu_torch import convert
+    with open(PP_GOLDEN) as f:
+        golden = json.load(f)
+    if golden["ms"] != PP_MS:
+        fail(f"PingPong golden is for {golden['ms']} ms, not {PP_MS}")
+    res, _, digests, again = pingpong_run(dev)
+    if res["pongs"] != golden["counts"]["pongs"]:
+        fail(f"PingPong curve {res['pongs']} differs from the JAX run's "
+             f"{golden['counts']['pongs']}")
+    check_digest(f"PingPong state at {PP_MS} ms", digests[PP_MS],
+                 golden["leaves"])
+    log(f"PingPong golden: all {len(golden['leaves'])} leaves match the "
+        f"JAX reference at {PP_MS} ms, curve {res['pongs']}")
+    if digests[PP_MS] != convert.state_digest(*final_np):
+        fail("PingPong seed 0 run twice differs")
+    log(f"PingPong determinism: two runs of seed 0 identical at {PP_MS} ms")
+    return digests
+
+
+def pingpong_harness(dev, dense_digests):
+    """`run_multiple_times(PingPong(1000), 16, chunk=200)` until every
+    run is done, counters set to 0 just before; then the same 16 seeds
+    for one 200-ms chunk against the JAX golden digests; seed 0 at its
+    stop time against the per-ms run's state at that ms."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.harness import run_multiple_times
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    proto = PingPong(node_count=PP_NODES, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = run_multiple_times(proto, PP_SEEDS, chunk=PP_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    stop = out.stopped_at.tolist()
+    res = dict(wall_s=wall, sim_ms=max(stop), stopped_at=stop,
+               agg_sim_ms_per_s=sum(stop) / wall,
+               pongs=out.pstates.pongs.tolist(),
+               dropped=int(out.nets.dropped.sum()),
+               bc_dropped=int(out.nets.bc_dropped.sum()),
+               clamped=int(out.nets.clamped.sum()),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if min(stop) <= 0 or res["pongs"] != [PP_NODES] * PP_SEEDS:
+        fail(f"PingPong harness: every run must stop with {PP_NODES} "
+             f"pongs: {res}")
+    if res["dropped"] or res["bc_dropped"] or res["clamped"]:
+        fail(f"PingPong harness drops/clamps must be 0: {res}")
+    PATH_LAUNCHES["pingpong_harness"] = {"route": max(stop) // 2}
+    seed0 = convert.seed_digests(*convert.to_numpy(out.nets,
+                                                   out.pstates))[0]
+    if stop[0] not in dense_digests or seed0 != dense_digests[stop[0]]:
+        fail(f"PingPong harness seed 0 at {stop[0]} ms differs from the "
+             "per-ms run's state")
+    log(f"PingPong harness seed 0 equals the per-ms run at {stop[0]} ms")
+    del out
+    with open(PP_HARNESS_GOLDEN) as f:
+        golden = json.load(f)
+    if golden["ms"] != PP_CHUNK or len(golden["seeds"]) != PP_SEEDS:
+        fail(f"PingPong harness golden is for {len(golden['seeds'])} seeds "
+             f"at {golden['ms']} ms, not {PP_SEEDS} at {PP_CHUNK}")
+    first = run_multiple_times(proto, PP_SEEDS, max_time=PP_CHUNK,
+                               chunk=PP_CHUNK)
+    got = convert.seed_digests(*convert.to_numpy(first.nets,
+                                                 first.pstates))
+    for r, (g, w) in enumerate(zip(got, golden["seeds"])):
+        check_digest(f"PingPong harness seed {r} at {PP_CHUNK} ms", g, w)
+    log(f"PingPong harness golden: all {PP_SEEDS} seeds match the JAX "
+        f"reference at {PP_CHUNK} ms, {len(got[0])} leaves each")
+    return res, launches
+
+
+class SpillProbe:
+    """The JAX engine tests' probe (tests/test_engine.py `OneShot`) with
+    a spill buffer: 4 nodes, fixed 10-ms latency, horizon 64; node 0
+    (every node i, with `all_send`, to i + 1) sends one unicast at t = 0
+    with delay 500, far past the ring; every node counts what it gets
+    and notes when it first got something."""
+
+    def __init__(self, dev, spill_cap, all_send=False):
+        from wittgenstein_tpu_torch.core.latency import NetworkFixedLatency
+        from wittgenstein_tpu_torch.core.state import EngineConfig
+        self.dev, self.all_send = dev, all_send
+        self.latency = NetworkFixedLatency(10)
+        self.cfg = EngineConfig(n=4, horizon=64, inbox_cap=4,
+                                payload_words=2, out_deg=1, bcast_slots=2,
+                                spill_cap=spill_cap)
+
+    def init(self, seed):
+        import torch
+        from wittgenstein_tpu_torch.core.builders import NodeBuilder
+        from wittgenstein_tpu_torch.core.state import init_net
+        seed = torch.tensor(seed, dtype=torch.int32, device=self.dev)
+        n = self.cfg.n
+        return init_net(self.cfg, NodeBuilder().build(seed, n, self.dev),
+                        seed), {
+            "got": torch.zeros(n, dtype=torch.int32, device=self.dev),
+            "when": torch.full((n,), -1, dtype=torch.int32,
+                               device=self.dev)}
+
+    def step(self, pstate, nodes, inbox, t):
+        import torch
+        from wittgenstein_tpu_torch.core.state import empty_outbox
+        n, dev = self.cfg.n, self.dev
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        sender = (ids >= 0) if self.all_send else (ids == 0)
+        dest = (ids + 1) % n if self.all_send else torch.ones_like(ids)
+        out = empty_outbox(self.cfg, dev).replace(
+            dest=torch.where(sender & (t == 0), dest, -1)[:, None],
+            size=torch.full((n, 1), 7, dtype=torch.int32, device=dev),
+            delay=torch.full((n, 1), 500, dtype=torch.int32, device=dev))
+        got = inbox.valid.sum(1, dtype=torch.int32)
+        return {"got": pstate["got"] + got,
+                "when": torch.where((got > 0) & (pstate["when"] < 0), t,
+                                    pstate["when"])}, nodes, out
+
+
+def spill_path(dev):
+    """The spill scenarios of the JAX engine and route tests on the card:
+    exact delivery through 8 slots (counters reset just before; route
+    twice a ms), the 4-into-2 overflow, and two seeds of the first
+    through the harness at K = 1."""
+    from wittgenstein_tpu_torch.core.harness import run_multiple_times
+    from wittgenstein_tpu_torch.core.network import Runner
+    proto = SpillProbe(dev, 8)
+    net, p = proto.init(0)
+    reset_counters()
+    t0 = time.perf_counter()
+    net, p = Runner(proto).run_ms(net, p, SPILL_MS)
+    res = dict(when=p["when"].tolist(), got=p["got"].tolist(),
+               wall_s=time.perf_counter() - t0, clamped=int(net.clamped),
+               sp_dropped=int(net.sp_dropped), dropped=int(net.dropped),
+               parked=int((net.sp_arrival >= 0).sum()))
+    launches = read_counters()
+    if res["when"][1] != 511 or sum(res["got"]) != 1 or res["clamped"] or \
+            res["sp_dropped"] or res["dropped"] or res["parked"]:
+        fail(f"spill: the far send must deliver at exactly 511: {res}")
+    over = SpillProbe(dev, 2, all_send=True)
+    net, p = Runner(over).run_ms(*over.init(0), SPILL_MS)
+    res["overflow_got"] = p["got"].tolist()
+    if int(net.sp_dropped) != 2 or res["overflow_got"] != [0, 1, 1, 0]:
+        fail(f"spill overflow: want sp_dropped 2 and got [0, 1, 1, 0], have "
+             f"{int(net.sp_dropped)} and {res['overflow_got']}")
+    before = read_counters()["route"]
+    multi = run_multiple_times(proto, 2, max_time=SPILL_MS, chunk=10)
+    res["harness_when"] = multi.pstates["when"][:, 1].tolist()
+    res["harness_route_launches"] = read_counters()["route"] - before
+    if res["harness_when"] != [511, 511] or \
+            res["harness_route_launches"] != 2 * SPILL_MS:
+        fail(f"spill harness at K = 1: want delivery at 511 in both seeds "
+             f"and route twice a ms for both: {res}")
+    return res, launches
+
+
 #: kernel names (substrings of the profiler's keys) whose device time
 #: a simulated ms `--profile` reports for each path
 PROFILE_KERNELS = {
@@ -862,6 +1145,7 @@ PROFILE_KERNELS = {
     "gsf": {"route": "route_", "gsf_merge": "gsf_merge_kernel",
             "gsf_score": "gsf_score_kernel"}}
 PROFILE_KERNELS["headline"] = PROFILE_KERNELS["handel"]
+PROFILE_KERNELS["pingpong"] = {"route": "route_"}
 
 
 def dense_window(proto, start, ms):
@@ -934,6 +1218,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-gsf-file", default="profile_gsf.txt")
     ap.add_argument("--profile-headline-file",
                     default="profile_headline.txt")
+    ap.add_argument("--profile-pingpong-file",
+                    default="profile_pingpong.txt")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -947,6 +1233,10 @@ def main(argv=None) -> int:
         fail(f"cannot import the port package ({e}); run from the root of "
              "a checkout")
     dev = torch.device("cuda")
+    start = time.perf_counter()
+
+    def done(phase):
+        log(f"phase {phase} done at {time.perf_counter() - start:.1f} s")
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     log(f"device {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
@@ -976,6 +1266,7 @@ def main(argv=None) -> int:
             f"{r['plain_call_ms'] * 1e3:.2f} us"
             + (f"; phases {r['phases_us']}" if "phases_us" in r else ""))
 
+    done("2")
     # 3. the Handel path
     res, launches, final_np = main_path(dev)
     log(f"Handel path: {json.dumps(res)} launches {launches}")
@@ -986,6 +1277,8 @@ def main(argv=None) -> int:
         fail(f"drops/clamps/evictions must be 0: {res}")
     check_launches("handel", launches)
 
+    done("3")
+
     # 3b. the GSF path
     gres, glaunches, gfinal_np = gsf_path(dev)
     log(f"GSF path: {json.dumps(gres)} launches {glaunches}")
@@ -995,9 +1288,13 @@ def main(argv=None) -> int:
         fail(f"GSF drops/clamps must be 0: {gres}")
     check_launches("gsf", glaunches)
 
+    done("3b")
+
     # 4. against the reference
     golden_and_determinism(dev, final_np)
     gsf_golden_and_determinism(dev, gfinal_np)
+
+    done("4")
 
     # 5. the benchmark headline, 16 seeds in one batch
     hres, hlaunches, hdigests = headline_run(dev)
@@ -1010,8 +1307,38 @@ def main(argv=None) -> int:
         fail(f"headline drops/clamps/evictions must be 0: {hres}")
     check_launches("headline", hlaunches)
 
+    done("5")
+
     # 5b. against the reference and the dense path
     headline_golden_and_determinism(dev, hdigests, final_np)
+
+    done("5b")
+
+    # 6. PingPong on the per-ms engine
+    pres, plaunches, _, pfinal_np = pingpong_run(dev)
+    log(f"PingPong path: {json.dumps(pres)} launches {plaunches}")
+    check_pingpong(pres)
+    check_launches("pingpong", plaunches)
+
+    done("6")
+
+    # 6b. against the reference
+    pdigests = pingpong_golden_and_determinism(dev, pfinal_np)
+
+    done("6b")
+
+    # 6c. the harness, 16 seeds at K=2
+    hpres, hplaunches = pingpong_harness(dev, pdigests)
+    log(f"PingPong harness: {json.dumps(hpres)} launches {hplaunches}")
+    check_launches("pingpong_harness", hplaunches)
+
+    done("6c")
+
+    # 6d. the spill buffer
+    sres, slaunches = spill_path(dev)
+    log(f"spill: {json.dumps(sres)} launches {slaunches}")
+    check_launches("spill", slaunches)
+    done("6d")
 
     profiles = {}
     if args.profile:
@@ -1037,10 +1364,21 @@ def main(argv=None) -> int:
                 profiles["handel"]["aten_ops_per_ms"]:
             fail("the headline issues more PyTorch ops a simulated ms than "
                  "the dense one-seed path")
+        from wittgenstein_tpu_torch.models.pingpong import PingPong
+        profiles["pingpong"] = profile(
+            f"PingPong {PP_NODES} nodes",
+            dense_window(PingPong(node_count=PP_NODES, device=dev), 0,
+                         args.profile),
+            0, args.profile, args.profile_pingpong_file,
+            PROFILE_KERNELS["pingpong"])
+        done("profile")
 
-    path_ms = {"handel": MAIN_MS, "gsf": GSF_MS, "headline": HEADLINE_MS}
+    path_ms = {"handel": MAIN_MS, "gsf": GSF_MS, "headline": HEADLINE_MS,
+               "pingpong": PP_MS, "pingpong_harness": hpres["sim_ms"],
+               "spill": SPILL_MS}
     path_launches = {"handel": launches, "gsf": glaunches,
-                     "headline": hlaunches}
+                     "headline": hlaunches, "pingpong": plaunches,
+                     "pingpong_harness": hplaunches, "spill": slaunches}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -1066,7 +1404,9 @@ def main(argv=None) -> int:
         kernels.append(rec)
     print(json.dumps({"kernels": kernels, "main_path": res,
                       "gsf_path": gres, "headline_path": hres,
-                      "profiles": profiles}), flush=True)
+                      "pingpong_path": pres, "pingpong_harness": hpres,
+                      "spill_path": sres, "profiles": profiles}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

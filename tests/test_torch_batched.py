@@ -235,3 +235,20 @@ def test_batched_scope_refusals():
         batched.scan_chunk_batched(proto, 41)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         batched.scan_chunk_batched(proto, 40, fast_forward=True)
+
+
+def test_batched_rejects_broadcast_protocols():
+    """tests/test_batched.py:126: `scan_chunk_batched` keeps the JAX
+    package's scope and refuses PingPong, in the JAX package's words
+    (the harness runs it through the same engine)."""
+    from wittgenstein_tpu.core.batched import scan_chunk_batched as jscb
+    from wittgenstein_tpu.models.pingpong import PingPong as JPingPong
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    texts = []
+    for fn, proto in ((jscb, JPingPong(node_count=64)),
+                      (batched.scan_chunk_batched,
+                       PingPong(node_count=64, device="cpu"))):
+        with pytest.raises(ValueError, match="broadcast-free") as e:
+            fn(proto, 40)
+        texts.append(str(e.value))
+    assert texts[0] == texts[1]

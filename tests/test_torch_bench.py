@@ -85,3 +85,23 @@ def test_bench_torch_cpu_line(capsys):
     assert line["sim_ms"] == 600 and line["value"] > 0
     assert line["frac_done"] > 0.99
     assert line["dropped"] == line["clamped"] == line["evicted"] == 0
+
+
+def test_bench_torch_pingpong_cpu_line(capsys):
+    """`--proto pingpong`, `bench.py`'s quiet-protocol line, at a small
+    size: 64 nodes, 2 seeds, 400 ms in 200-ms chunks at K = 2."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert bench_torch.main(["--proto", "pingpong", "--device", "cpu",
+                                 "--nodes", "64", "--seeds", "2", "--ms",
+                                 "400", "--reps", "1"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "pingpong_64n_2seeds_agg_sim_ms_per_sec"
+    assert (line["platform"], line["engine"], line["superstep"]) == (
+        "cpu", "vmapped", 2)
+    assert line["sim_ms"] == 400 and line["value"] > 0
+    assert line["progress"] > 0
+    assert line["dropped"] == line["bc_dropped"] == 0

@@ -119,9 +119,7 @@ def test_later_slices_raise(kw):
         Handel(**reference_default_params(64), **kw, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("bcast_slots", 2),
-                                         ("spill_cap", 8),
-                                         ("box_split", 2)])
+@pytest.mark.parametrize("field,value", [("box_split", 2)])
 def test_engine_later_slices_raise(field, value):
     import dataclasses
 
@@ -135,3 +133,25 @@ def test_engine_later_slices_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Runner(proto, fast_forward=True)
     Runner(proto, superstep=2)          # the superstep engine is ported
+
+
+@pytest.mark.parametrize("field,value", [("bcast_slots", 2),
+                                         ("spill_cap", 8)])
+def test_engine_broadcast_and_spill_configs_run(field, value):
+    """The Handel configurations the engine used to refuse: a broadcast
+    table (recomputed and retired every ms, never filled: Handel sends
+    no sendAll) and a spill buffer (drained every ms, its own route
+    launch); every leaf equal to the JAX package's after 40 ms."""
+    import dataclasses
+    params = reference_default_params(64)
+    jproto = JHandel(**params)
+    proto = Handel(**params, device="cpu")
+    for p in (jproto, proto):
+        p.cfg = dataclasses.replace(p.cfg, **{field: value})
+    ref = tp.jax_state(*JRunner(jproto).run_ms(*jproto.init(1), 40))
+    net, ps = Runner(proto).run_ms(*proto.init(1), 40)
+    tp.assert_states_equal(ref, convert.to_numpy(net, ps),
+                           f"{field}={value}")
+    assert getattr(net, {"bcast_slots": "bc_active",
+                         "spill_cap": "sp_arrival"}[field]).shape == (value,)
+    assert int(ps.sigs_checked.sum()) > 0

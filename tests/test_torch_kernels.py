@@ -787,6 +787,40 @@ def test_cuda_route_layouts(case):
         assert drops == 0
 
 
+def _route_pingpong_case(name, r):
+    """PingPong's K1 batches at its ring's shapes (H 1024, N 1000, C 32,
+    F 1): ``window``, one K = 2 window of pongs (M = 2 x 1000 a seed,
+    1% valid, all to the witness, rel in [2, H]); ``drain``, a spill
+    drain of S = 4096 entries, half selected, rel in [1, H - 2], to any
+    node.  The ring starts empty but for a few counts."""
+    rng = np.random.default_rng(len(name) + r)
+    hz, n, c, f, t = 1024, 1000, 32, 1, 4096 + 6
+    data = np.zeros((r, f, hz, n, c), np.int32)
+    src = np.zeros((r, hz, n, c), np.int32)
+    size = np.zeros((r, hz, n, c), np.int32)
+    count = rng.integers(0, 3, (r, hz, n)).astype(np.int32)
+    if name == "window":
+        m, lo, hi, share, dests = 2 * n, 2, hz + 1, 0.01, 1
+    else:
+        m, lo, hi, share, dests = 4096, 1, hz - 1, 0.5, n
+    msg = [t + rng.integers(lo, hi, (r, m)), rng.integers(0, dests, (r, m)),
+           rng.integers(0, n, (r, m)), rng.integers(1, 9, (r, m)),
+           rng.integers(0, 2, (r, m, f))]
+    valid = rng.random((r, m)) < share
+    return (data, src, size, count), [a.astype(np.int32) for a in msg] + [
+        valid]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,r", [("window", 2), ("drain", 1)])
+def test_cuda_route_pingpong_batches(name, r):
+    """K1 on PingPong's own batches (its K = 2 window of pongs, two
+    seeds, and a spill drain) bit-equal to its plain version."""
+    ring, msg = _route_pingpong_case(name, r)
+    assert msg[5].sum() > 0
+    _route_cuda_vs_plain(ring, msg)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,q,levels", [(64, 5, 7), (4096, 16, 13)],
                          ids=["odd_q_w2", "q16_w128"])

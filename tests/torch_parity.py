@@ -2,16 +2,20 @@
 package's state as nested numpy dicts, a leaf-by-leaf comparison that
 names the first difference, and the generators of the artifacts the
 port ships (the distance-latency table, the 2048-node Handel golden
-digest, the 4096-node GSF golden digest and the per-seed digests of the
-benchmark headline's 16-seed batch).
+digest, the 4096-node GSF golden digest, the per-seed digests of the
+benchmark headline's 16-seed batch, and the 1000-node PingPong's digest
+and per-seed harness digests).
 
 Regenerate the first three with ``JAX_PLATFORMS=cpu python
 tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
 GSF digest alone, ``... headline-golden`` for the headline's, about 5
-minutes and 4.5 GB of JAX on the CPU); ``... tests/torch_parity.py check N MS`` runs the
-N-node reference-default Handel in both packages on the CPU for MS ms
-and compares the full state every 100 ms, and ``... check N MS gsf``
-does the same for ``GSFSignature(node_count=N)`` with its defaults.
+minutes and 4.5 GB of JAX on the CPU, ``... pingpong-golden`` for the
+1000-node PingPong's two, about a minute); ``... tests/torch_parity.py
+check N MS`` runs the N-node reference-default Handel in both packages
+on the CPU for MS ms and compares the full state every 100 ms, ``...
+check N MS gsf`` (or ``pingpong``) does the same for
+``GSFSignature(node_count=N)`` (``PingPong(node_count=N)``) with its
+defaults, and a sixth argument K runs the port in K-ms windows.
 """
 
 from __future__ import annotations
@@ -39,6 +43,12 @@ GSF_GOLDEN_MS = 600
 HEADLINE_GOLDEN_FILE = os.path.join(PORT_DATA,
                                     "golden_handel2048_r16_k2_200ms.json")
 HEADLINE_N, HEADLINE_SEEDS, HEADLINE_MS = 2048, 16, 200
+PINGPONG_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                    "golden_pingpong1000_800ms.json")
+PINGPONG_HARNESS_FILE = os.path.join(PORT_DATA,
+                                     "golden_pingpong1000_r16_k2_200ms.json")
+PINGPONG_N, PINGPONG_MS = 1000, 800
+PINGPONG_SEEDS, PINGPONG_HARNESS_MS = 16, 200
 
 
 def jax_nested(obj):
@@ -50,6 +60,8 @@ def jax_nested(obj):
         return {f.name: jax_nested(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)
                 if f.metadata.get("pytree_node", True)}
+    if isinstance(obj, dict):
+        return {k: jax_nested(v) for k, v in obj.items()}
     if isinstance(obj, (tuple, list)):
         return [jax_nested(v) for v in obj]
     return np.asarray(jax.device_get(obj))
@@ -188,8 +200,77 @@ def write_headline_golden():
         f.write("\n")
 
 
+def jax_pingpong_golden():
+    """Leaf sha256s of the JAX package's (net, pstate) after PINGPONG_MS
+    ms of `PingPong(node_count=PINGPONG_N)`, seed 0, through
+    `Runner.run_ms` in 100-ms calls; with the pong curve (pongs after
+    each call) and the drop counters."""
+    from wittgenstein_tpu.core.network import Runner
+    from wittgenstein_tpu.models.pingpong import PingPong
+
+    proto = PingPong(node_count=PINGPONG_N)
+    net, ps = proto.init(0)
+    runner = Runner(proto)
+    curve = []
+    for _ in range(PINGPONG_MS // 100):
+        net, ps = runner.run_ms(net, ps, 100)
+        curve.append(int(ps.pongs))
+    counts = {k: int(getattr(net, k)) for k in
+              ("dropped", "bc_dropped", "clamped", "sp_dropped")}
+    return convert.state_digest(*jax_state(net, ps)), {"pongs": curve,
+                                                       **counts}
+
+
+def jax_pingpong_harness_digests(seeds=PINGPONG_SEEDS,
+                                 ms=PINGPONG_HARNESS_MS, batch=4):
+    """Per-seed leaf sha256s of ``jax.vmap(scan_chunk(PingPong(
+    node_count=PINGPONG_N), ms, superstep=2))`` over
+    ``jax.vmap(proto.init)`` of seeds 0..seeds-1 (the JAX harness's
+    chunk), `batch` seeds a call: the runs never meet, so a seed's state
+    does not depend on its batch, and four rings of 393 MB stay within
+    a CPU's memory."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.pingpong import PingPong
+
+    proto = PingPong(node_count=PINGPONG_N)
+    run = jax.jit(jax.vmap(scan_chunk(proto, ms, superstep=2)))
+    out = []
+    for s0 in range(0, seeds, batch):
+        nets, ps = jax.vmap(proto.init)(
+            jnp.arange(s0, min(s0 + batch, seeds), dtype=jnp.int32))
+        out += convert.seed_digests(*jax_state(*run(nets, ps)))
+    return out
+
+
+def write_pingpong_goldens():
+    digest, counts = jax_pingpong_golden()
+    with open(PINGPONG_GOLDEN_FILE, "w") as f:
+        json.dump({"config": f"PingPong(node_count={PINGPONG_N}), seed 0",
+                   "call": "Runner(proto).run_ms in 100-ms calls",
+                   "ms": PINGPONG_MS, "counts": counts, "leaves": digest},
+                  f, indent=1, sort_keys=True)
+        f.write("\n")
+    digests = jax_pingpong_harness_digests()
+    with open(PINGPONG_HARNESS_FILE, "w") as f:
+        json.dump({"config": f"PingPong(node_count={PINGPONG_N}), seeds "
+                   f"0-{PINGPONG_SEEDS - 1}",
+                   "call": f"jax.jit(jax.vmap(wittgenstein_tpu.core.network."
+                   f"scan_chunk(proto, {PINGPONG_HARNESS_MS}, superstep=2)))"
+                   f"(*jax.vmap(proto.init)(jnp.arange({PINGPONG_SEEDS})))",
+                   "ms": PINGPONG_HARNESS_MS, "seeds": digests}, f,
+                  indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def _protocols(n: int, protocol: str):
     """(JAX protocol, port protocol on the CPU) for `check`."""
+    if protocol == "pingpong":
+        from wittgenstein_tpu.models.pingpong import PingPong as JPingPong
+        from wittgenstein_tpu_torch.models.pingpong import PingPong
+        return JPingPong(node_count=n), PingPong(node_count=n, device="cpu")
     if protocol == "gsf":
         from wittgenstein_tpu.models.gsf import GSFSignature as JGSF
         from wittgenstein_tpu_torch.models.gsf import GSFSignature
@@ -201,16 +282,18 @@ def _protocols(n: int, protocol: str):
     return JHandel(**params), Handel(**params, device="cpu")
 
 
-def check(n: int, ms: int, protocol: str = "handel", every: int = 100):
+def check(n: int, ms: int, protocol: str = "handel", every: int = 100,
+          superstep: int = 1):
     """Both packages from their own init, full state compared every
-    `every` ms; prints each checkpoint and stops at the first
-    difference."""
+    `every` ms; prints each checkpoint and returns 1 at the first
+    difference, else 0.  The JAX package runs its per-ms engine, the
+    port its `Runner(superstep=superstep)`."""
     from wittgenstein_tpu.core.network import Runner as JRunner
     from wittgenstein_tpu_torch.core.network import Runner
 
     jproto, proto = _protocols(n, protocol)
     jstate, state = jproto.init(0), proto.init(0)
-    jrun, run = JRunner(jproto), Runner(proto)
+    jrun, run = JRunner(jproto), Runner(proto, superstep=superstep)
     for t in range(every, ms + 1, every):
         jstate = jrun.run_ms(*jstate, every)
         state = run.run_ms(*state, every)
@@ -219,7 +302,7 @@ def check(n: int, ms: int, protocol: str = "handel", every: int = 100):
         b = convert.flatten(dict(zip(("net", "pstate"),
                                      convert.to_numpy(*state))))
         diff = convert.first_difference(a, b)
-        print(f"{protocol} {n} nodes, {t} ms: "
+        print(f"{protocol} {n} nodes, K {superstep}, {t} ms: "
               f"{'equal' if diff is None else f'DIFFERENT {diff}'}",
               flush=True)
         if diff is not None:
@@ -230,12 +313,15 @@ def check(n: int, ms: int, protocol: str = "handel", every: int = 100):
 def main():
     if sys.argv[1:2] == ["check"]:
         sys.exit(check(int(sys.argv[2]), int(sys.argv[3]),
-                       *sys.argv[4:5]))
+                       *sys.argv[4:5], *map(int, sys.argv[5:7])))
     if sys.argv[1:2] == ["gsf-golden"]:
         write_gsf_golden()
         return
     if sys.argv[1:2] == ["headline-golden"]:
         write_headline_golden()
+        return
+    if sys.argv[1:2] == ["pingpong-golden"]:
+        write_pingpong_goldens()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

@@ -8,7 +8,8 @@ hand-written CUDA C++ under `csrc/`, built at first use by
 `ops/_build.py`.
 
 Entry points (`models.handel.Handel(..., device=...)`,
-`models.gsf.GSFSignature(..., device=...)`, their `init`,
+`models.gsf.GSFSignature(..., device=...)`,
+`models.pingpong.PingPong(..., device=...)`, their `init`,
 `core.network.Runner`, the seed-folded `core.batched.scan_chunk_batched`
 and `core.harness.run_multiple_times`) run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no card the default raises instead of

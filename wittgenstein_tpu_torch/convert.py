@@ -3,7 +3,9 @@
 Both sides meet as nested dicts of numpy arrays under the JAX field
 names: ``{"time": ..., "nodes": {"x": ...}, "box_data": [plane, ...],
 ...}`` for the `NetState` and the same for the protocol state (a
-`HandelState` or a `GSFState`, told apart by their leaf names).  The JAX
+`HandelState`, a `GSFState` or a `PingPongState`, told apart by their
+leaf names; a protocol whose state is a plain dict of tensors, as the
+engine tests' probes have, converts leaf for leaf).  The JAX
 side builds them from its dataclasses (the tests do so with
 `jax.tree_util`); `from_reference` turns them into the port's state and
 `to_numpy` back.  uint32 leaves (bitsets) are reinterpreted, never
@@ -21,6 +23,7 @@ import torch
 from .core.state import NetState, NodeState
 from .models.gsf import GSFState
 from .models.handel import HandelState
+from .models.pingpong import PingPongState
 
 #: per protocol state class: the leaves the JAX package stores as uint32
 #: bitsets, and whether its q_sig is a list of `state_split` pieces
@@ -30,6 +33,7 @@ STATES = {
                    "demoted", "q_sig", "pool", "pend_sig"), True),
     GSFState: (("verified", "ver_indiv", "got_indiv", "q_sig", "pend_sig",
                 "pool"), False),
+    PingPongState: ((), False),
 }
 
 
@@ -76,7 +80,10 @@ def from_reference(net_np: dict, pstate_np: dict, device):
             if k not in ("nodes", "box_data", "box_src", "box_size")}
     net = NetState(nodes=nodes, **ring, **rest)
 
-    cls = state_class(pstate_np)
+    try:
+        cls = state_class(pstate_np)
+    except ValueError:
+        return net, {k: _tensor(v, dev) for k, v in pstate_np.items()}
     ps = dict(pstate_np)
     if STATES[cls][1]:
         if len(ps["q_sig"]) != 1:
@@ -107,6 +114,8 @@ def to_numpy(net: NetState, pstate):
             net_np[fld.name] = [_numpy(v).reshape(*lead, -1)]
         else:
             net_np[fld.name] = _numpy(v)
+    if isinstance(pstate, dict):
+        return net_np, {k: _numpy(v) for k, v in pstate.items()}
     u32, split = STATES[type(pstate)]
     ps_np = {}
     for fld in dataclasses.fields(pstate):

@@ -2,9 +2,13 @@
 port of `wittgenstein_tpu/core/harness.py`.
 
 The reference runs seeds one after the other (core/RunMultipleTimes.java:
-41-87).  Here all seeds run at once on the seed-folded engine
-(`core/batched.py`, bit-identical seed by seed to the per-seed engine):
-one batch of state, one kernel launch per window for every seed.
+41-87).  Here all seeds run at once, as the JAX harness's
+``jax.vmap(scan_chunk(...))`` runs them: `network.scan_chunk` on a seed
+batch (the engine of `core/batched.py`, bit-identical seed by seed to
+the per-seed engine), one batch of state, one kernel launch per window
+for every seed, at whatever superstep K the shared gate proves for the
+protocol, the chunk and the entry time (K = 1 included), with
+broadcasts and the spill buffer.
 
 Per-run stopping is faithful: after every `chunk` simulated ms each run's
 continue-predicate is evaluated and finished runs are *frozen*, so every
@@ -13,9 +17,7 @@ included, and stats match the sequential semantics run for run.
 
 Not ported: the JAX package's `devices=`/`mesh=` sharding and its
 persistent compile cache (one card, no compiler; ROADMAP.md A15),
-`progress_per_time_on_device` and `capture_trace` (the obs planes, A11).
-Protocols outside the batched engine's scope (broadcasts, the spill
-buffer) raise `NotImplementedError`.
+`progress_per_time_on_device` and `capture_trace` (the obs planes).
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..utils import stats as stats_mod
-from .batched import scan_chunk_batched
-from .network import check_config, pick_superstep
+from .network import check_config, pick_superstep, scan_chunk
 from .state import init_batched
 
 
@@ -48,22 +49,18 @@ def _freeze_chunk(protocol, chunk, cont, t0=0):
 
     When `chunk` is a multiple of the schedule lcm every chunk enters at
     phase ``t0 % lcm`` and is phase-specialized; the superstep is the
-    largest K `pick_superstep` proves for the chunk and entry time.  The
-    ring is updated in place, so stopped runs are kept out of its clear
-    and its binning (`frozen`); their other leaves are selected back."""
+    largest K `pick_superstep` proves for the chunk and entry time (1
+    for a spill protocol or an unaligned entry).  The ring is updated in
+    place, so stopped runs are kept out of its clear and its binning,
+    the spill drain's included (`frozen`); their other leaves are
+    selected back."""
     lcm = getattr(protocol, "schedule_lcm", None)
     use_spec = bool(lcm and chunk % lcm == 0)
     ss = pick_superstep(protocol, chunk, t0=t0,
                         lcm=lcm if use_spec else None)
-    if ss < 2:
-        raise NotImplementedError(
-            f"the harness runs on the seed-folded superstep engine, which "
-            f"needs a chunk and entry time that are multiples of a valid "
-            f"K >= 2 (chunk {chunk}, entry {t0}); the per-ms batched "
-            "engine is not ported (ROADMAP.md)")
-    one_chunk = scan_chunk_batched(
-        protocol, chunk, t0_mod=(t0 % lcm) if use_spec else None,
-        superstep=ss)
+    one_chunk = scan_chunk(protocol, chunk,
+                           t0_mod=(t0 % lcm) if use_spec else None,
+                           superstep=ss)
 
     def chunk_all(nets, ps, stopped, stopped_at, t):
         nets2, ps2 = one_chunk(nets, ps, t=t, frozen=stopped)

@@ -94,6 +94,41 @@ class NetworkFixedLatency:
         return self.name
 
 
+class NetworkUniformLatency:
+    """Uniform in [0, max]: ``(delta / 99) * max``
+    (wittgenstein_tpu/core/latency.py:91-107), looked up in a 100-entry
+    table made at construction.  The JAX function is float32 math
+    truncated to an integer, and the reference is what it computes
+    under `jax.jit`: XLA folds the division by the constant into
+    ``delta * (max * float32(1/99))``, which truncates differently from
+    the written ``(delta / 99) * max`` (and from eager JAX) for 97 of
+    the max values 1..1000.  The table is made with the folded form in
+    numpy float32, and the tests hold it against the jitted JAX
+    function."""
+
+    positional = False
+
+    def __init__(self, max_latency: int):
+        self.max_latency = max(1, int(max_latency))
+        self.name = f"NetworkUniformLatency({self.max_latency})"
+        scale = np.float32(self.max_latency) * np.float32(1.0 / 99.0)
+        self.table = (np.arange(100, dtype=np.float32) * scale).astype(
+            np.int32)
+        self._tables: dict = {}
+
+    def extended(self, nodes, src, dst, delta):
+        key = str(delta.device)
+        if key not in self._tables:
+            self._tables[key] = torch.tensor(self.table, device=delta.device)
+        return self._tables[key][delta.long()]
+
+    def latency_floor_ms(self):
+        return 1                        # delta == 0 -> extended == 0
+
+    def __repr__(self):
+        return self.name
+
+
 _TABLES: dict = {}
 
 
@@ -134,7 +169,7 @@ class NetworkLatencyByDistanceWJitter:
 
 #: registry names (wittgenstein_tpu/core/latency.py) the port does not
 #: serve yet; each belongs to a later slice in ROADMAP.md
-_LATER = ("NetworkUniformLatency", "AwsRegionNetworkLatency",
+_LATER = ("AwsRegionNetworkLatency",
           "MeasuredNetworkLatency", "EthScanNetworkLatency",
           "NetworkLatencyByCity", "NetworkLatencyByCityWJitter",
           "IC3NetworkLatency", "NetworkHeterogeneousLatency",
@@ -150,14 +185,15 @@ def get_by_name(name: str | None):
         return NetworkNoLatency()
     if name == "NetworkLatencyByDistanceWJitter":
         return NetworkLatencyByDistanceWJitter()
-    if name.startswith("NetworkFixedLatency(") and name.endswith(")"):
-        try:
-            return NetworkFixedLatency(int(name[len("NetworkFixedLatency("):
-                                                -1]))
-        except ValueError:
-            raise ValueError(f"bad parameters in latency name {name!r} "
-                             "(expected e.g. 'NetworkFixedLatency(100)')"
-                             ) from None
+    for cls in (NetworkFixedLatency, NetworkUniformLatency):
+        head = cls.__name__ + "("
+        if name.startswith(head) and name.endswith(")"):
+            try:
+                return cls(int(name[len(head):-1]))
+            except ValueError:
+                raise ValueError(
+                    f"bad parameters in latency name {name!r} (expected "
+                    f"e.g. '{cls.__name__}(100)')") from None
     if name.split("(", 1)[0] in _LATER:
         raise NotImplementedError(
             f"latency model {name!r} is not ported yet (ROADMAP.md, "

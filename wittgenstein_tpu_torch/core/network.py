@@ -1,33 +1,54 @@
 """The per-ms and superstep engines — the port of
-`wittgenstein_tpu/core/network.py`'s dense path.
+`wittgenstein_tpu/core/network.py`'s dense path, for one run or for a
+batch of runs with a leading seed axis.
 
-Per simulated ms t: read the ring row ``t % H`` as the inbox, let the
-protocol step every node at once, clear the consumed row, then route
-the step's unicast sends into the ring with the binning kernel
-(`ops/route.py`).  Determinism comes from the counter-based hashes and
-the stable in-cell order of the binning, as in the JAX package.  The
-superstep engine (`step_kms`) does the same for a window of K ms: it
-reads the K rows at once, steps K times, clears the K rows, and bins all
-K outboxes with one launch.
+Per simulated ms t: retire the broadcast records past the ring, drain
+the spill buffer's entries that came within reach of the ring, read the
+ring row ``t % H`` as the unicast inbox, add the broadcast records that
+arrive at t (their latency recomputed per (record, dest), never
+stored), let the protocol step every node at once, clear the consumed
+row, then route the step's unicast sends into the ring with the binning
+kernel (`ops/route.py`), parking those past the ring in the spill
+buffer, and allocate broadcast records for its sendAlls.  Determinism
+comes from the counter-based hashes and the stable in-cell order of the
+binning, as in the JAX package.  The superstep engine (`step_kms`) does
+the same for a window of K ms: it reads the K rows at once, steps K
+times (each ms retiring, delivering and enqueuing its own broadcasts),
+clears the K rows, and bins all K outboxes with one launch.
+
+One engine serves both layouts.  A state whose ``time`` is a scalar is
+one run; a state whose every leaf has a leading seed axis R (as
+`core/state.init_batched` builds it) is a batch of runs in lockstep,
+the port of the JAX harness's ``jax.vmap(scan_chunk(...))`` and of the
+seed-folded engine of `core/batched.py`.  For a batch the ring keeps its
+explicit seed axis (one bin launch serves every seed, the seed axis as
+the kernel's grid.y), and every per-run function (the protocol step,
+delivery checks, broadcast recompute and allocation, latency draws,
+spill parking) runs under `torch.func.vmap`, out of place.
 
 The JAX engine is pure; this one updates the mailbox ring (the
 `box_*` tensors, 126 MB at 2048 nodes) IN PLACE, because copying it
-every ms would cost more than the step.  Every other leaf is replaced.
-The simulated time is carried as a Python int inside a chunk (read from
-the device at most once per call), so the step loop never waits for
-the card.
+every ms would cost more than the step, and `torch.func.vmap` cannot
+batch an in-place write: every ring read and write happens outside the
+vmapped functions, which see the state with its ring leaves set aside
+(`_split_ring`).  Every other leaf is replaced.  The simulated time is
+carried as a Python int inside a chunk (read from the device at most
+once per call), so the step loop never waits for the card.
 
-Ported: the unicast-only path of `build_inbox` (``bcast_slots == 0``),
-`_unicast_inbox_window`, `_route_unicast`, `enqueue_unicast`
-(``spill_cap == 0``), `_bin_into_ring`, `step_ms`, `step_kms`,
-`step_2ms`, the superstep gate (`unicast_floor_ms`, `superstep_ok`,
+Ported: `_retire_broadcasts`, `broadcast_arrivals`, `_bcast_inbox` with
+the broadcast half of `build_inbox` (as `_with_broadcasts`),
+`_unicast_inbox_window`, `_route_unicast` with `enqueue_unicast`'s spill
+branch, `enqueue_broadcast`, `_alloc_free_slots`, `_park_in_spill`,
+`_drain_spill`, `_bin_into_ring`, `step_ms`, `step_kms`, `step_2ms`, the
+superstep gate (`unicast_floor_ms`, `superstep_ok`,
 `check_chunk_config`, `pick_superstep`), `scan_chunk` with phase hints
-and `Runner`.  Broadcasts, the spill buffer and fast-forward raise
-`NotImplementedError` and are queued in ROADMAP.md.
+and `Runner`.  Ring sub-planes (``box_split > 1``), fault hooks and
+fast-forward raise `NotImplementedError` and are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -43,6 +64,9 @@ I32 = torch.int32
 #: (wittgenstein_tpu/core/network.py:894-897).
 AUTO_SUPERSTEP_MAX = 32
 
+#: the mailbox ring's leaves, updated in place
+RING = ("box_data", "box_src", "box_size", "box_count")
+
 
 def _unported(what: str):
     return NotImplementedError(
@@ -52,32 +76,140 @@ def _unported(what: str):
 
 def check_config(cfg: EngineConfig) -> None:
     """Refuse engine configurations the port does not run yet."""
-    if cfg.bcast_slots:
-        raise _unported("broadcasts (bcast_slots > 0)")
-    if cfg.spill_cap:
-        raise _unported("the spill buffer (spill_cap > 0)")
     if cfg.box_split != 1:
         raise _unported("ring sub-planes (box_split > 1)")
 
 
-def _unicast_inbox_window(cfg: EngineConfig, net: NetState, t: int, k: int):
-    """K consecutive unicast inbox slices as one window
-    (wittgenstein_tpu/core/network.py:96-130): ``(data [K, N, C, F],
-    src [K, N, C], size [K, N, C], valid [K, N, C])``, views of the ring
-    rows ``t % H .. t % H + K - 1`` (`step_kms` requires ``t % K == 0``
-    and ``K | H``, so they never wrap).  Delivery-time down/partition
-    checks are evaluated once for the window: `step_kms` requires a
-    protocol that does not change liveness."""
+def _split_ring(net: NetState):
+    """``(net with empty ring leaves, {ring leaf: tensor})``: the state
+    the per-run functions see (under `torch.func.vmap` for a batch,
+    each placeholder a [0] tensor a run), and the ring they must not
+    write."""
+    empty = net.time.new_empty(net.time.shape + (0,))
+    ring = {k: getattr(net, k) for k in RING}
+    return net.replace(**dict.fromkeys(RING, empty)), ring
+
+
+def _bin_into_ring(ring: dict, arrival, dest, src, size, payload, valid):
+    """Bin a batch of messages into the ring, in place
+    (wittgenstein_tpu/core/network.py:198-285), for one run (message
+    vectors [M]) or a batch (a leading R axis on the ring and the
+    messages).  `dest` is clipped to [0, n) for valid messages, and
+    their ``arrival - t`` spans at most H - 1 consecutive values (the
+    kernel groups by ring row): [1, H-1] per ms, [K, H+K-2] for a K-ms
+    window.  Returns the dropped count (a scalar, or [R])."""
+    msgs = (arrival, dest, src, size, payload, valid)
+    if ring["box_count"].dim() == 3:
+        return bin_into_ring(*ring.values(), *msgs)
+    return bin_into_ring(*(x[None] for x in ring.values()),
+                         *(x[None] for x in msgs))[0]
+
+
+def _set_drop(table, slot_w, vals):
+    """``table.at[slot_w].set(vals, mode="drop")`` for slot_w in [0,
+    cap], cap meaning dropped: a scatter into the table padded by one
+    dump row, which is then sliced off.  Out of place, so it runs under
+    `torch.func.vmap`."""
+    pad = torch.cat([table, torch.zeros_like(table[:1])])
+    idx = slot_w.long().reshape(slot_w.shape + (1,) * (table.dim() - 1))
+    idx = idx.expand(slot_w.shape + table.shape[1:])
+    return pad.scatter(0, idx, vals.expand(idx.shape))[:table.shape[0]]
+
+
+def _alloc_free_slots(free, want):
+    """Deterministic free-slot allocation for a fixed table
+    (wittgenstein_tpu/core/network.py:288-299): the i-th requester (in
+    index order) takes the i-th free slot.  Returns ``(slot_w, ok)``,
+    slot_w == len(free) for requesters that found the table full."""
+    cap = free.shape[0]
+    rank = want.to(I32).cumsum(0, dtype=I32) - 1
+    n_free = free.sum(dtype=I32)
+    slot_order = torch.argsort((~free).to(I32), stable=True).to(I32)
+    ok = want & (rank < n_free)
+    slot = slot_order[rank.clamp(0, cap - 1).long()]
+    return torch.where(ok, slot, cap), ok
+
+
+def _retire_broadcasts(cfg: EngineConfig, net: NetState, t: int):
+    """A broadcast's last possible arrival is bc_time + horizon - 1
+    (wittgenstein_tpu/core/network.py:44-47); elementwise, so it runs on
+    a batch as it is."""
+    live = net.bc_active & ((t - net.bc_time) < cfg.horizon)
+    return net.replace(bc_active=live)
+
+
+def broadcast_arrivals(cfg: EngineConfig, model, net: NetState, nodes):
+    """Per-(record, dest) broadcast arrival recompute — the one shared
+    definition of the reference's stateless multicast latency
+    (wittgenstein_tpu/core/network.py:50-73).  Returns ``(arrival [B,
+    N], ok [B, N], clamped [B, N])``: `ok` covers record-active,
+    discard and partition checks (not the destination's down flag),
+    `clamped` marks arrivals whose true latency outran the ring."""
+    node_idx = torch.arange(cfg.n, dtype=I32, device=nodes.down.device)
+    delta = prng.uniform_delta(net.bc_seed[:, None], node_idx[None, :])
+    lat = full_latency(model, nodes, net.bc_src[:, None], node_idx[None, :],
+                       delta)
+    # Discard is checked against the true latency, then the survivor is
+    # clamped into the ring.
+    not_discarded = lat < cfg.msg_discard_time
+    raw_lat = lat.clamp_min(1)
+    lat = lat.clamp(1, cfg.horizon - 2)
+    arrival = net.bc_time[:, None] + 1 + lat
+    ok = (net.bc_active[:, None] & not_discarded
+          & (nodes.partition[net.bc_src][:, None] ==
+             nodes.partition[None, :]))
+    return arrival, ok, raw_lat != lat
+
+
+def _with_broadcasts(cfg: EngineConfig, model, net: NetState, uc: Inbox,
+                     t: int):
+    """One run's time-t inbox: the unicast slice `uc` and the broadcast
+    records arriving at t, concatenated to [N, C + B]; the broadcast
+    receive counters and clamps are counted here (`_bcast_inbox` and the
+    broadcast half of `build_inbox`, wittgenstein_tpu/core/network.py:
+    76-93 and 178-195).  Partition membership is checked at delivery
+    time, as in the JAX package."""
     nodes = net.nodes
+    n, b, f = cfg.n, cfg.bcast_slots, cfg.payload_words
+    arrival, bc_ok, clamped = broadcast_arrivals(cfg, model, net, nodes)
+    bc_hit = bc_ok & (arrival == t) & (~nodes.down[None, :])     # [B, N]
+    bc_size = net.bc_size[None].expand(n, b)
+    inbox = Inbox(
+        data=torch.cat([uc.data, net.bc_payload[None].expand(n, b, f)], 1),
+        src=torch.cat([uc.src, net.bc_src[None].expand(n, b)], 1),
+        valid=torch.cat([uc.valid, bc_hit.T], 1))
+    # Deliveries whose true latency outran the ring are counted once, at
+    # their clamped delivery ms.
+    return net.replace(
+        nodes=_count_received(nodes, bc_hit.T, bc_size, 1),
+        clamped=net.clamped + (bc_hit & clamped).sum(dtype=I32)), inbox
+
+
+def _unicast_inbox_window(cfg: EngineConfig, ring: dict, t: int, k: int):
+    """K consecutive unicast inbox slices as one window
+    (wittgenstein_tpu/core/network.py:96-130): ``(data [.., K, N, C,
+    F], src [.., K, N, C], size [.., K, N, C], filled [.., K, N, C])``,
+    views of the ring rows ``t % H .. t % H + K - 1`` (`step_kms`
+    requires ``t % K == 0`` and ``K | H``, so they never wrap), with the
+    seed axis in front for a batch.  `filled` marks the occupied slots;
+    `_receive_window` adds the delivery-time checks."""
     h = t % cfg.horizon
-    data = net.box_data[:, h:h + k].permute(1, 2, 3, 0)
-    src = net.box_src[h:h + k]
-    size = net.box_size[h:h + k]
+    data = ring["box_data"][..., h:h + k, :, :].movedim(-4, -1)
+    src = ring["box_src"][..., h:h + k, :, :]
+    size = ring["box_size"][..., h:h + k, :, :]
     slots = torch.arange(cfg.inbox_cap, dtype=I32, device=src.device)
-    valid = slots[None, None, :] < net.box_count[h:h + k][:, :, None]
-    deliver_ok = (~nodes.down[None, :, None]) & (
+    filled = slots < ring["box_count"][..., h:h + k, :, None]
+    return data, src, size, filled
+
+
+def _receive_window(nodes, src, size, filled):
+    """One run's delivery-time down/partition checks over its K-row
+    window, and its receive counters bumped by the delivered unicasts
+    (the checks are evaluated once for the window: a K > 1 window
+    requires a protocol that does not change liveness)."""
+    valid = filled & (~nodes.down[None, :, None]) & (
         nodes.partition[src] == nodes.partition[None, :, None])
-    return data, src, size, valid & deliver_ok
+    return _count_received(nodes, valid, size, (0, 2)), valid
 
 
 def _count_received(nodes, valid, size, dims):
@@ -88,37 +220,53 @@ def _count_received(nodes, valid, size, dims):
                          bytes_received=nodes.bytes_received + rbytes)
 
 
-def build_inbox(cfg: EngineConfig, model, net: NetState, t: int):
-    """Assemble the time-t inbox and bump the receive counters
-    (wittgenstein_tpu/core/network.py:133-195, the ``bcast_slots == 0``
-    path).  Returns ``(inbox, nodes)``; the inbox tensors are views of
-    the ring row."""
-    check_config(cfg)
-    data, src, size, valid = _unicast_inbox_window(cfg, net, t, 1)
-    nodes = _count_received(net.nodes, valid[0], size[0], 1)
-    return Inbox(data=data[0], src=src[0], valid=valid[0]), nodes
+def _park_in_spill(cfg: EngineConfig, net: NetState, src, dest, arrival,
+                   payload, size, far):
+    """Park far-future sends in the spill buffer (free slot: arrival <
+    0); overflow is counted in `sp_dropped`
+    (wittgenstein_tpu/core/network.py:302-313)."""
+    slot_w, ok = _alloc_free_slots(net.sp_arrival < 0, far)
+    return net.replace(
+        sp_arrival=_set_drop(net.sp_arrival, slot_w, arrival),
+        sp_src=_set_drop(net.sp_src, slot_w, src),
+        sp_dest=_set_drop(net.sp_dest, slot_w, dest),
+        sp_size=_set_drop(net.sp_size, slot_w, size),
+        sp_payload=_set_drop(net.sp_payload, slot_w, payload),
+        sp_dropped=net.sp_dropped + (far & ~ok).sum(dtype=I32))
 
 
-def _bin_into_ring(cfg: EngineConfig, net: NetState, t: int, src, dest,
-                   arrival, payload, size, valid):
-    """Bin a batch of messages into the ring, in place
-    (wittgenstein_tpu/core/network.py:198-285).  `dest` is clipped to
-    [0, n) and ``arrival - t`` lies in [1, horizon-1] for the per-ms
-    path, [K, horizon+K-2] for a K-ms window.  Returns ``(net,
-    n_dropped)``."""
-    dropped = bin_into_ring(
-        net.box_data[None], net.box_src[None], net.box_size[None],
-        net.box_count[None], arrival[None], dest[None], src[None],
-        size[None], payload[None], valid[None])
-    return net, dropped[0]
+def _drain_spill(cfg: EngineConfig, net: NetState, ring: dict, t: int,
+                 frozen=None):
+    """Re-inject parked messages whose arrival is within reach of the
+    ring (wittgenstein_tpu/core/network.py:316-331), binned into the
+    ring by the same kernel as the sends.  Selected entries have
+    ``arrival - t <= H - 2`` and are clamped to ``arrival >= t + 1``,
+    so their rel values lie in [1, H - 2]: at most H - 2 consecutive
+    values, within the kernel's precondition (it groups by ring row,
+    and rel -> rel % H is injective on them).  A `frozen` run's entries
+    stay out of the bin (the ring is written in place)."""
+    sel = (net.sp_arrival >= 0) & (net.sp_arrival - t <= cfg.horizon - 2)
+    binned = sel if frozen is None else sel & ~frozen[:, None]
+    # A batch's spill leaves come out of `torch.func.vmap` as strided
+    # views; the kernel reads contiguous rows.
+    n_drop = _bin_into_ring(ring, net.sp_arrival.clamp_min(t + 1),
+                            net.sp_dest.contiguous(), net.sp_src.contiguous(),
+                            net.sp_size.contiguous(),
+                            net.sp_payload.contiguous(), binned)
+    return net.replace(sp_arrival=torch.where(sel, -1, net.sp_arrival),
+                       dropped=net.dropped + n_drop)
 
 
-def _route(cfg: EngineConfig, model, nodes, seed, out: Outbox, t: int):
-    """Sender counters, latency draws and validity of one seed's outbox
-    (wittgenstein_tpu/core/network.py:334-389).  Returns ``(nodes',
-    batch, abs_arrival_raw)`` with batch ``(src, dest_c, arrival,
-    payload, size, valid, far)``; runs under `torch.func.vmap` in the
-    seed-folded engine."""
+def _route_unicast(cfg: EngineConfig, model, net: NetState, out: Outbox,
+                   t: int):
+    """One run's unicast sends of ms t
+    (wittgenstein_tpu/core/network.py:334-414): sender counters,
+    latency draws and validity; with ``spill_cap > 0`` the sends past
+    the ring park in the spill buffer (delivered exactly on time when
+    the ring reaches them), else they are clamped to the ring's edge
+    and counted in `clamped`.  Returns ``(net', (arrival, dest, src,
+    size, payload, valid))``, the batch the ring bins."""
+    nodes = net.nodes
     n, k = cfg.n, out.dest.shape[1]
     m = n * k
     dev = out.dest.device
@@ -130,12 +278,15 @@ def _route(cfg: EngineConfig, model, nodes, seed, out: Outbox, t: int):
 
     want = (dest >= 0) & (~nodes.down[src])
     dest_c = dest.clamp(0, n - 1)
+    # Attempted sends count whether or not the destination is reachable.
     sent = nodes.msg_sent + want.reshape(n, k).sum(1, dtype=I32)
     sbytes = nodes.bytes_sent + torch.where(want, size, 0).reshape(
         n, k).sum(1, dtype=I32)
-    nodes = nodes.replace(msg_sent=sent, bytes_sent=sbytes)
+    net = net.replace(nodes=nodes.replace(msg_sent=sent, bytes_sent=sbytes))
 
-    seed_t = prng.hash3(seed, prng.TAG_LATENCY, t)
+    seed_t = prng.hash3(net.seed, prng.TAG_LATENCY, t)
+    # The stable full-width slot id: a narrow outbox (Outbox.slot0) draws
+    # the latencies its columns would draw in the full-width one.
     midx = src * cfg.out_deg + out.slot0 + \
         torch.arange(m, dtype=I32, device=dev) % k
     delta = prng.uniform_delta(seed_t, midx)
@@ -146,31 +297,41 @@ def _route(cfg: EngineConfig, model, nodes, seed, out: Outbox, t: int):
     valid = want & not_discarded & (~nodes.down[dest_c]) & (
         nodes.partition[src] == nodes.partition[dest_c])
     far = valid & (raw_total > cfg.horizon - 2)
-    batch = (src, dest_c, t + 1 + total, payload, size, valid, far)
-    return nodes, batch, t + 1 + raw_total
+    if cfg.spill_cap > 0:
+        net = _park_in_spill(cfg, net, src, dest_c, t + 1 + raw_total,
+                             payload, size, far)
+        valid = valid & ~far
+    else:
+        net = net.replace(clamped=net.clamped + far.sum(dtype=I32))
+    return net, (t + 1 + total, dest_c, src, size, payload, valid)
 
 
-def _route_unicast(cfg: EngineConfig, model, net: NetState, out: Outbox,
-                   t: int):
-    """`_route` on a NetState: returns ``(net', batch,
-    abs_arrival_raw)``."""
-    nodes, batch, raw = _route(cfg, model, net.nodes, net.seed, out, t)
-    return net.replace(nodes=nodes), batch, raw
-
-
-def enqueue_unicast(cfg: EngineConfig, model, net: NetState, out: Outbox,
-                    t: int):
-    """Route the step's unicast sends into the ring
-    (wittgenstein_tpu/core/network.py:392-414, ``spill_cap == 0``:
-    arrivals past the ring are clamped and counted)."""
-    check_config(cfg)
-    net, batch, _ = _route_unicast(cfg, model, net, out, t)
-    src, dest_c, arrival, payload, size, valid, far = batch
-    n_clamped = far.sum(dtype=I32)
-    net, n_dropped = _bin_into_ring(cfg, net, t, src, dest_c, arrival,
-                                    payload, size, valid)
-    return net.replace(dropped=net.dropped + n_dropped,
-                       clamped=net.clamped + n_clamped)
+def enqueue_broadcast(cfg: EngineConfig, net: NetState, out: Outbox,
+                      t: int):
+    """Allocate broadcast-table records for this step's sendAll requests
+    (wittgenstein_tpu/core/network.py:417-445).  A sendAll counts one
+    attempted send and `bcast_size` bytes per destination, all N nodes,
+    its own included; requests that find the table full are counted in
+    `bc_dropped`."""
+    nodes = net.nodes
+    n = cfg.n
+    req = out.bcast & (~nodes.down)
+    sent = nodes.msg_sent + torch.where(req, n, 0).to(I32)
+    sbytes = nodes.bytes_sent + torch.where(req, out.bcast_size * n, 0)
+    slot_w, ok = _alloc_free_slots(~net.bc_active, req)
+    node_idx = torch.arange(n, dtype=I32, device=req.device)
+    bseed = prng.hash3(prng.hash2(net.seed, prng.TAG_BCAST),
+                       torch.full((n,), t, dtype=I32, device=req.device),
+                       node_idx).to(I32)
+    return net.replace(
+        nodes=nodes.replace(msg_sent=sent, bytes_sent=sbytes),
+        bc_active=_set_drop(net.bc_active, slot_w, torch.ones_like(req)),
+        bc_src=_set_drop(net.bc_src, slot_w, node_idx),
+        bc_time=_set_drop(net.bc_time, slot_w, torch.full_like(node_idx, t)),
+        bc_payload=_set_drop(net.bc_payload, slot_w, out.bcast_payload),
+        bc_size=_set_drop(net.bc_size, slot_w, out.bcast_size),
+        bc_seed=_set_drop(net.bc_seed, slot_w, bseed),
+        bc_dropped=net.bc_dropped + (req & ~ok).sum(dtype=I32))
 
 
 def protocol_step(protocol, pstate, nodes, inbox, t: int, hints=None):
@@ -188,89 +349,102 @@ def _check_step(protocol):
 
 
 def step_ms(protocol, net: NetState, pstate, t: int | None = None,
-            hints=None):
+            hints=None, frozen=None):
     """Advance one millisecond (wittgenstein_tpu/core/network.py:
-    448-504, without taps or fault hooks).  `t` is the current
-    ``net.time`` as a Python int; when omitted it is read from the
-    device.  `hints` are the protocol's phase hints for this ms."""
-    cfg, model = protocol.cfg, protocol.latency
-    _check_step(protocol)
-    if t is None:
-        t = int(net.time)
-    inbox, nodes = build_inbox(cfg, model, net, t)
-    net = net.replace(nodes=nodes)
-    pstate, nodes, out = protocol_step(protocol, pstate, net.nodes, inbox, t,
-                                       hints)
-    net = net.replace(nodes=nodes)
-    # Clear the consumed row, then route new sends (their arrivals are
-    # >= t+2, so they never land in the row just cleared).
-    net.box_count[t % cfg.horizon] = 0
-    net = enqueue_unicast(cfg, model, net, out, t)
-    return net.replace(time=torch.full_like(net.time, t + 1)), pstate
-
-
-def _concat_batches(batches, dim):
-    """The routed batches of a window as one: (src, dest, arrival,
-    payload, size, valid) concatenated along `dim`, and the clamp
-    count."""
-    n_clamped = batches[0][6].sum(dim, dtype=I32)
-    for b in batches[1:]:
-        n_clamped = n_clamped + b[6].sum(dim, dtype=I32)
-    cols = [torch.cat([b[i] for b in batches], dim) for i in range(6)]
-    return cols, n_clamped
+    448-504, without taps or fault hooks): `step_kms` with K = 1.  `t`
+    is the current time as a Python int, read from the device when
+    omitted; `hints` are the protocol's phase hints for this ms."""
+    return step_kms(protocol, net, pstate, 1, hints_k=[hints], t=t,
+                    frozen=frozen)
 
 
 def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
-             t: int | None = None):
-    """Advance K milliseconds in one fused engine pass, the superstep
-    (wittgenstein_tpu/core/network.py:507-663, unicast only).
+             t: int | None = None, frozen=None):
+    """Advance K milliseconds in one engine pass, the superstep
+    (wittgenstein_tpu/core/network.py:448-663), for one run or a seed
+    batch (see the module docstring).
 
     Bit-identical to K `step_ms` calls whenever no unicast sent inside
     the window can arrive inside it: K <= ``unicast_floor_ms() + 1``
     (`check_chunk_config` proves it).  The K inbox rows are read as one
-    window, the K protocol steps run in order, the K consumed rows are
-    cleared, and all K outboxes are routed and binned by ONE launch
-    (arrivals relative to t span [K, horizon + K - 2]; those past the
-    horizon land in the rows just cleared, so the clear must come
-    before the bin).  Requires ``t % K == 0`` and ``K | horizon``."""
+    window and their receive counters bumped up front; each ms of the
+    window then retires its broadcasts, adds those arriving at it to
+    the inbox, steps the protocol and enqueues its own broadcasts (a
+    sendAll reaches its sender in 1 ms, so broadcasts are not
+    window-fused); the K consumed rows are cleared, and all K outboxes
+    are routed and binned by ONE launch (arrivals relative to t span
+    [K, horizon + K - 2]; those past the horizon land in the rows just
+    cleared, so the clear must come before the bin).  K > 1 requires
+    ``t % K == 0``, ``K | horizon`` and ``spill_cap == 0``; with K = 1
+    the spill buffer is drained before the inbox is read.
+
+    `t` is the (batch's) time as a Python int, read from the device when
+    omitted.  `frozen` ([R] bool, a batch only) marks runs whose ring
+    must not change: their rows are neither cleared nor binned into, by
+    the sends or the spill drain (the ring is updated in place, so a
+    caller that keeps a stopped run's other leaves cannot restore its
+    ring afterwards; `core/harness.py` uses it).  Their other leaves
+    advance, and the caller selects them back."""
     if hints_k is not None and len(hints_k) != k:
         raise ValueError(f"hints_k must have {k} entries, got "
                          f"{len(hints_k)}")
-    if k == 1:
-        return step_ms(protocol, net, pstate, t,
-                       hints=None if hints_k is None else hints_k[0])
     cfg, model = protocol.cfg, protocol.latency
-    if cfg.spill_cap > 0:
+    if k > 1 and cfg.spill_cap > 0:
         raise ValueError("step_kms requires spill_cap == 0 (spill drain "
                          "is inherently per-ms)")
     _check_step(protocol)
+    lead = net.time.dim()
+    per_run = torch.func.vmap if lead else (lambda fn: fn)
     if t is None:
-        t = int(net.time)
+        t = int(net.time.reshape(-1)[0])
+    net, ring = _split_ring(net)
+    if cfg.bcast_slots:
+        net = _retire_broadcasts(cfg, net, t)
+    if cfg.spill_cap:
+        net = _drain_spill(cfg, net, ring, t, frozen)
+
     # All K slices and their receive counters up front (the counters are
     # write-only to the protocol step, so the early bump is invisible).
-    data, src, size, valid = _unicast_inbox_window(cfg, net, t, k)
-    net = net.replace(nodes=_count_received(net.nodes, valid, size, (0, 2)))
+    data, src, size, filled = _unicast_inbox_window(cfg, ring, t, k)
+    nodes, valid = per_run(_receive_window)(net.nodes, src, size, filled)
+    net = net.replace(nodes=nodes)
     outs = []
     for i in range(k):
-        inbox = Inbox(data=data[i], src=src[i], valid=valid[i])
-        pstate, nodes, out = protocol_step(
-            protocol, pstate, net.nodes, inbox, t + i,
-            None if hints_k is None else hints_k[i])
+        inbox = Inbox(data=data.select(lead, i), src=src.select(lead, i),
+                      valid=valid.select(lead, i))
+        if cfg.bcast_slots:
+            if i:
+                net = _retire_broadcasts(cfg, net, t + i)
+            net, inbox = per_run(functools.partial(
+                _with_broadcasts, cfg, model, t=t + i))(net, inbox)
+        pstate, nodes, out = per_run(functools.partial(
+            protocol_step, protocol, t=t + i,
+            hints=None if hints_k is None else hints_k[i]))(
+                pstate, net.nodes, inbox)
         net = net.replace(nodes=nodes)
         outs.append(out)
+        if cfg.bcast_slots:
+            net = per_run(functools.partial(enqueue_broadcast, cfg,
+                                            t=t + i))(net, out)
+
     h = t % cfg.horizon
-    net.box_count[h:h + k] = 0
+    rows = ring["box_count"][..., h:h + k, :]
+    if frozen is None:
+        rows.zero_()
+    else:
+        rows.copy_(torch.where(frozen[:, None, None], rows, 0))
     batches = []
     for i, out in enumerate(outs):
-        net, b, _ = _route_unicast(cfg, model, net, out, t + i)
+        net, b = per_run(functools.partial(_route_unicast, cfg, model,
+                                           t=t + i))(net, out)
         batches.append(b)
-    (msrc, dest, arrival, payload, msize, ok), n_clamped = \
-        _concat_batches(batches, 0)
-    net, n_dropped = _bin_into_ring(cfg, net, t, msrc, dest, arrival,
-                                    payload, msize, ok)
-    return net.replace(dropped=net.dropped + n_dropped,
-                       clamped=net.clamped + n_clamped,
-                       time=torch.full_like(net.time, t + k)), pstate
+    msgs = [torch.cat(col, lead) if k > 1 else col[0].contiguous()
+            for col in zip(*batches)]
+    if frozen is not None:
+        msgs[5] = msgs[5] & ~frozen[:, None]
+    n_dropped = _bin_into_ring(ring, *msgs)
+    return net.replace(**ring, dropped=net.dropped + n_dropped,
+                       time=net.time + k), pstate
 
 
 def step_2ms(protocol, net: NetState, pstate, hints2=(None, None),
@@ -439,10 +613,12 @@ def chunk_hints(protocol, ms, t0_mod, superstep):
 
 def scan_chunk(protocol, ms: int, t0_mod=None, superstep: int = 1,
                fast_forward: bool = False):
-    """Returns ``run(net, pstate, t=None) -> (net, pstate)`` advancing
-    `ms` milliseconds (wittgenstein_tpu/core/network.py:1062-1174), a
-    Python loop over the chunk's ms; `t` is the entry time, read from
-    the device when omitted.
+    """Returns ``run(net, pstate, t=None, frozen=None) -> (net,
+    pstate)`` advancing `ms` milliseconds
+    (wittgenstein_tpu/core/network.py:1062-1174), a Python loop over the
+    chunk's ms, for one run or a seed batch (every run at the same
+    time); `t` is the entry time, read from the device when omitted,
+    and `frozen` as in `step_kms`.
 
     ``t0_mod`` (= entry ``time % schedule_lcm``) specializes the chunk:
     each ms gets the protocol's `phase_hints`, so e.g. Handel's
@@ -454,12 +630,13 @@ def scan_chunk(protocol, ms: int, t0_mod=None, superstep: int = 1,
     k = superstep
     hints = chunk_hints(protocol, ms, t0_mod, k) or [None] * k
 
-    def run(net, pstate, t=None):
-        t = int(net.time) if t is None else t
+    def run(net, pstate, t=None, frozen=None):
+        t = int(net.time.reshape(-1)[0]) if t is None else t
         for _ in range(ms // len(hints)):
             for i in range(0, len(hints), k):
                 net, pstate = step_kms(protocol, net, pstate, k,
-                                       hints_k=hints[i:i + k], t=t)
+                                       hints_k=hints[i:i + k], t=t,
+                                       frozen=frozen)
                 t += k
         return net, pstate
 

@@ -230,9 +230,18 @@ def init_batched(protocol, seeds):
     """``(NetState, protocol state)`` of a batch of runs: every leaf
     with a leading seed axis R, the layout of the JAX package's
     ``jax.vmap(protocol.init)(seeds)``.  Each seed's state is built by
-    `protocol.init` and the leaves stacked."""
-    states = [protocol.init(s) for s in torch.as_tensor(seeds).tolist()]
-    return pytree.tree_map(lambda *xs: torch.stack(xs), *states)
+    `protocol.init` and copied into the batch, one seed at a time, so
+    the batch and one seed's state are all that is held at once."""
+    seeds = torch.as_tensor(seeds).tolist()
+    state = protocol.init(seeds[0])
+    batch = pytree.tree_map(
+        lambda x: x.new_empty((len(seeds),) + tuple(x.shape)), state)
+    for r, seed in enumerate(seeds):
+        if r:
+            del state                   # before the next seed's is built
+            state = protocol.init(seed)
+        pytree.tree_map(lambda b, x, r=r: b[r].copy_(x), batch, state)
+    return batch
 
 
 def empty_outbox(cfg: EngineConfig, device, k: int | None = None,
