@@ -55,24 +55,43 @@ Phases (any failure exits non-zero; nothing is caught):
    delivers at exactly 511 with route launched twice a ms (the drain,
    then the sends); with 2 slots and 4 such sends, 2 are dropped and
    the 2 lowest senders' deliver (got [0, 1, 1, 0]); two seeds of the
-   first through the harness at K = 1 deliver at 511 each.
+   first through the harness at K = 1 deliver at 511 each;
+7. GSF on a seed batch: `GSFSignature(node_count=4096)`, seeds 0-3 in
+   one batch to 600 ms in 200-ms chunks, (a) on the harness's engine at
+   K=1 (`network.scan_chunk` on the batch, `tools/bench_suite.py`'s GSF
+   line) and (b) on the seed-folded engine (`scan_chunk_batched`, K=2),
+   counters reset just before each: every seed's state equals the JAX
+   golden digests, zero drops and clamps, route once a window (600,
+   300), gsf_merge and gsf_score once a ms (600) for all 4 seeds;
+8. the fast-forward engine, each run beside the dense run of its path
+   in this process: (a) the headline on `fast_forward_chunk_batched`
+   (K=2, no phase hints) to 200 ms, every seed equal to its golden, the
+   kernels launched once a stepped window (route) or stepped ms (merge,
+   score); (b) `PingPong(1000)` through `Runner(fast_forward=True)` in
+   100-ms calls to 800 ms and (c) 16 PingPong seeds through
+   `fast_forward_chunk(seed_axis=True, superstep=2)` to 200 ms, each
+   equal to its golden, with the JAX engine's skip counts, and (b)
+   skipping something.
 
 Phase 2 holds route, merge and score at the headline's shapes too:
 route with R 16 on a K=2 window, merge and score through their vmap
 rules at 32,768 rows; and route on PingPong's batches: one K=2 window
 of pongs at R 16 (H 1024, N 1000, C 32, F 1, 2 x 1000 messages a seed,
 1% valid, all to the witness) and a spill drain of 4096 entries, half
-selected, at R 1.
+selected, at R 1; and route, gsf_merge and gsf_score at the GSF batch's
+(R 4: one ms of sends, and 4 x 4096 rows through the vmap rules).
 
 It prints one JSON line per kernel, the ``{"kernels": [...]}`` summary,
 the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  ``--profile MS`` also profiles MS
 simulated ms of each path with `torch.profiler` (Handel and the
 headline from t=600, the headline's MS rounded up to its 20-ms schedule,
-GSF from t=300, PingPong from t=0, the busiest stretches), reports the
-device us a simulated ms of each path's kernels by name, and writes the
-tables to ``--profile-file``, ``--profile-gsf-file``,
-``--profile-headline-file`` and ``--profile-pingpong-file``.
+GSF and the GSF batch at K=1 and K=2 from t=300, PingPong from t=0, the
+busiest stretches), reports the device us a simulated ms of each path's
+kernels by name, and writes the tables to ``--profile-file``,
+``--profile-gsf-file``, ``--profile-headline-file``,
+``--profile-pingpong-file`` and ``--profile-gsf-batch-file`` (K=2's
+beside it, ``_k2`` added to its name).
 """
 
 from __future__ import annotations
@@ -106,6 +125,13 @@ PP_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
 PP_HARNESS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                                  "golden_pingpong1000_r16_k2_200ms.json")
 SPILL_MS = 520
+GSF_SEEDS = 4
+GSF_CHUNK = 200
+GSF_BATCH_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                                "golden_gsf4096_r4_600ms.json")
+FF_MS = 200
+FF_STATS = os.path.join("wittgenstein_tpu_torch", "data",
+                        "golden_pingpong1000_ff_stats.json")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
 
@@ -603,64 +629,113 @@ def gsf_merge_bytes(args, kern, levels):
     return cols_in + cols_out + 4 * w * (rows_read + m * q)
 
 
-def phase_gsf_merge(dev, rng):
+def phase_gsf_merge(dev, rng, seeds=None):
+    """K5 at the GSF path's shapes; with `seeds`, that many cases in one
+    batch through `gsf_merge`'s vmap rule (one launch at seeds x 4096
+    rows, the GSF batch's), against the plain version on the folded
+    rows."""
     import torch
     from wittgenstein_tpu_torch.ops.gsf_merge import gsf_merge, \
         gsf_merge_plain
-    args, levels = gsf_merge_case(dev, rng)
-    plain = gsf_merge_plain(*args, levels)
-    kern = gsf_merge(*args, levels)
+    from wittgenstein_tpu_torch.ops.merge import fold_seeds
+    if seeds is None:
+        args, levels = gsf_merge_case(dev, rng)
+        flat = args
+
+        def kern_fn():
+            return gsf_merge(*args, levels)
+    else:
+        cases = [gsf_merge_case(dev, rng) for _ in range(seeds)]
+        levels = cases[0][1]
+        args = [torch.stack(a) for a in zip(*(c[0] for c in cases))]
+        flat = [fold_seeds(a, 0, seeds) for a in args]
+
+        def kern_fn():
+            return torch.func.vmap(gsf_merge, in_dims=(0,) * 10 + (None,))(
+                *args, levels)
+
+    def plain_fn():
+        return gsf_merge_plain(*flat, levels)
+    plain = plain_fn()
+    kern = [k.reshape(p.shape) for k, p in zip(kern_fn(), plain)]
     torch.cuda.synchronize()
     err = max_abs_err(plain, kern)
     if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
         fail(f"gsf_merge kernel differs from its plain version (max err "
              f"{err})")
-    return dict(err=err, ms=device_ms(lambda: gsf_merge(*args, levels),
-                                      "gsf_merge_kernel", cold()),
-                warm_ms=device_ms(lambda: gsf_merge(*args, levels),
-                                  "gsf_merge_kernel"),
-                plain_ms=device_ms(lambda: gsf_merge_plain(*args, levels)),
-                call_ms=call_ms(lambda: gsf_merge(*args, levels)),
-                plain_call_ms=call_ms(lambda: gsf_merge_plain(*args,
-                                                              levels)),
-                nbytes=gsf_merge_bytes(args, kern, levels),
+    return dict(err=err, ms=device_ms(kern_fn, "gsf_merge_kernel", cold()),
+                warm_ms=device_ms(kern_fn, "gsf_merge_kernel"),
+                plain_ms=device_ms(plain_fn), call_ms=call_ms(kern_fn),
+                plain_call_ms=call_ms(plain_fn),
+                nbytes=gsf_merge_bytes(flat, kern, levels),
                 admitted_individuals=int((kern[4] != 0).sum()))
 
 
-def phase_gsf_score(dev, rng):
+def phase_gsf_score(dev, rng, seeds=None):
+    """K4 at the GSF path's shapes; with `seeds`, a batch through
+    `gsf_score`'s vmap rule (the node ids unbatched, as in the step),
+    against the plain version on the folded rows."""
     import numpy as np
     import torch
+    from wittgenstein_tpu_torch.ops.merge import fold_seeds
     from wittgenstein_tpu_torch.ops.score import gsf_score, gsf_score_plain
     m, q, w = GSF_NODES, 16, GSF_NODES // 32
+    lead = () if seeds is None else (seeds,)
 
     def bits(*shape):
-        return torch.tensor(rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
-                            .view(np.int32), device=dev)
+        return torch.tensor(rng.integers(0, 2 ** 32, lead + shape,
+                                         dtype=np.uint32).view(np.int32),
+                            device=dev)
     args = [bits(m, q, w),
-            torch.tensor(rng.integers(0, 13, (m, q)), dtype=torch.int32,
-                         device=dev),
+            torch.tensor(rng.integers(0, 13, lead + (m, q)),
+                         dtype=torch.int32, device=dev),
             torch.arange(m, dtype=torch.int32, device=dev),
             bits(m, w), bits(m, w)]
-    plain = gsf_score_plain(*args)
-    kern = gsf_score(*args)
+    if seeds is None:
+        flat = args
+
+        def kern_fn():
+            return gsf_score(*args)
+    else:
+        dims = (0, 0, None, 0, 0)
+        flat = [fold_seeds(a, d, seeds) for a, d in zip(args, dims)]
+
+        def kern_fn():
+            return torch.func.vmap(gsf_score, in_dims=dims)(*args)
+
+    def plain_fn():
+        return gsf_score_plain(*flat)
+    plain = plain_fn()
+    kern = [k.reshape(p.shape) for k, p in zip(kern_fn(), plain)]
     torch.cuda.synchronize()
     err = max_abs_err(plain, kern)
     if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
         fail(f"gsf_score kernel differs from its plain version (max err "
              f"{err})")
     # Inputs: sig plane, levels, ids, two rows; outputs: four int32 and
-    # two bool [M, Q].
+    # two bool [M, Q]; M = all rows of the batch.
+    m = flat[2].numel()
     nbytes = 4 * (m * q * w + m * q + m + 2 * m * w + 4 * m * q) + 2 * m * q
     # The wrapper launches one kernel: timed by its name, as the others,
     # so the flush's own spread is never subtracted.
-    return dict(err=err, ms=device_ms(lambda: gsf_score(*args),
-                                      "gsf_score_kernel", cold()),
-                warm_ms=device_ms(lambda: gsf_score(*args),
-                                  "gsf_score_kernel"),
-                plain_ms=device_ms(lambda: gsf_score_plain(*args)),
-                call_ms=call_ms(lambda: gsf_score(*args)),
-                plain_call_ms=call_ms(lambda: gsf_score_plain(*args)),
-                nbytes=nbytes)
+    return dict(err=err, ms=device_ms(kern_fn, "gsf_score_kernel", cold()),
+                warm_ms=device_ms(kern_fn, "gsf_score_kernel"),
+                plain_ms=device_ms(plain_fn), call_ms=call_ms(kern_fn),
+                plain_call_ms=call_ms(plain_fn), nbytes=nbytes)
+
+
+def phase_route_gsf_r4(dev, rng):
+    """K1 on one ms of the GSF batch's sends: R 4, M = 4096 x 22 a seed."""
+    return phase_route(dev, rng, hz=512, n=GSF_NODES, c=16, out_deg=22,
+                       r=GSF_SEEDS)
+
+
+def phase_gsf_merge_r4(dev, rng):
+    return phase_gsf_merge(dev, rng, seeds=GSF_SEEDS)
+
+
+def phase_gsf_score_r4(dev, rng):
+    return phase_gsf_score(dev, rng, seeds=GSF_SEEDS)
 
 
 #: kernel entries of the ``kernels`` line: (name, wrapper key, path,
@@ -694,6 +769,15 @@ KERNELS = [
      "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_pingpong),
     ("route_drain", "route", "spill", "wittgenstein_tpu_torch/csrc/route.cu",
      "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_drain),
+    ("route_gsf_r4", "route", "gsf_batch",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_gsf_r4),
+    ("gsf_merge_r4", "gsf_merge", "gsf_batch",
+     "wittgenstein_tpu_torch/csrc/gsf_merge.cu",
+     "wittgenstein_tpu/ops/pallas_gsf_merge.py:51", phase_gsf_merge_r4),
+    ("gsf_score_r4", "gsf_score", "gsf_batch",
+     "wittgenstein_tpu_torch/csrc/gsf_score.cu",
+     "wittgenstein_tpu/ops/pallas_score.py:94", phase_gsf_score_r4),
 ]
 #: the launches each path's run must make, by wrapper (others: none).
 #: The per-ms paths launch each kernel once a simulated ms; the headline
@@ -702,14 +786,20 @@ KERNELS = [
 #: PingPong bins its pongs once a ms; the spill probe bins twice a ms
 #: (the drain, then the sends).  The PingPong harness bins once a K=2
 #: window for all seeds, so its count follows its stop time (set when
-#: it has run).
+#: it has run).  The GSF batch bins once a window (K=1, then K=2) and
+#: merges and scores every ms, each launch for all 4 seeds.  A
+#: fast-forward run launches on the ms it steps only: the counts of
+#: those paths follow their skip counts (set when they have run).
 PATH_LAUNCHES = {
     "handel": {"route": MAIN_MS, "merge": MAIN_MS, "score": MAIN_MS},
     "gsf": {"route": GSF_MS, "gsf_merge": GSF_MS, "gsf_score": GSF_MS},
     "headline": {"route": HEADLINE_MS // 2, "merge": HEADLINE_MS,
                  "score": HEADLINE_MS // 4},
     "pingpong": {"route": PP_MS},
-    "spill": {"route": 2 * SPILL_MS}}
+    "spill": {"route": 2 * SPILL_MS},
+    "gsf_batch": {"route": GSF_MS, "gsf_merge": GSF_MS, "gsf_score": GSF_MS},
+    "gsf_batch_k2": {"route": GSF_MS // 2, "gsf_merge": GSF_MS,
+                     "gsf_score": GSF_MS}}
 
 
 # ------------------------------------------------------------- main path
@@ -1137,6 +1227,209 @@ def spill_path(dev):
     return res, launches
 
 
+def load_golden(path, ms, seeds):
+    with open(path) as f:
+        golden = json.load(f)
+    if golden["ms"] != ms or len(golden["seeds"]) != seeds:
+        fail(f"{path} is for {len(golden['seeds'])} seeds at {golden['ms']} "
+             f"ms, not {seeds} at {ms}")
+    return golden
+
+
+def check_seed_goldens(what, nets, ps, golden):
+    from wittgenstein_tpu_torch import convert
+    got = convert.seed_digests(*convert.to_numpy(nets, ps))
+    for r, (g, w) in enumerate(zip(got, golden["seeds"])):
+        check_digest(f"{what} seed {r} at {golden['ms']} ms", g, w)
+    log(f"{what}: all {len(got)} seeds match the JAX reference at "
+        f"{golden['ms']} ms, {len(got[0])} leaves each")
+
+
+def gsf_batch_run(dev, k):
+    """GSF 4096, seeds 0-3 in one batch, to 600 ms in 200-ms chunks: K=1
+    on the harness's engine (`network.scan_chunk` on the batch), K=2 on
+    the seed-folded engine (`scan_chunk_batched`); counters set to 0
+    just before the run, the peak taken from before the batch is built.
+    Every seed is checked against the JAX golden digests after the
+    timed wall."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.gsf import GSFSignature
+    golden = load_golden(GSF_BATCH_GOLDEN, GSF_MS, GSF_SEEDS)
+    proto = GSFSignature(node_count=GSF_NODES, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nets, ps = init_batched(proto, torch.arange(GSF_SEEDS))
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in pytree.tree_leaves((nets, ps)))
+    run = (scan_chunk(proto, GSF_CHUNK) if k == 1 else
+           scan_chunk_batched(proto, GSF_CHUNK, superstep=k))
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    for i in range(GSF_MS // GSF_CHUNK):
+        nets, ps = run(nets, ps, t=i * GSF_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    frac = [float((nets.nodes.done_at[r][~nets.nodes.down[r]] > 0)
+                  .float().mean()) for r in range(GSF_SEEDS)]
+    res = dict(superstep=k, wall_s=wall, sim_ms_per_s=GSF_MS / wall,
+               agg_sim_ms_per_s=GSF_SEEDS * GSF_MS / wall, frac_done=frac,
+               dropped=int(nets.dropped.sum()),
+               clamped=int(nets.clamped.sum()),
+               evicted=int(ps.evicted.sum()), time=nets.time.tolist(),
+               state_bytes=state_bytes,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if res["dropped"] or res["clamped"]:
+        fail(f"GSF batch at K={k}: drops and clamps must be 0: {res}")
+    check_seed_goldens(f"GSF batch at K={k}", nets, ps, golden)
+    return res, launches
+
+
+def oracle_ms(proto, nets, ps, t):
+    """Host ms of one read of the fast-forward oracle (`next_work` and
+    its `int`) with the card idle: the oracle's own ops and one
+    synchronisation, the mean of ITERS reads.  In the loop a read also
+    waits for whatever of the window the card has not finished."""
+    import torch
+    from wittgenstein_tpu_torch.core.network import next_work
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        int(next_work(proto, nets, ps, t))
+    return (time.perf_counter() - t0) / ITERS * 1e3
+
+
+def ff_headline(dev):
+    """Path F(a): the headline's 16 seeds on `fast_forward_chunk_batched`
+    (K=2, no phase hints) to 200 ms, beside the dense headline chunk
+    (phase hints, as `bench_torch.py` runs it) on a fresh batch; counters
+    set to 0 just before the fast-forward run.  Every seed equals the
+    JAX golden digests at 200 ms."""
+    import torch
+    from wittgenstein_tpu_torch.core.batched import (
+        fast_forward_chunk_batched, scan_chunk_batched)
+    golden = load_golden(HEADLINE_GOLDEN, FF_MS, HEADLINE_SEEDS)
+    proto, (nets, ps) = headline_init(dev)
+    dense = scan_chunk_batched(proto, FF_MS, t0_mod=0, superstep=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nets, ps = dense(nets, ps, t=0)
+    torch.cuda.synchronize()
+    dense_wall = time.perf_counter() - t0
+    del nets, ps
+    proto, (nets, ps) = headline_init(dev)
+    run = fast_forward_chunk_batched(proto, FF_MS, superstep=2)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    nets, ps, stats = run(nets, ps, t=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    stepped = FF_MS - stats["skipped_ms"]
+    PATH_LAUNCHES["ff_headline"] = {"route": stepped // 2, "merge": stepped,
+                                    "score": stepped}
+    res = dict(wall_s=wall, dense_wall_s=dense_wall, **stats,
+               skip_rate=stats["skipped_ms"] / FF_MS, stepped_ms=stepped,
+               oracle_ms=oracle_ms(proto, nets, ps, FF_MS),
+               dropped=int(nets.dropped.sum()),
+               clamped=int(nets.clamped.sum()),
+               evicted=int(ps.evicted.sum()))
+    check_seed_goldens("fast-forwarded headline", nets, ps, golden)
+    return res, launches
+
+
+def ff_pingpong(dev, dense_wall):
+    """Path F(b): `PingPong(1000)`, seed 0, through `Runner(fast_forward=
+    True)` in 100-ms calls to 800 ms, counters set to 0 just before;
+    its state equals the JAX golden, its skip counts the JAX engine's,
+    and something is skipped.  `dense_wall` is phase 6's run of the same
+    calls on the dense engine."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import Runner
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    with open(PP_GOLDEN) as f:
+        golden = json.load(f)
+    with open(FF_STATS) as f:
+        want = json.load(f)["runner"]
+    proto = PingPong(node_count=PP_NODES, device=dev)
+    net, ps = proto.init(0)
+    runner = Runner(proto, fast_forward=True)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(PP_MS // 100):
+        net, ps = runner.run_ms(net, ps, 100)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    stats = runner.ff_stats()
+    check_digest(f"fast-forwarded PingPong at {PP_MS} ms",
+                 convert.state_digest(*convert.to_numpy(net, ps)),
+                 golden["leaves"])
+    got = {k: stats[k] for k in ("skipped_ms", "jump_count")}
+    if got != {k: want[k] for k in got}:
+        fail(f"fast-forwarded PingPong skips {got}, the JAX engine "
+             f"{want}")
+    if not stats["skipped_ms"] > 0:
+        fail("fast-forwarded PingPong skipped nothing")
+    PATH_LAUNCHES["ff_pingpong"] = {"route": PP_MS - stats["skipped_ms"]}
+    log(f"fast-forwarded PingPong equals the JAX golden at {PP_MS} ms and "
+        f"skips as the JAX engine does: {got}")
+    return dict(wall_s=wall, dense_wall_s=dense_wall, **stats,
+                skip_rate=stats["skipped_ms"] / PP_MS,
+                oracle_ms=oracle_ms(proto, net, ps, PP_MS),
+                pongs=int(ps.pongs)), launches
+
+
+def ff_pingpong_batch(dev):
+    """Path F(c): 16 PingPong(1000) seeds through `fast_forward_chunk(
+    seed_axis=True, superstep=2)` to 200 ms, beside the dense K=2 chunk
+    on a fresh batch; counters set to 0 just before the fast-forward
+    run.  Every seed equals the JAX golden digests, the skip counts the
+    JAX engine's."""
+    import torch
+    from wittgenstein_tpu_torch.core.network import fast_forward_chunk, \
+        scan_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    golden = load_golden(PP_HARNESS_GOLDEN, PP_CHUNK, PP_SEEDS)
+    with open(FF_STATS) as f:
+        want = json.load(f)["seed_axis"]
+    proto = PingPong(node_count=PP_NODES, device=dev)
+    nets, ps = init_batched(proto, torch.arange(PP_SEEDS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nets, ps = scan_chunk(proto, PP_CHUNK, superstep=2)(nets, ps, t=0)
+    torch.cuda.synchronize()
+    dense_wall = time.perf_counter() - t0
+    del nets, ps
+    nets, ps = init_batched(proto, torch.arange(PP_SEEDS))
+    run = fast_forward_chunk(proto, PP_CHUNK, seed_axis=True, superstep=2)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    nets, ps, stats = run(nets, ps, t=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    check_seed_goldens("fast-forwarded PingPong batch", nets, ps, golden)
+    if stats != {k: want[k] for k in stats}:
+        fail(f"fast-forwarded PingPong batch skips {stats}, the JAX engine "
+             f"{want}")
+    PATH_LAUNCHES["ff_pingpong_batch"] = {
+        "route": (PP_CHUNK - stats["skipped_ms"]) // 2}
+    return dict(wall_s=wall, dense_wall_s=dense_wall, **stats,
+                skip_rate=stats["skipped_ms"] / PP_CHUNK,
+                oracle_ms=oracle_ms(proto, nets, ps, PP_CHUNK)), launches
+
+
 #: kernel names (substrings of the profiler's keys) whose device time
 #: a simulated ms `--profile` reports for each path
 PROFILE_KERNELS = {
@@ -1146,6 +1439,7 @@ PROFILE_KERNELS = {
             "gsf_score": "gsf_score_kernel"}}
 PROFILE_KERNELS["headline"] = PROFILE_KERNELS["handel"]
 PROFILE_KERNELS["pingpong"] = {"route": "route_"}
+PROFILE_KERNELS["gsf_batch"] = PROFILE_KERNELS["gsf"]
 
 
 def dense_window(proto, start, ms):
@@ -1165,6 +1459,25 @@ def headline_window(dev, start, ms):
     for t in range(0, start, HEADLINE_CHUNK):
         nets, ps = run(nets, ps, t=t)
     window = scan_chunk_batched(proto, ms, t0_mod=0)
+    return lambda: window(nets, ps, t=start)
+
+
+def gsf_batch_window(dev, start, ms, k):
+    """The same for the GSF batch (4 seeds) at K=1 (`scan_chunk`) or on
+    the seed-folded engine at K=k (`start` and `ms` multiples of k)."""
+    import torch
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.gsf import GSFSignature
+    proto = GSFSignature(node_count=GSF_NODES, device=dev)
+    nets, ps = init_batched(proto, torch.arange(GSF_SEEDS))
+
+    def chunk(n):
+        return (scan_chunk(proto, n) if k == 1 else
+                scan_chunk_batched(proto, n, superstep=k))
+    nets, ps = chunk(start)(nets, ps, t=0)
+    window = chunk(ms)
     return lambda: window(nets, ps, t=start)
 
 
@@ -1220,6 +1533,8 @@ def main(argv=None) -> int:
                     default="profile_headline.txt")
     ap.add_argument("--profile-pingpong-file",
                     default="profile_pingpong.txt")
+    ap.add_argument("--profile-gsf-batch-file",
+                    default="profile_gsf_batch.txt")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1340,6 +1655,30 @@ def main(argv=None) -> int:
     check_launches("spill", slaunches)
     done("6d")
 
+    # 7. GSF on a seed batch, at K=1 and on the seed-folded engine at K=2
+    gbres, gblaunches = gsf_batch_run(dev, 1)
+    log(f"GSF batch, K=1: {json.dumps(gbres)} launches {gblaunches}")
+    check_launches("gsf_batch", gblaunches)
+    gb2res, gb2launches = gsf_batch_run(dev, 2)
+    log(f"GSF batch, K=2: {json.dumps(gb2res)} launches {gb2launches}")
+    check_launches("gsf_batch_k2", gb2launches)
+    done("7")
+
+    # 8. the fast-forward engine, beside the dense runs of its paths
+    fares, falaunches = ff_headline(dev)
+    log(f"fast-forwarded headline: {json.dumps(fares)} launches "
+        f"{falaunches}")
+    check_launches("ff_headline", falaunches)
+    fbres, fblaunches = ff_pingpong(dev, pres["wall_s"])
+    log(f"fast-forwarded PingPong: {json.dumps(fbres)} launches "
+        f"{fblaunches}")
+    check_launches("ff_pingpong", fblaunches)
+    fcres, fclaunches = ff_pingpong_batch(dev)
+    log(f"fast-forwarded PingPong batch: {json.dumps(fcres)} launches "
+        f"{fclaunches}")
+    check_launches("ff_pingpong_batch", fclaunches)
+    done("8")
+
     profiles = {}
     if args.profile:
         from wittgenstein_tpu_torch.models.gsf import GSFSignature
@@ -1371,14 +1710,29 @@ def main(argv=None) -> int:
                          args.profile),
             0, args.profile, args.profile_pingpong_file,
             PROFILE_KERNELS["pingpong"])
+        # K=1, then K=2 (the window rounded up to whole K=2 windows; its
+        # table beside K=1's, "_k2" added to the file name).
+        for k, key in ((1, "gsf_batch"), (2, "gsf_batch_k2")):
+            gms = -(-args.profile // k) * k
+            root, ext = os.path.splitext(args.profile_gsf_batch_file)
+            profiles[key] = profile(
+                f"GSFSignature {GSF_NODES} nodes x {GSF_SEEDS} seeds, K={k}",
+                gsf_batch_window(dev, 300, gms, k), 300, gms,
+                root + ("_k2" if k == 2 else "") + ext,
+                PROFILE_KERNELS["gsf_batch"])
         done("profile")
 
     path_ms = {"handel": MAIN_MS, "gsf": GSF_MS, "headline": HEADLINE_MS,
                "pingpong": PP_MS, "pingpong_harness": hpres["sim_ms"],
-               "spill": SPILL_MS}
+               "spill": SPILL_MS, "gsf_batch": GSF_MS,
+               "gsf_batch_k2": GSF_MS, "ff_headline": FF_MS,
+               "ff_pingpong": PP_MS, "ff_pingpong_batch": PP_CHUNK}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
-                     "pingpong_harness": hplaunches, "spill": slaunches}
+                     "pingpong_harness": hplaunches, "spill": slaunches,
+                     "gsf_batch": gblaunches, "gsf_batch_k2": gb2launches,
+                     "ff_headline": falaunches, "ff_pingpong": fblaunches,
+                     "ff_pingpong_batch": fclaunches}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -1405,7 +1759,11 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels, "main_path": res,
                       "gsf_path": gres, "headline_path": hres,
                       "pingpong_path": pres, "pingpong_harness": hpres,
-                      "spill_path": sres, "profiles": profiles}),
+                      "spill_path": sres, "gsf_batch_path": gbres,
+                      "gsf_batch_k2_path": gb2res,
+                      "ff_headline_path": fares, "ff_pingpong_path": fbres,
+                      "ff_pingpong_batch_path": fcres,
+                      "profiles": profiles}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

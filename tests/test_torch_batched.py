@@ -233,8 +233,10 @@ def test_batched_scope_refusals():
         batched.scan_chunk_batched(proto, 40, superstep=1)
     with pytest.raises(ValueError, match="even chunk"):
         batched.scan_chunk_batched(proto, 41)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        batched.scan_chunk_batched(proto, 40, fast_forward=True)
+    run = batched.scan_chunk_batched(proto, 40, fast_forward=True)
+    with no_vmap_fallback():
+        nets, _ = run(*init_batched(proto, torch.arange(2)))
+    assert nets.time.tolist() == [40, 40]        # fast-forward is ported
 
 
 def test_batched_rejects_broadcast_protocols():

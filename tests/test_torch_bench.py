@@ -105,3 +105,46 @@ def test_bench_torch_pingpong_cpu_line(capsys):
     assert line["sim_ms"] == 400 and line["value"] > 0
     assert line["progress"] > 0
     assert line["dropped"] == line["bc_dropped"] == 0
+
+
+def _line(capsys, argv):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert bench_torch.main(argv + ["--device", "cpu", "--reps", "1"]) \
+            == 0
+    finally:
+        torch.set_num_threads(threads)
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_bench_torch_gsf_cpu_line(capsys):
+    """`--proto gsf`, `tools/bench_suite.py`'s GSF line, at a small size:
+    32 nodes, 2 seeds, 500 ms in 250-ms chunks at K=1."""
+    line = _line(capsys, ["--proto", "gsf", "--nodes", "32", "--seeds",
+                          "2", "--ms", "500"])
+    assert line["metric"] == "gsf_32n_2seeds_agg_sim_ms_per_sec"
+    assert (line["platform"], line["engine"], line["superstep"],
+            line["chunk"], line["sim_ms"]) == ("cpu", "vmapped", 1, 250, 500)
+    assert line["value"] > 0 and line["frac_done"] > 0.99
+    assert line["dropped"] == line["clamped"] == 0
+    with pytest.raises(SystemExit):
+        bench_torch.main(["--proto", "gsf", "--fast-forward"])
+
+
+@pytest.mark.parametrize("proto,argv", [
+    ("handel", ["--nodes", "32", "--seeds", "2", "--ms", "600"]),
+    ("pingpong", ["--nodes", "64", "--seeds", "2", "--ms", "400"])])
+def test_bench_torch_fast_forward_cpu_lines(capsys, proto, argv):
+    """`--fast-forward`, `bench.py`'s WTPU_FAST_FORWARD=1: the headline on
+    `fast_forward_chunk_batched`, PingPong on `fast_forward_chunk` with
+    the seed axis; each line passes its check and carries the skip
+    counts of one repetition."""
+    line = _line(capsys, ["--proto", proto, "--fast-forward"] + argv)
+    assert (line["engine"], line["superstep"], line["fast_forward"]) == (
+        "fast_forward", 2, True)
+    assert 0 < line["skipped_ms"] < line["sim_ms"]
+    assert line["jump_count"] > 0 and line["skipped_ms"] % 2 == 0
+    assert line["skip_rate"] == round(line["skipped_ms"] / line["sim_ms"],
+                                      3)
+    assert line["value"] > 0 and line["dropped"] == 0

@@ -3,15 +3,19 @@ package's state as nested numpy dicts, a leaf-by-leaf comparison that
 names the first difference, and the generators of the artifacts the
 port ships (the distance-latency table, the 2048-node Handel golden
 digest, the 4096-node GSF golden digest, the per-seed digests of the
-benchmark headline's 16-seed batch, and the 1000-node PingPong's digest
-and per-seed harness digests).
+benchmark headline's 16-seed batch, the 1000-node PingPong's digest
+and per-seed harness digests, the per-seed digests of a 4-seed batch of
+the 4096-node GSF, and the JAX fast-forward engine's skip counts on two
+PingPong runs).
 
 Regenerate the first three with ``JAX_PLATFORMS=cpu python
 tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
 GSF digest alone, ``... headline-golden`` for the headline's, about 5
 minutes and 4.5 GB of JAX on the CPU, ``... pingpong-golden`` for the
-1000-node PingPong's two, about a minute); ``... tests/torch_parity.py
-check N MS`` runs the N-node reference-default Handel in both packages
+1000-node PingPong's two, about a minute, ``... gsf-batch-golden`` for
+the GSF batch's, ``... ff-stats`` for the skip counts, a few minutes
+each); ``... tests/torch_parity.py check N MS`` runs the N-node
+reference-default Handel in both packages
 on the CPU for MS ms and compares the full state every 100 ms, ``...
 check N MS gsf`` (or ``pingpong``) does the same for
 ``GSFSignature(node_count=N)`` (``PingPong(node_count=N)``) with its
@@ -49,6 +53,9 @@ PINGPONG_HARNESS_FILE = os.path.join(PORT_DATA,
                                      "golden_pingpong1000_r16_k2_200ms.json")
 PINGPONG_N, PINGPONG_MS = 1000, 800
 PINGPONG_SEEDS, PINGPONG_HARNESS_MS = 16, 200
+GSF_BATCH_FILE = os.path.join(PORT_DATA, "golden_gsf4096_r4_600ms.json")
+GSF_BATCH_SEEDS = 4
+FF_STATS_FILE = os.path.join(PORT_DATA, "golden_pingpong1000_ff_stats.json")
 
 
 def jax_nested(obj):
@@ -265,6 +272,104 @@ def write_pingpong_goldens():
         f.write("\n")
 
 
+def jax_gsf_batch_digests(n=GSF_GOLDEN_N, seeds=GSF_BATCH_SEEDS,
+                          ms=GSF_GOLDEN_MS, batch=2):
+    """Per-seed leaf sha256s of ``jax.jit(jax.vmap(scan_chunk(
+    GSFSignature(node_count=n), ms)))`` over ``jax.vmap(proto.init)`` of
+    seeds 0..seeds-1 (the JAX harness's chunk at K=1, as
+    `tools/bench_suite.py`'s GSF line runs it), `batch` seeds a call: the
+    runs never meet, so a seed's state does not depend on its batch."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.gsf import GSFSignature
+
+    proto = GSFSignature(node_count=n)
+    run = jax.jit(jax.vmap(scan_chunk(proto, ms)))
+    out = []
+    for s0 in range(0, seeds, batch):
+        nets, ps = jax.vmap(proto.init)(
+            jnp.arange(s0, min(s0 + batch, seeds), dtype=jnp.int32))
+        out += convert.seed_digests(*jax_state(*run(nets, ps)))
+    return out
+
+
+def write_gsf_batch_golden():
+    digests = jax_gsf_batch_digests()
+    with open(GSF_GOLDEN_FILE) as f:
+        one = json.load(f)["leaves"]
+    if digests[0] != one:
+        raise AssertionError("seed 0 of the batch differs from the one-seed "
+                             "GSF golden")
+    with open(GSF_BATCH_FILE, "w") as f:
+        json.dump({"config": f"GSFSignature(node_count={GSF_GOLDEN_N}), "
+                   f"seeds 0-{GSF_BATCH_SEEDS - 1}",
+                   "call": f"jax.jit(jax.vmap(wittgenstein_tpu.core.network."
+                   f"scan_chunk(proto, {GSF_GOLDEN_MS})))(*jax.vmap("
+                   f"proto.init)(jnp.arange({GSF_BATCH_SEEDS})))",
+                   "ms": GSF_GOLDEN_MS, "seeds": digests}, f, indent=1,
+                  sort_keys=True)
+        f.write("\n")
+
+
+def jax_pingpong_ff_stats():
+    """The JAX fast-forward engine's skip counts on two PingPong(1000)
+    runs whose states the PingPong goldens hold: ``Runner(proto,
+    fast_forward=True)`` on seed 0 in 100-ms calls to PINGPONG_MS, and
+    ``fast_forward_chunk(proto, PINGPONG_HARNESS_MS, seed_axis=True,
+    superstep=2)`` on seeds 0..PINGPONG_SEEDS-1 in one batch (its jumps
+    are the batch's minimum, so the batch is not split).  Each run's
+    state is checked against its golden first."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import Runner, fast_forward_chunk
+    from wittgenstein_tpu.models.pingpong import PingPong
+
+    proto = PingPong(node_count=PINGPONG_N)
+    runner = Runner(proto, fast_forward=True)
+    state = proto.init(0)
+    for _ in range(PINGPONG_MS // 100):
+        state = runner.run_ms(*state, 100)
+    with open(PINGPONG_GOLDEN_FILE) as f:
+        if convert.state_digest(*jax_state(*state)) != json.load(f)["leaves"]:
+            raise AssertionError("fast-forwarded PingPong differs from its "
+                                 "golden")
+    del state
+    runner_stats = runner.ff_stats()
+    run = jax.jit(fast_forward_chunk(proto, PINGPONG_HARNESS_MS,
+                                     seed_axis=True, superstep=2),
+                  donate_argnums=(0, 1))
+    nets, ps, stats = run(*jax.vmap(proto.init)(
+        jnp.arange(PINGPONG_SEEDS, dtype=jnp.int32)))
+    with open(PINGPONG_HARNESS_FILE) as f:
+        if convert.seed_digests(*jax_state(nets, ps)) != \
+                json.load(f)["seeds"]:
+            raise AssertionError("fast-forwarded PingPong batch differs "
+                                 "from its golden")
+    batch_stats = {k: int(v) for k, v in stats.items()}
+    return runner_stats, batch_stats
+
+
+def write_ff_stats():
+    runner_stats, batch_stats = jax_pingpong_ff_stats()
+    with open(FF_STATS_FILE, "w") as f:
+        json.dump({"config": f"PingPong(node_count={PINGPONG_N})",
+                   "runner": {"call": "Runner(proto, fast_forward=True)"
+                              f".run_ms in 100-ms calls to {PINGPONG_MS} ms,"
+                              " seed 0", "state": os.path.basename(
+                                  PINGPONG_GOLDEN_FILE), **runner_stats},
+                   "seed_axis": {"call": "fast_forward_chunk(proto, "
+                                 f"{PINGPONG_HARNESS_MS}, seed_axis=True, "
+                                 "superstep=2) on seeds 0-"
+                                 f"{PINGPONG_SEEDS - 1}",
+                                 "state": os.path.basename(
+                                     PINGPONG_HARNESS_FILE), **batch_stats}},
+                  f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def _protocols(n: int, protocol: str):
     """(JAX protocol, port protocol on the CPU) for `check`."""
     if protocol == "pingpong":
@@ -322,6 +427,12 @@ def main():
         return
     if sys.argv[1:2] == ["pingpong-golden"]:
         write_pingpong_goldens()
+        return
+    if sys.argv[1:2] == ["gsf-batch-golden"]:
+        write_gsf_batch_golden()
+        return
+    if sys.argv[1:2] == ["ff-stats"]:
+        write_ff_stats()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

@@ -60,21 +60,24 @@ def _numpy(t: torch.Tensor, u32: bool = False):
 def from_reference(net_np: dict, pstate_np: dict, device):
     """``(NetState, protocol state)`` on `device` from the JAX package's
     state as nested dicts of numpy arrays (one ring sub-plane; for
-    Handel one q_sig piece).  Every leaf is copied."""
+    Handel one q_sig piece), of one run or of a seed batch (every leaf
+    with a leading R axis, as `jax.vmap` lays it out).  Every leaf is
+    copied."""
     dev = torch.device(device)
     nodes = NodeState(**{k: _tensor(v, dev)
                          for k, v in net_np["nodes"].items()})
     f = len(net_np["box_data"])
+    lead = np.ndim(net_np["time"])              # 0, or 1 for a batch
     hnc = net_np["box_count"].shape + (-1,)
     if len(net_np["box_src"]) != 1:
         raise NotImplementedError("box_split > 1 is not ported yet")
     ring = {
         "box_data": torch.stack([_tensor(p, dev).reshape(hnc)
-                                 for p in net_np["box_data"]]),
+                                 for p in net_np["box_data"]], lead),
         "box_src": _tensor(net_np["box_src"][0], dev).reshape(hnc),
         "box_size": _tensor(net_np["box_size"][0], dev).reshape(hnc),
     }
-    if ring["box_data"].shape[0] != f:
+    if ring["box_data"].shape[lead] != f:
         raise ValueError("box_data planes do not match payload_words")
     rest = {k: _tensor(v, dev) for k, v in net_np.items()
             if k not in ("nodes", "box_data", "box_src", "box_size")}

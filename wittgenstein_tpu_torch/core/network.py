@@ -14,7 +14,10 @@ comes from the counter-based hashes and the stable in-cell order of the
 binning, as in the JAX package.  The superstep engine (`step_kms`) does
 the same for a window of K ms: it reads the K rows at once, steps K
 times (each ms retiring, delivering and enqueuing its own broadcasts),
-clears the K rows, and bins all K outboxes with one launch.
+clears the K rows, and bins all K outboxes with one launch.  The
+fast-forward engine (`fast_forward_chunk`) steps only the ms that can
+hold work and jumps the clock across the quiet ones, which the
+`next_work` oracle proves to be no-op steps.
 
 One engine serves both layouts.  A state whose ``time`` is a scalar is
 one run; a state whose every leaf has a leading seed axis R (as
@@ -33,7 +36,8 @@ batch an in-place write: every ring read and write happens outside the
 vmapped functions, which see the state with its ring leaves set aside
 (`_split_ring`).  Every other leaf is replaced.  The simulated time is
 carried as a Python int inside a chunk (read from the device at most
-once per call), so the step loop never waits for the card.
+once per call), so the step loop never waits for the card; the
+fast-forward loop reads its oracle once a window, and that read waits.
 
 Ported: `_retire_broadcasts`, `broadcast_arrivals`, `_bcast_inbox` with
 the broadcast half of `build_inbox` (as `_with_broadcasts`),
@@ -41,9 +45,11 @@ the broadcast half of `build_inbox` (as `_with_broadcasts`),
 branch, `enqueue_broadcast`, `_alloc_free_slots`, `_park_in_spill`,
 `_drain_spill`, `_bin_into_ring`, `step_ms`, `step_kms`, `step_2ms`, the
 superstep gate (`unicast_floor_ms`, `superstep_ok`,
-`check_chunk_config`, `pick_superstep`), `scan_chunk` with phase hints
-and `Runner`.  Ring sub-planes (``box_split > 1``), fault hooks and
-fast-forward raise `NotImplementedError` and are queued in ROADMAP.md.
+`check_chunk_config`, `pick_superstep`), `scan_chunk` with phase hints,
+the fast-forward engine (`fast_forward_ok`, `next_work`, `_jump`,
+`fast_forward_chunk`) and `Runner` with `ff_stats`.  Ring sub-planes
+(``box_split > 1``) and fault hooks raise `NotImplementedError` and are
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import torch
 from ..ops import prng
 from ..ops.route import bin_into_ring
 from .latency import full_latency, latency_floor_ms
+from .protocol import FAR_FUTURE
 from .state import EngineConfig, Inbox, NetState, Outbox
 
 I32 = torch.int32
@@ -479,22 +486,46 @@ def superstep_ok(protocol, superstep: int = 2) -> bool:
             and not getattr(protocol, "mutates_liveness", False))
 
 
+def fast_forward_ok(protocol) -> bool:
+    """True iff the fast-forward path is worth taking for this protocol
+    (wittgenstein_tpu/core/network.py:750-758): spill-free and with the
+    protocol's `next_action_time` half of the oracle.  Without it
+    `fast_forward_chunk` is still sound but never jumps."""
+    return (protocol.cfg.spill_cap == 0 and
+            getattr(protocol, "next_action_time", None) is not None)
+
+
 def check_chunk_config(protocol, ms, t0_mod=None, superstep=1,
                        fast_forward=False):
     """The shared eligibility gate of the chunk variants
     (wittgenstein_tpu/core/network.py:761-891, with its remedy texts):
-    plain, superstep-K and phase-specialized.  It RAISES, never changes
-    results; `pick_superstep` is the demoting half.  From `t0_mod` (a
-    residue mod the schedule lcm) the K-alignment of the absolute entry
-    time is provable only mod gcd(K, lcm); callers that know the entry
-    time route through `pick_superstep(t0=...)`.  Fast-forward is not
-    ported; the chaos plane's schedule checks have no protocol here."""
+    plain, superstep-K, phase-specialized and fast-forward.  It RAISES,
+    never changes results; `pick_superstep` is the demoting half.  From
+    `t0_mod` (a residue mod the schedule lcm) the K-alignment of the
+    absolute entry time is provable only mod gcd(K, lcm); callers that
+    know the entry time route through `pick_superstep(t0=...)`.  The
+    chaos plane's schedule checks have no protocol here."""
     cfg = protocol.cfg
     if not isinstance(superstep, int) or superstep < 1:
         raise ValueError(f"superstep must be a positive int, got "
                          f"{superstep!r}")
     if fast_forward:
-        raise _unported("the fast-forward engine")
+        if t0_mod is not None:
+            raise ValueError(
+                "fast_forward is incompatible with phase-specialized "
+                "scans (t0_mod): phase hints statically specialize each "
+                "ms of an unrolled schedule period, while fast-forward "
+                "jumps the clock dynamically — the hint<->time pairing "
+                "cannot survive a data-dependent jump. Drop t0_mod (the "
+                "oracle already skips the hint-masked quiet ms, "
+                "including data-dependent ones hints cannot see)")
+        if cfg.spill_cap > 0:
+            raise ValueError(
+                f"fast_forward requires spill_cap == 0 (got "
+                f"{cfg.spill_cap}): the spill drain re-examines the "
+                "buffer every ms, so a skipped window could miss a "
+                "re-injection. Use a horizon that covers the latency "
+                "tail instead of spill, or run without fast_forward")
     if superstep < 2:
         return
     k = superstep
@@ -611,6 +642,101 @@ def chunk_hints(protocol, ms, t0_mod, superstep):
             for dt in range(lcm)]
 
 
+def next_work(protocol, net: NetState, pstate, t: int):
+    """The next-event oracle (wittgenstein_tpu/core/network.py:936-973):
+    the earliest ms >= t that can hold work, as an int32 tensor on the
+    device, for one run or the minimum over a seed batch.  The minimum
+    of (a) the next nonempty ring row (with ``spill_cap == 0`` every
+    unicast in flight is in the ring: a nonzero count in row ``(t + d)
+    % H`` is a delivery at t + d), (b) the earliest live broadcast
+    arrival >= t, recomputed on the post-step table, and (c) the
+    protocol's `next_action_time` (every ms active without one).  Every
+    ms in ``[t, next_work)`` is a no-op step.  Term (a) reads the ring
+    outside vmap, with the seed axis explicit; (b) and (c) run per run,
+    under `torch.func.vmap` on a batch."""
+    cfg, model = protocol.cfg, protocol.latency
+    lead = net.time.dim()
+    rows = torch.arange(cfg.horizon, dtype=I32, device=net.time.device)
+    row_any = (net.box_count > 0).any(-1)               # [H] or [R, H]
+    nxt = torch.where(row_any, t + (rows - t) % cfg.horizon,
+                      FAR_FUTURE).min()
+    nat = getattr(protocol, "next_action_time", None)
+    if nat is None:
+        return torch.full_like(net.time.reshape(-1)[0], t)
+    net, _ = _split_ring(net)
+
+    def per_run(net, pstate):
+        out = nat(pstate, net.nodes, t)
+        if cfg.bcast_slots:
+            arrival, ok, _ = broadcast_arrivals(cfg, model, net, net.nodes)
+            out = torch.minimum(out, torch.where(
+                ok & (arrival >= t), arrival, FAR_FUTURE).min())
+        return out
+
+    terms = (torch.func.vmap(per_run) if lead else per_run)(net, pstate)
+    return torch.minimum(nxt, terms.min()).clamp_min(t).to(I32)
+
+
+def _jump(cfg: EngineConfig, net: NetState, dt: int, t2: int):
+    """Skip `dt` quiet ms to time `t2` (wittgenstein_tpu/core/network.py:
+    976-988): only the clock (the ring's head: the skipped rows are
+    empty) and broadcast retirement move.  Retirement is monotone in t,
+    so one retire at t2 - 1 equals the per-ms ones."""
+    if cfg.bcast_slots:
+        net = _retire_broadcasts(cfg, net, t2 - 1)
+    return net.replace(time=net.time + dt)
+
+
+def fast_forward_chunk(protocol, ms: int, seed_axis: bool = False,
+                       superstep: int = 1):
+    """The fast-forward chunk (wittgenstein_tpu/core/network.py:
+    991-1059): advance exactly `ms` ms, stepping a window of K ms
+    (`step_kms`) only where work can be, and jumping the clock by
+    ``next_work - t`` across provably quiet ms.  Bit-identical to the
+    dense `scan_chunk`, since a skipped ms is a no-op step.  Jumps are
+    clipped at the chunk's end and floored to multiples of K, so every
+    window starts K-aligned.  With ``seed_axis`` the state is a seed
+    batch in lockstep and the batch jumps by the minimum of its runs'
+    oracles.
+
+    Returns ``run(net, pstate, t=None) -> (net, pstate, stats)`` with
+    ``stats = {"skipped_ms": int, "jump_count": int}``; `t` is the entry
+    time, read from the device when omitted.  Each window ends with one
+    read of the oracle: the host waits there for the card.  There is no
+    `frozen` argument (the JAX chunk has none; the harness runs dense
+    chunks)."""
+    check_chunk_config(protocol, ms, superstep=superstep,
+                       fast_forward=True)
+    cfg, k = protocol.cfg, superstep
+
+    def run(net, pstate, t=None, frozen=None):
+        if frozen is not None:
+            raise ValueError("fast-forward chunks take no frozen runs: a "
+                             "batch jumps in lockstep; run stopped runs "
+                             "through scan_chunk")
+        if (net.time.dim() > 0) != bool(seed_axis):
+            raise ValueError(
+                f"fast_forward_chunk(seed_axis={seed_axis}) got a state "
+                f"whose time has shape {tuple(net.time.shape)}")
+        t = int(net.time.reshape(-1)[0]) if t is None else t
+        t_end = t + ms
+        skipped = jumps = 0
+        while t < t_end:
+            net, pstate = step_kms(protocol, net, pstate, k, t=t)
+            t += k
+            nw = int(next_work(protocol, net, pstate, t))
+            dt = min(nw, t_end) - t
+            dt -= dt % k
+            if dt > 0:
+                net = _jump(cfg, net, dt, t + dt)
+                t += dt
+                skipped += dt
+                jumps += 1
+        return net, pstate, {"skipped_ms": skipped, "jump_count": jumps}
+
+    return run
+
+
 def scan_chunk(protocol, ms: int, t0_mod=None, superstep: int = 1,
                fast_forward: bool = False):
     """Returns ``run(net, pstate, t=None, frozen=None) -> (net,
@@ -624,10 +750,20 @@ def scan_chunk(protocol, ms: int, t0_mod=None, superstep: int = 1,
     each ms gets the protocol's `phase_hints`, so e.g. Handel's
     verification scoring runs only on the ms where a node can verify
     (bit-identical).  ``superstep=K`` advances in fused K-ms windows
-    (`step_kms`) when `check_chunk_config` proves them."""
+    (`step_kms`) when `check_chunk_config` proves them.
+    ``fast_forward=True`` runs `fast_forward_chunk` instead, on the
+    state's own layout, and drops its skip counts."""
     check_chunk_config(protocol, ms, t0_mod=t0_mod, superstep=superstep,
                        fast_forward=fast_forward)
     k = superstep
+    if fast_forward:
+        def run_ff(net, pstate, t=None, frozen=None):
+            ff = fast_forward_chunk(protocol, ms,
+                                    seed_axis=net.time.dim() > 0,
+                                    superstep=k)
+            return ff(net, pstate, t, frozen)[:2]
+
+        return run_ff
     hints = chunk_hints(protocol, ms, t0_mod, k) or [None] * k
 
     def run(net, pstate, t=None, frozen=None):
@@ -648,14 +784,17 @@ class Runner:
     (wittgenstein_tpu/core/network.py:1177-1443) without observability
     planes.  ``superstep=K`` is an upper bound: each call runs the
     largest K <= it that `pick_superstep` proves for its length and
-    entry time."""
+    entry time.  ``fast_forward=True`` runs each call through
+    `fast_forward_chunk` and keeps its skip counts (`ff_stats`); for a
+    protocol that is not `fast_forward_ok` it runs dense, as the JAX
+    `Runner` does."""
 
     def __init__(self, protocol, superstep=1, fast_forward=False):
-        if fast_forward:
-            raise _unported("the fast-forward engine")
         check_config(protocol.cfg)
         self.protocol = protocol
         self._superstep = int(superstep)
+        self._fast_forward = bool(fast_forward) and fast_forward_ok(protocol)
+        self._ff = []
 
     def run_ms(self, net: NetState, pstate, ms: int):
         """Advance `ms` milliseconds (wittgenstein_tpu/core/network.py:
@@ -664,4 +803,19 @@ class Runner:
         t = int(net.time)
         k = (pick_superstep(self.protocol, ms, t0=t, max_k=self._superstep)
              if self._superstep >= 2 else 1)
-        return scan_chunk(self.protocol, ms, superstep=k)(net, pstate, t)
+        if not self._fast_forward:
+            return scan_chunk(self.protocol, ms, superstep=k)(net, pstate,
+                                                               t)
+        net, pstate, stats = fast_forward_chunk(self.protocol, ms,
+                                                superstep=k)(net, pstate, t)
+        self._ff.append(stats)
+        return net, pstate
+
+    def ff_stats(self):
+        """The skip counts summed over every call this Runner made, or
+        None when fast-forward was off or never ran
+        (wittgenstein_tpu/core/network.py:1290-1303)."""
+        if not self._ff:
+            return None
+        return {k: sum(s[k] for s in self._ff)
+                for k in ("skipped_ms", "jump_count")}

@@ -15,20 +15,21 @@ import torch
 FAR_FUTURE = 1 << 30
 
 
-def next_tick(t, phase, period):
+def next_tick(t: int, phase, period):
     """Earliest ``u >= max(t, phase)`` on the ``phase + k*period`` grid
-    (wittgenstein_tpu/core/protocol.py:45-53)."""
-    period = torch.as_tensor(period, dtype=torch.int32).clamp_min(1)
-    base = torch.maximum(torch.as_tensor(t, dtype=torch.int32),
-                         torch.as_tensor(phase, dtype=torch.int32))
+    (wittgenstein_tpu/core/protocol.py:45-53): `phase` an int32 tensor,
+    `t` and `period` int32 tensors or Python ints."""
+    period = (period.clamp_min(1) if isinstance(period, torch.Tensor)
+              else max(1, period))
+    base = phase.clamp_min(t)
     return base + (phase - base) % period
 
 
 def masked_min(values, mask):
     """Min of `values` where `mask`, else FAR_FUTURE
-    (wittgenstein_tpu/core/protocol.py:56-59)."""
-    far = torch.full_like(values, FAR_FUTURE, dtype=torch.int32)
-    return torch.where(mask, values, far).min().to(torch.int32)
+    (wittgenstein_tpu/core/protocol.py:56-59); `values` broadcast
+    against `mask`."""
+    return torch.where(mask, values, FAR_FUTURE).min().to(torch.int32)
 
 
 PROTOCOLS: dict[str, type] = {}

@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from ..core.protocol import masked_min, next_tick
 from ..ops import bitset, prng
 from ..ops.flat import gather2d
 
@@ -30,10 +31,10 @@ class StaticScheduleMixin:
     dissemination at t = 1 (mod period).  The schedule is static only
     when every node shares the start (no desynchronized start) and the
     pairing time (constant-speed builder); otherwise ``schedule_lcm`` is
-    None and `core/network.scan_chunk` never specializes.  The JAX
-    mixin's `next_action_time` serves the fast-forward engine, which is
-    not ported (ROADMAP.md).  Requires self.desynchronized_start,
-    self.builder, self.pairing_time, self.period."""
+    None and `core/network.scan_chunk` never specializes.
+    `next_action_time` is the protocol's half of the fast-forward
+    oracle.  Requires self.desynchronized_start, self.builder,
+    self.pairing_time, self.period."""
 
     @property
     def schedule_lcm(self):
@@ -48,6 +49,31 @@ class StaticScheduleMixin:
         gated sub-computations can fire this ms."""
         return {"verify": (tmod - 1) % max(1, self.pairing_time) == 0,
                 "periodic": (tmod - 1) % max(1, self.period) == 0}
+
+    def next_action_time(self, pstate, nodes, t: int):
+        """The earliest ms >= t at which any node's timers can act
+        (wittgenstein_tpu/models/_levels.py:53-97): an in-flight
+        verification applying at ``pend_at``, the next pairing tick of a
+        node with a non-empty queue, the next dissemination tick of any
+        live node, a queued fast-path send, or the queue compaction the
+        ms after a pick leaves a hole (the merge re-sorts the queue
+        every ms it runs).  The JAX mixin's branch for the attack modes
+        has no counterpart: the port refuses those modes."""
+        live = ~nodes.down
+        start = pstate.start_at + 1
+        pend = masked_min(pstate.pend_at.clamp_min(t),
+                          live & (pstate.pend_from >= 0))
+        filled = pstate.q_from >= 0
+        pick = masked_min(next_tick(t, start, pstate.pairing),
+                          live & (pstate.pend_from < 0) & filled.any(1))
+        hole_before_valid = ((torch.cumsum((~filled).to(I32), 1) > 0)
+                             & filled).any(1)
+        compact = masked_min(torch.full_like(start, t), hole_before_valid)
+        per = masked_min(next_tick(t, start, self.period), live)
+        fast = masked_min(start.clamp_min(t),
+                          live & (pstate.fast_pending != 0))
+        return torch.minimum(torch.minimum(pend, pick),
+                             torch.minimum(torch.minimum(per, fast), compact))
 
 
 def sibling_base(ids, half):

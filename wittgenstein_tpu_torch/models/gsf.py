@@ -13,7 +13,10 @@ Bitset rows are int32 words holding the JAX package's uint32 bits (see
 `ops/bitset.py`).  The two per-ms kernels of the model are
 `ops/gsf_merge.gsf_merge` (the receive merge) and `ops/score.gsf_score`
 (the verification scoring); on CUDA tensors they launch the hand-written
-kernels, on CPU tensors their plain versions.
+kernels, on CPU tensors their plain versions.  The step is written out
+of place, so it runs under `torch.func.vmap` over a seed batch (the
+state registered as a pytree, both kernels custom ops whose vmap rules
+fold the seeds into their rows).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..core import builders
 from ..core import latency as latency_mod
 from ..core.protocol import register
 from ..core.state import (EngineConfig, _Struct, empty_outbox, init_net,
-                          resolve_device)
+                          register_struct, resolve_device)
 from ..ops import bitset, prng
 from ..ops.flat import gather2d, gather_rows, set2d
 from ..ops.gsf_merge import gsf_merge
@@ -41,6 +44,7 @@ TAG_PERM = 0x47504552     # per-(node, level) peer-order permutation
 I32 = torch.int32
 
 
+@register_struct
 @dataclasses.dataclass(frozen=True)
 class GSFState(_Struct):
     """wittgenstein_tpu/models/gsf.py:64-84.  Bitset leaves are int32
@@ -410,17 +414,23 @@ class GSFSignature(LevelMixin):
         remaining = torch.where(send_l, p.remaining - 1, p.remaining)
 
         rslot = (t // self.period) % self.rounds
-        K, koff = self.cfg.out_deg, L - 1
-        dest = torch.full((n, K), -1, dtype=I32, device=dev)
-        payload = torch.zeros((n, K, 3), dtype=I32, device=dev)
-        sizes = torch.ones((n, K), dtype=I32, device=dev)
+        dest, payload, sizes = [], [], []
+
+        def column_block(d, lvl, sz):
+            """One block of outbox columns: dests [N, k], payload (level,
+            finished prefix, round slot) and sizes.  Built out of place:
+            under vmap the blocks are batched and the outbox is made
+            from them, never written into."""
+            k = d.shape[1]
+            dest.append(d)
+            payload.append(torch.stack(
+                [lvl.expand(n, k), fin[:, None].expand(n, k),
+                 torch.full((n, k), rslot, dtype=I32, device=dev)], -1))
+            sizes.append(sz.expand(n, k))
+
         # SendSigs size = 1 + expected/8 + 96 (:146-152).
-        sz_l = 1 + halfs // 8 + 96
-        dest[:, :koff] = torch.where(send_l, peer, -1)[:, 1:]
-        payload[:, :koff, 0] = lvl_idx[:, 1:]
-        payload[:, :koff, 1] = fin[:, None]
-        payload[:, :koff, 2] = rslot
-        sizes[:, :koff] = sz_l[:, 1:]
+        column_block(torch.where(send_l, peer, -1)[:, 1:], lvl_idx[:, 1:],
+                     (1 + halfs // 8 + 96)[:, 1:])
 
         # Accelerated sends: drain the lowest queued level, `accel` peers
         # at once (getRemainingPeers(acceleratedCallsCount), :444-449).
@@ -440,17 +450,15 @@ class GSFSignature(LevelMixin):
             fpeer = self._peer_at(p.seed, ids[:, None],
                                   fl[:, None].expand(n, ac),
                                   (fpos[:, None] + k_idx) % fhalf[:, None])
-            dest[:, koff:koff + ac] = torch.where(fok, fpeer, -1)
-            payload[:, koff:koff + ac, 0] = fl[:, None]
-            payload[:, koff:koff + ac, 1] = fin[:, None]
-            payload[:, koff:koff + ac, 2] = rslot
-            sizes[:, koff:koff + ac] = (1 + fhalf // 8 + 96)[:, None]
+            column_block(torch.where(fok, fpeer, -1), fl[:, None],
+                         (1 + fhalf // 8 + 96)[:, None])
             nsent = fok.sum(1, dtype=I32)
             pos = set2d(pos, ids, fl, (fpos + nsent) % fhalf, ok=fsend)
             remaining = set2d(remaining, ids, fl,
                               (frem - nsent).clamp_min(0), ok=fsend)
             accel_pending = torch.where(fsend, accel_pending & ~lsb,
                                         accel_pending)
+        dest = torch.cat(dest, 1)
 
         # Snapshot pool: senders record their V row for this round slot,
         # after the sends (the JAX order).
@@ -459,8 +467,9 @@ class GSFSignature(LevelMixin):
         pool[:, rslot] = torch.where(wrote[:, None], p.verified,
                                      p.pool[:, rslot])
 
-        out = empty_outbox(self.cfg, dev, k=K, slot0=0).replace(
-            dest=dest, payload=payload, size=sizes)
+        out = empty_outbox(self.cfg, dev, slot0=0).replace(
+            dest=dest, payload=torch.cat(payload, 1),
+            size=torch.cat(sizes, 1))
         return p.replace(pos=pos, remaining=remaining, pool=pool,
                          accel_pending=accel_pending), out
 

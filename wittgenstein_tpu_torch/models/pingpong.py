@@ -101,11 +101,10 @@ class PingPong:
 
     def next_action_time(self, pstate, nodes, t):
         """The witness's sendAll at t == 0 is PingPong's only timer;
-        everything later is delivery-driven
-        (wittgenstein_tpu/models/pingpong.py:99-107).  Kept for the
-        fast-forward engine, which is not ported yet."""
-        return torch.tensor(0 if t <= 0 else FAR_FUTURE, dtype=I32,
-                            device=nodes.down.device)
+        everything later is delivery-driven, which the engine's ring and
+        broadcast terms see (wittgenstein_tpu/models/pingpong.py:99-107)."""
+        return torch.full((), 0 if t <= 0 else FAR_FUTURE, dtype=I32,
+                          device=nodes.down.device)
 
     def done(self, pstate, nodes):
         return pstate.pongs >= self.node_count

@@ -4,7 +4,10 @@
 
 `gsf_merge` launches `csrc/gsf_merge.cu` on CUDA tensors and runs
 `gsf_merge_plain` (the `select_queue` tail of `_receive`,
-wittgenstein_tpu/models/gsf.py:291-337) on CPU tensors.
+wittgenstein_tpu/models/gsf.py:291-337) on CPU tensors.  It is a
+`torch.library` custom op whose vmap rule folds the seed axis into the
+rows (`ops/merge.folded_vmap`): under `torch.func.vmap` over a seed
+batch one launch serves every seed.
 
 The candidates of a node row are its Q queued entries, its S incoming
 aggregates and its S incoming individuals (one-bit sig rows built from
@@ -20,6 +23,7 @@ import torch
 
 from ..models._levels import select_queue
 from . import _build, bitset
+from .merge import folded_vmap
 
 I32 = torch.int32
 
@@ -102,16 +106,8 @@ def _check(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
     _refuse_wide(q, s)
 
 
-def gsf_merge(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
-              ind_ok, sig_all, levels: int):
-    """Three-tier queue merge.  Queue columns [M, Q] (q_indiv, ex_keep
-    bool), q_sig [M, Q, W] int32 words; incoming columns [M, S] (agg_ok,
-    ind_ok bool), sig_all [M, S, W].  Returns (q_from', q_lvl',
-    q_indiv' bool, q_sig', got_add [M, W], kept_ex_agg [M]): fresh
-    tensors, the inputs are not modified (a kept entry can change
-    slots).  The kernel reads and writes the bool columns as bytes, so
-    the launch is the only op besides the allocations.
-    `gsf_merge.launches` counts kernel launches."""
+def _gsf_merge(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
+               ind_ok, sig_all, levels):
     _check(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
            ind_ok, sig_all)
     if q_from.device.type == "cpu":
@@ -139,4 +135,26 @@ def gsf_merge(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
     return o_from, o_lvl, o_indiv, o_sig, o_got, o_kept
 
 
+@torch.library.custom_op("wtpu::gsf_merge", mutates_args=())
+def gsf_merge(q_from: torch.Tensor, q_lvl: torch.Tensor,
+              q_indiv: torch.Tensor, ex_keep: torch.Tensor,
+              q_sig: torch.Tensor, src: torch.Tensor, level: torch.Tensor,
+              agg_ok: torch.Tensor, ind_ok: torch.Tensor,
+              sig_all: torch.Tensor, levels: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Three-tier queue merge.  Queue columns [M, Q] (q_indiv, ex_keep
+    bool), q_sig [M, Q, W] int32 words; incoming columns [M, S] (agg_ok,
+    ind_ok bool), sig_all [M, S, W].  Returns (q_from', q_lvl',
+    q_indiv' bool, q_sig', got_add [M, W], kept_ex_agg [M]): fresh
+    tensors, the inputs are not modified (a kept entry can change
+    slots); under vmap each comes back as [R, N, ...].  The kernel reads
+    and writes the bool columns as bytes, so the launch is the only op
+    besides the allocations.  `gsf_merge.launches` counts kernel
+    launches."""
+    return _gsf_merge(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level,
+                      agg_ok, ind_ok, sig_all, levels)
+
+
+torch.library.register_vmap(gsf_merge, folded_vmap(_gsf_merge))
 gsf_merge.launches = 0

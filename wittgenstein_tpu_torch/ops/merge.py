@@ -129,6 +129,21 @@ def fold_seeds(x, in_dim, r):
     return x.reshape(r * x.shape[1], *x.shape[2:]).contiguous()
 
 
+def folded_vmap(fn):
+    """A vmap rule for a row-wise op: every tensor argument with the seed
+    axis folded into its rows (`fold_seeds`, which makes it contiguous
+    and repeats an unbatched one, such as the node ids, for each seed),
+    ONE call of `fn` for all seeds, each output split back to [R, rows,
+    ...].  Other arguments (ints) pass as they are."""
+    def rule(info, in_dims, *args):
+        r = info.batch_size
+        outs = fn(*(fold_seeds(x, d, r) if isinstance(x, torch.Tensor)
+                    else x for x, d in zip(args, in_dims)))
+        return (tuple(o.reshape(r, -1, *o.shape[1:]) for o in outs),
+                (0,) * len(outs))
+    return rule
+
+
 def _merge_vmap(info, in_dims, *args):
     r = info.batch_size
     outs = _merge(*(fold_seeds(x, d, r) for x, d in zip(args, in_dims)),

@@ -15,7 +15,8 @@ ids R times, and launches the kernel once for all seeds.
 GSF: `gsf_score` (`_gsf_score_kernel`, launched by `gsf_score_pallas`)
 launches `csrc/gsf_score.cu` on CUDA tensors and runs `gsf_score_plain`
 (the XLA block of wittgenstein_tpu/models/gsf.py:450-459) on CPU
-tensors.
+tensors.  It is a custom op with the same kind of vmap rule, so GSF's
+step runs on a seed batch with one launch for all seeds.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from ..models._levels import range_mask_dyn
 from . import _build, bitset
-from .merge import fold_seeds
+from .merge import folded_vmap
 
 I32 = torch.int32
 
@@ -94,13 +95,7 @@ def score_queue(q_sig: torch.Tensor, q_lvl: torch.Tensor, ids: torch.Tensor,
     return _score(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg)
 
 
-def _score_vmap(info, in_dims, *args):
-    r = info.batch_size
-    outs = _score(*(fold_seeds(x, d, r) for x, d in zip(args, in_dims)))
-    return tuple(o.reshape(r, -1, *o.shape[1:]) for o in outs), (0,) * 4
-
-
-torch.library.register_vmap(score_queue, _score_vmap)
+torch.library.register_vmap(score_queue, folded_vmap(_score))
 score_queue.launches = 0
 
 
@@ -116,14 +111,7 @@ def gsf_score_plain(q_sig, q_lvl, ids, verified, ver_indiv):
             bitset.intersects(q_sig, indiv_l))
 
 
-def gsf_score(q_sig, q_lvl, ids, verified, ver_indiv):
-    """GSF per-entry score inputs (evaluateSig, GSFSignature.java:482-580).
-    q_sig [M, Q, W] int32 words, q_lvl [M, Q], ids [M] (global node ids),
-    verified and ver_indiv rows [M, W].  Returns (ver_l_card, card_sig,
-    inter_verl bool, pc_with_indiv, pc_with_indiv_or_verl, inter_indivl
-    bool), each [M, Q].  The kernel writes the two bool outputs as
-    bytes, so the launch is the only op besides the allocations.
-    `gsf_score.launches` counts kernel launches."""
+def _gsf_score(q_sig, q_lvl, ids, verified, ver_indiv):
     _check("gsf_score", q_sig, q_lvl, ids, verified=verified,
            ver_indiv=ver_indiv)
     if q_sig.device.type == "cpu":
@@ -144,4 +132,20 @@ def gsf_score(q_sig, q_lvl, ids, verified, ver_indiv):
     return vlc, cs, inter, pwi, pwv, inter_ind
 
 
+@torch.library.custom_op("wtpu::gsf_score", mutates_args=())
+def gsf_score(q_sig: torch.Tensor, q_lvl: torch.Tensor, ids: torch.Tensor,
+              verified: torch.Tensor, ver_indiv: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GSF per-entry score inputs (evaluateSig, GSFSignature.java:482-580).
+    q_sig [M, Q, W] int32 words, q_lvl [M, Q], ids [M] (global node ids),
+    verified and ver_indiv rows [M, W].  Returns (ver_l_card, card_sig,
+    inter_verl bool, pc_with_indiv, pc_with_indiv_or_verl, inter_indivl
+    bool), each [M, Q].  The kernel writes the two bool outputs as
+    bytes, so the launch is the only op besides the allocations.
+    `gsf_score.launches` counts kernel launches."""
+    return _gsf_score(q_sig, q_lvl, ids, verified, ver_indiv)
+
+
+torch.library.register_vmap(gsf_score, folded_vmap(_gsf_score))
 gsf_score.launches = 0
