@@ -18,6 +18,16 @@ gsf`` is `tools/bench_suite.py`'s GSF line (`bench_gsf`):
 250-ms chunks of `network.scan_chunk` on the seed batch at K=1; every
 run must reach frac_done > 0.99 with zero drops and clamps.
 
+The headline's scale switches map as `bench.py`'s environment does
+(bench.py:389-438): ``--mode cardinal`` (``WTPU_BENCH_MODE``, queue_cap
+16 past 32,768 nodes), and for exact mode ``--emission``, ``--pool``,
+``--state-split`` (``WTPU_BENCH_EMISSION/POOL/STATE_SPLIT``);
+``--box-split`` (``WTPU_BENCH_BOX_SPLIT``) splits the ring of either.
+More seeds than ``--seed-batch`` (16) run as `bench.py`'s microbatched
+line (`bench_handel_microbatched`, bench.py:633-698): sequential
+batches of ``--seed-batch`` seeds, one timed window over all of them,
+each batch checked inside it, the batch walls reported as spread.
+
 ``--fast-forward`` is `bench.py`'s ``WTPU_FAST_FORWARD=1``: the headline
 runs `core/batched.fast_forward_chunk_batched` (K=2, no phase hints:
 the two do not compose) and PingPong `network.fast_forward_chunk` on the
@@ -30,9 +40,14 @@ GSF has no fast-forward oracle and refuses it.
     python3 bench_torch.py --proto pingpong     # 256 nodes x 4 seeds, cuda
     python3 bench_torch.py --proto gsf          # 4096 nodes x 4 seeds, cuda
     python3 bench_torch.py --fast-forward       # the headline, fast-forward
+    python3 bench_torch.py --mode cardinal --nodes 65536 --seeds 1
+    python3 bench_torch.py --nodes 32768 --seeds 1 --emission hashed \
+        --pool 0 --state-split 2 --box-split 2  # exact mode, tier 2
+    python3 bench_torch.py --seeds 256          # 16 batches of 16 seeds
 
 Prints one JSON line in `bench.py`'s shape: ``metric``
-(``{proto}_{N}n_{R}seeds_agg_sim_ms_per_sec``), ``value`` (aggregate
+(``{proto}_{N}n_{R}seeds_agg_sim_ms_per_sec``, ``_cardinal`` and
+``_ff`` appended as `bench.py` appends them), ``value`` (aggregate
 simulated ms per second over all seeds), ``platform`` (``cuda`` or
 ``cpu``), ``engine`` (``batched``, ``fast_forward``, or ``vmapped`` as
 `bench_quiet` names the seed-batched dense engine), ``superstep``, the
@@ -67,14 +82,34 @@ DEFAULTS = {"handel": (2048, 16, 1000, 200), "pingpong": (256, 4, 1000, 200),
             "gsf": (4096, 4, 2500, 250)}
 
 
+def handel_params(args):
+    """The Handel parameters of `bench.py`'s `_handel_setup` for these
+    flags (bench.py:369-438): the reference-default scenario, cardinal
+    mode's queue_cap 16 past 32,768 nodes, exact mode's switches."""
+    from wittgenstein_tpu_torch.models.handel import reference_default_params
+    params = dict(reference_default_params(args.nodes), mode=args.mode)
+    if args.mode == "cardinal" and args.nodes > 32768:
+        params["queue_cap"] = 16
+    if args.mode == "exact":
+        if args.emission:
+            params["emission_mode"] = args.emission
+        if args.pool is not None:
+            params["snapshot_pool"] = args.pool == 1
+        if args.state_split:
+            params["state_split"] = args.state_split
+    return params
+
+
 def handel_line(args, seeds):
     """The headline's protocol, chunk runner and check."""
+    import dataclasses
+
     from wittgenstein_tpu_torch.core.batched import (
         fast_forward_chunk_batched, scan_chunk_batched)
-    from wittgenstein_tpu_torch.models.handel import (
-        Handel, reference_default_params)
-    proto = Handel(**reference_default_params(args.nodes),
-                   device=args.device)
+    from wittgenstein_tpu_torch.models.handel import Handel
+    proto = Handel(**handel_params(args), device=args.device)
+    if args.box_split > 1:
+        proto.cfg = dataclasses.replace(proto.cfg, box_split=args.box_split)
     if args.fast_forward:
         run = fast_forward_chunk_batched(proto, args.chunk,
                                          superstep=SUPERSTEP)
@@ -89,7 +124,7 @@ def handel_line(args, seeds):
                   ("dropped", "bc_dropped", "clamped")}
         counts["evicted"] = int(ps.evicted.sum())
         frac_done = float(np.mean([(done_at[i][~downs[i]] > 0).mean()
-                                   for i in range(seeds)]))
+                                   for i in range(len(done_at))]))
         if not frac_done > 0.99:
             raise AssertionError(f"Handel did not converge: {frac_done:.3f}")
         if any(counts.values()):
@@ -163,6 +198,34 @@ def ff_stats(stats, steps, chunk):
             "skip_rate": round(skipped / max(1, steps * chunk), 3)}
 
 
+def microbatched(step, init, steps, seeds, seed_batch, chunk, check):
+    """`bench.py`'s `bench_handel_microbatched` measurement: one warm-up
+    chunk, then one timed window over ``seeds / seed_batch`` sequential
+    batches (`init` takes the first seed), each checked inside the
+    window; the aggregate rate over all seeds and the batch walls."""
+    import time
+    nets, ps = init(0)
+    nets, ps = step(nets, ps)
+    nets.time.cpu()
+    walls, facts = [], []
+    t0 = time.perf_counter()
+    for b in range(seeds // seed_batch):
+        tb = time.perf_counter()
+        nets, ps = init(b * seed_batch)
+        for _ in range(steps):
+            nets, ps = step(nets, ps)
+        facts.append(check(nets, ps))       # inside the window
+        walls.append(time.perf_counter() - tb)
+    wall = time.perf_counter() - t0
+    return {"value": round(seeds * steps * chunk / wall, 1),
+            "total_seeds": seeds, "seed_batch": seed_batch,
+            "microbatches": len(walls), "wall_total_s": round(wall, 4),
+            "batch_wall_median_s": round(float(np.median(walls)), 4),
+            "batch_wall_min_s": round(min(walls), 4),
+            "batch_wall_max_s": round(max(walls), 4),
+            "crosscheck": "per_batch_materialization", **facts[-1]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--proto", choices=sorted(DEFAULTS), default="handel")
@@ -172,9 +235,20 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--fast-forward", action="store_true")
+    ap.add_argument("--mode", choices=("exact", "cardinal"), default="exact")
+    ap.add_argument("--emission", choices=("stored", "hashed"), default=None)
+    ap.add_argument("--pool", type=int, choices=(0, 1), default=None)
+    ap.add_argument("--state-split", type=int, default=None)
+    ap.add_argument("--box-split", type=int, default=1)
+    ap.add_argument("--seed-batch", type=int, default=16)
     args = ap.parse_args(argv)
     if args.fast_forward and args.proto == "gsf":
         ap.error("GSF has no fast-forward oracle (next_action_time)")
+    scale = (args.mode != "exact" or args.emission or args.pool is not None
+             or args.state_split or args.box_split > 1)
+    if scale and args.proto != "handel":
+        ap.error("--mode, --emission, --pool, --state-split and "
+                 "--box-split are Handel's")
     nodes, n_seeds, ms, args.chunk = DEFAULTS[args.proto]
     args.nodes = nodes if args.nodes is None else args.nodes
     args.seeds = n_seeds if args.seeds is None else args.seeds
@@ -187,16 +261,21 @@ def main(argv=None) -> int:
 
     line = {"handel": handel_line, "pingpong": pingpong_line,
             "gsf": gsf_line}[args.proto]
-    proto, run, check, engine, k = line(args, args.seeds)
+    micro = args.proto == "handel" and args.seeds > args.seed_batch
+    if micro and args.seeds % args.seed_batch:
+        ap.error(f"--seeds {args.seeds} is not a multiple of --seed-batch "
+                 f"{args.seed_batch}")
+    batch = args.seed_batch if micro else args.seeds
+    proto, run, check, engine, k = line(args, batch)
     platform = proto.device.type
-    seeds = torch.arange(args.seeds)
+    seeds = torch.arange(batch)
     chunk = args.chunk
     steps = max(1, -(-args.ms // chunk))
     clock = {"t": 0}
 
-    def init():
+    def init(first=0):
         clock["t"] = 0
-        return init_batched(proto, seeds)
+        return init_batched(proto, seeds + first)
 
     def step(nets, ps):
         # The batch's time is kept on the host: no read-back per chunk.
@@ -206,14 +285,22 @@ def main(argv=None) -> int:
 
     if args.fast_forward:
         step, engine = ff_step(run, clock, chunk), "fast_forward"
-    res = timed_chunks(step, init, steps, args.seeds, chunk, check,
-                       reps=args.reps)
+    if micro:
+        res = microbatched(step, init, steps, args.seeds, args.seed_batch,
+                           chunk, check)
+        n_batches = args.seeds // args.seed_batch
+    else:
+        res = timed_chunks(step, init, steps, args.seeds, chunk, check,
+                           reps=args.reps)
+        n_batches = 1
     agg = res.pop("value")
-    res.pop("unit")
+    res.pop("unit", None)
     if args.fast_forward:
-        res.update(ff_stats(step.stats, steps, chunk))
+        res.update(ff_stats(step.stats, steps * n_batches, chunk))
+    suffix = ("" if args.mode == "exact" else f"_{args.mode}") + \
+        ("_ff" if args.fast_forward else "")
     out = {"metric": f"{args.proto}_{args.nodes}n_{args.seeds}seeds_agg_"
-                     "sim_ms_per_sec",
+                     f"sim_ms_per_sec{suffix}",
            "value": agg, "unit": "sim_ms/s", "platform": platform,
            "engine": engine, "superstep": k,
            "sim_ms": steps * chunk, "chunk": chunk,

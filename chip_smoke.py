@@ -22,21 +22,21 @@ Phases (any failure exits non-zero; nothing is caught):
    seed 0, for 600 ms, counters reset just before; live frac_done >
    0.99 with zero drops and clamps, and route, gsf_merge and gsf_score
    launched once per simulated ms;
-4. against the reference: a second Handel run of seed 0 matches the JAX
-   package's golden digest at 200 ms and the first run's final state
-   at 1000 ms;
-4b. a second GSF run of seed 0 matches the JAX golden digest and the
-   first run's state at 600 ms;
+4. against the reference: the Handel path's state at 200 ms matches the
+   JAX package's golden digest, and a second run of seed 0 to 200 ms
+   matches it;
+4b. the GSF path's state at 600 ms matches the JAX golden digest, and a
+   second run of seed 0 to 300 ms the path's state there;
 5. the benchmark headline (`bench_torch.py`'s path): 16 seeds of the
    2048-node Handel in one batch on the seed-folded engine
    (`core/batched.scan_chunk_batched`, superstep K=2, phase hints,
-   t0_mod=0), five 200-ms chunks, counters reset just before; mean live
+   t0_mod=0), five 200-ms chunks, counters reset just before; every
+   seed's state at 200 ms matches the JAX golden digests; mean live
    frac_done > 0.99 with zero drops, clamps and evictions, and route
    launched once a K=2 window (500), merge once a ms (1000), score on
    the verification ms (250), each launch for all 16 seeds;
-5b. a second batched run: every seed's state at 200 ms matches the JAX
-   golden digests, and at 1000 ms the first run's; seed 0 matches the
-   dense path's state of phase 3;
+5b. a second batched run to 200 ms matches the first seed by seed, and
+   the first run's seed 0 at 1000 ms the dense path's state of phase 3;
 6. PingPong on the per-ms engine: `PingPong(1000)`, seed 0, through
    `Runner.run_ms` in 8 steps of 100 ms, counters reset just before;
    the reference's curve (80 < pongs@100 < 400, 500 < pongs@300 <=
@@ -57,12 +57,12 @@ Phases (any failure exits non-zero; nothing is caught):
    the 2 lowest senders' deliver (got [0, 1, 1, 0]); two seeds of the
    first through the harness at K = 1 deliver at 511 each;
 7. GSF on a seed batch: `GSFSignature(node_count=4096)`, seeds 0-3 in
-   one batch to 600 ms in 200-ms chunks, (a) on the harness's engine at
+   one batch to 300 ms in 150-ms chunks, (a) on the harness's engine at
    K=1 (`network.scan_chunk` on the batch, `tools/bench_suite.py`'s GSF
    line) and (b) on the seed-folded engine (`scan_chunk_batched`, K=2),
    counters reset just before each: every seed's state equals the JAX
-   golden digests, zero drops and clamps, route once a window (600,
-   300), gsf_merge and gsf_score once a ms (600) for all 4 seeds;
+   golden digests, zero drops and clamps, route once a window (300,
+   150), gsf_merge and gsf_score once a ms (300) for all 4 seeds;
 8. the fast-forward engine, each run beside the dense run of its path
    in this process: (a) the headline on `fast_forward_chunk_batched`
    (K=2, no phase hints) to 200 ms, every seed equal to its golden, the
@@ -71,7 +71,24 @@ Phases (any failure exits non-zero; nothing is caught):
    100-ms calls to 800 ms and (c) 16 PingPong seeds through
    `fast_forward_chunk(seed_axis=True, superstep=2)` to 200 ms, each
    equal to its golden, with the JAX engine's skip counts, and (b)
-   skipping something.
+   skipping something;
+9. tier 3: cardinal Handel at 65,536 nodes (`tier3_params`), one seed on
+   the seed-folded engine (K=2, phase hints) in 200-ms chunks,
+   counters reset just before: equal to the JAX golden digests at 200
+   and 1,000 ms, then on until live frac_done > 0.99 (by 2,000 ms),
+   zero drops, clamps and evictions, route once a window and no K2 or
+   K3;
+10. tier 2: exact Handel at 32,768 nodes with hashed emission, no
+   snapshot pool, two q_sig pieces and two ring sub-planes
+   (`tier2_params`, `TIER2_BOX_SPLIT`), one seed as in 9 in 100-ms
+   chunks to 400 ms: equal to the JAX golden digests at 100 and 400 ms,
+   zero drops, clamps and evictions, route once a window per sub-plane
+   (400), merge every ms and score on the verification ms per piece
+   (800, 200);
+11. an attack: `Handel(**reference_default_params(1024),
+   byzantine_suicide=True)`, seed 0, 200 ms through `Runner.run_ms`:
+   equal to its JAX golden, honest blacklists filled, the kernels once
+   a ms.
 
 Phase 2 holds route, merge and score at the headline's shapes too:
 route with R 16 on a K=2 window, merge and score through their vmap
@@ -79,7 +96,13 @@ rules at 32,768 rows; and route on PingPong's batches: one K=2 window
 of pongs at R 16 (H 1024, N 1000, C 32, F 1, 2 x 1000 messages a seed,
 1% valid, all to the witness) and a spill drain of 4096 entries, half
 selected, at R 1; and route, gsf_merge and gsf_score at the GSF batch's
-(R 4: one ms of sends, and 4 x 4096 rows through the vmap rules).
+(R 4: one ms of sends, and 4 x 4096 rows through the vmap rules);
+and at the scale lines': route on a K=2 window of tier 3 (H 256, N
+65,536, C 12, F 2: the rank tables in device scratch) and of one tier-2
+sub-plane (N 16,384 of 32,768), merge and score on one tier-2 q_sig
+piece (16,384 rows, W 1,024), merge's gather (16-byte or word by word)
+recorded.  ``--memory-seeds R`` also builds each scale line with R
+seeds and reports its peak device memory over its first chunk.
 
 It prints one JSON line per kernel, the ``{"kernels": [...]}`` summary,
 the ``nvidia-smi`` name/power-limit line, and last
@@ -90,8 +113,9 @@ GSF and the GSF batch at K=1 and K=2 from t=300, PingPong from t=0, the
 busiest stretches), reports the device us a simulated ms of each path's
 kernels by name, and writes the tables to ``--profile-file``,
 ``--profile-gsf-file``, ``--profile-headline-file``,
-``--profile-pingpong-file`` and ``--profile-gsf-batch-file`` (K=2's
-beside it, ``_k2`` added to its name).
+``--profile-pingpong-file``, ``--profile-gsf-batch-file`` (K=2's
+beside it, ``_k2`` added to its name), ``--profile-t3-file`` (from
+t=600) and ``--profile-t2-file`` (from t=200).
 """
 
 from __future__ import annotations
@@ -126,14 +150,30 @@ PP_HARNESS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                                  "golden_pingpong1000_r16_k2_200ms.json")
 SPILL_MS = 520
 GSF_SEEDS = 4
-GSF_CHUNK = 200
+GSF_BATCH_MS = 300
+GSF_CHUNK = 150
 GSF_BATCH_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                                "golden_gsf4096_r4_600ms.json")
+                                "golden_gsf4096_r4_300ms.json")
 FF_MS = 200
 FF_STATS = os.path.join("wittgenstein_tpu_torch", "data",
                         "golden_pingpong1000_ff_stats.json")
+T3_NODES = 65536
+T3_CHUNK = 200
+T3_MS = 2000            # the tier-3 line's run length (BENCH_NOTES.md:1208)
+T3_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                         "golden_cardinal65536_k2.json")
+T2_NODES = 32768
+T2_CHUNK = 100
+T2_MS = 400
+T2_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                         "golden_tier2_32768.json")
+ATTACK_NODES = 1024
+ATTACK_MS = 200
+ATTACK_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                             "golden_handel1024_suicide_200ms.json")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
+PLAIN_BUDGET_S = 0.25
 
 
 def log(msg: str) -> None:
@@ -158,18 +198,19 @@ def smi_line() -> str:
 # ---------------------------------------------------------------- timing
 
 
-def call_ms(fn, reset=None):
-    """Mean ms of one call of fn() after WARMUP, with CUDA events around
+def call_ms(fn, reset=None, iters=ITERS):
+    """Mean ms of one call of fn() over `iters` calls after the warm-up
+    (WARMUP calls, one for a shortened count), with CUDA events around
     each call: the device's view of a call, host launch overhead
     included where the device waits for it.  `reset` (untimed) restores
     inputs that fn updates in place."""
     import torch
-    for _ in range(WARMUP):
+    for _ in range(WARMUP if iters == ITERS else 1):
         if reset:
             reset()
         fn()
     total = 0.0
-    for _ in range(ITERS):
+    for _ in range(iters):
         if reset:
             reset()
         a = torch.cuda.Event(enable_timing=True)
@@ -179,7 +220,7 @@ def call_ms(fn, reset=None):
         b.record()
         b.synchronize()
         total += a.elapsed_time(b)
-    return total / ITERS
+    return total / iters
 
 
 def kernel_device_us(events, match=None):
@@ -191,23 +232,23 @@ def kernel_device_us(events, match=None):
                (match is None or match in e.key))
 
 
-def device_ms(fn, match=None, reset=None):
+def device_ms(fn, match=None, reset=None, iters=ITERS):
     """Mean device ms per call of fn() from `torch.profiler`: the time of
     the CUDA kernels named like `match` (all of fn's kernels if None),
-    over ITERS calls after WARMUP; the time of `reset`'s own kernels is
-    measured the same way and taken off."""
+    over `iters` calls after the warm-up (as `call_ms`); the time of
+    `reset`'s own kernels is measured the same way and taken off."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     def run(with_fn):
-        for _ in range(WARMUP):
+        for _ in range(WARMUP if iters == ITERS else 1):
             if reset:
                 reset()
             fn()
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
-            for _ in range(ITERS):
+            for _ in range(iters):
                 if reset:
                     reset()
                 if with_fn:
@@ -224,7 +265,23 @@ def device_ms(fn, match=None, reset=None):
         total -= run(False)
     if total <= 0:
         fail(f"the profiler saw no device time for {match or 'the call'}")
-    return total / ITERS / 1e3
+    return total / iters / 1e3
+
+
+def plain_iters(fn, reset=None):
+    """How many calls to time a plain version over: ITERS, fewer where one
+    call is slow (about PLAIN_BUDGET_S of calls, at least 3).  Plain
+    versions run 100-10,000x their kernels' times; at the scale lines'
+    shapes one call is 0.1 s."""
+    import torch
+    if reset:
+        reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return max(3, min(ITERS, int(PLAIN_BUDGET_S /
+                                 (time.perf_counter() - t0))))
 
 
 _FLUSH = []
@@ -371,11 +428,13 @@ def phase_route(dev, rng, make=route_case, **shape):
     # than the call.
     phases = {k: device_ms(kern_fn, k, cold(reset)) * 1e3
               for k in ("route_bucket_kernel", "route_rank_kernel")}
+    plain_n = plain_iters(plain_fn, reset)
     return dict(err=err, ms=device_ms(kern_fn, None, cold(reset)),
                 warm_ms=device_ms(kern_fn, "route_", reset), phases_us=phases,
-                plain_ms=device_ms(plain_fn, None, reset),
+                plain_ms=device_ms(plain_fn, None, reset, plain_n),
                 call_ms=call_ms(kern_fn, reset),
-                plain_call_ms=call_ms(plain_fn, reset), nbytes=nbytes,
+                plain_call_ms=call_ms(plain_fn, reset, plain_n),
+                nbytes=nbytes,
                 drops=int(dk.sum()))
 
 
@@ -428,16 +487,17 @@ def merge_bytes(args):
     return cols_in + cols_out + 2 * q_sig.numel() * q_sig.element_size() + 4
 
 
-def phase_merge(dev, rng, seeds=None):
-    """K2 at the Handel path's shapes; with `seeds`, that many cases in
-    one batch through `merge_queue`'s vmap rule (one launch at seeds x
-    2048 rows, the headline's), against the plain version on the folded
-    rows."""
+def phase_merge(dev, rng, seeds=None, make=merge_case):
+    """K2 at the Handel path's shapes (or `make`'s); with `seeds`, that
+    many cases in one batch through `merge_queue`'s vmap rule (one
+    launch at seeds x 2048 rows, the headline's), against the plain
+    version on the folded rows.  Records whether the kernel gathered
+    the sig rows 16 bytes at a time or word by word."""
     import torch
     from wittgenstein_tpu_torch.ops.merge import (fold_seeds, merge_queue,
                                                   merge_queue_plain)
     if seeds is None:
-        args = flat = merge_case(dev, rng)
+        args = flat = make(dev, rng)
 
         def kern_fn():
             return merge_queue(*args)
@@ -452,23 +512,29 @@ def phase_merge(dev, rng, seeds=None):
     def plain_fn():
         return merge_queue_plain(*flat, seeds=seeds)
     plain = plain_fn()
+    word = merge_queue.word_launches
     kern = [k.reshape(p.shape) for k, p in zip(kern_fn(), plain)]
     torch.cuda.synchronize()
+    gather = "word" if merge_queue.word_launches > word else "vector"
     err = max_abs_err(plain, kern)
     if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
         fail(f"merge kernel differs from its plain version (max err {err})")
     nbytes = merge_bytes(flat) + 4 * ((seeds or 1) - 1)
-    return dict(err=err, ms=device_ms(kern_fn, "merge_kernel", cold()),
+    plain_n = plain_iters(plain_fn)
+    return dict(err=err, gather=gather,
+                ms=device_ms(kern_fn, "merge_kernel", cold()),
                 warm_ms=device_ms(kern_fn, "merge_kernel"),
-                plain_ms=device_ms(plain_fn), call_ms=call_ms(kern_fn),
-                plain_call_ms=call_ms(plain_fn), nbytes=nbytes,
+                plain_ms=device_ms(plain_fn, iters=plain_n),
+                call_ms=call_ms(kern_fn),
+                plain_call_ms=call_ms(plain_fn, iters=plain_n), nbytes=nbytes,
                 evicted=int(kern[5].sum()))
 
 
-def phase_score(dev, rng, seeds=None):
-    """K3 at the Handel path's shapes; with `seeds`, a batch through
-    `score_queue`'s vmap rule (the node ids unbatched, as in the step),
-    against the plain version on the folded rows."""
+def phase_score(dev, rng, seeds=None, args=None):
+    """K3 at the Handel path's shapes (or on `args`, one call's); with
+    `seeds`, a batch through `score_queue`'s vmap rule (the node ids
+    unbatched, as in the step), against the plain version on the folded
+    rows."""
     import numpy as np
     import torch
     from wittgenstein_tpu_torch.ops.merge import fold_seeds
@@ -481,11 +547,13 @@ def phase_score(dev, rng, seeds=None):
         return torch.tensor(rng.integers(0, 2 ** 32, lead + shape,
                                          dtype=np.uint32).view(np.int32),
                             device=dev)
-    args = [bits(m, q, w),
-            torch.tensor(rng.integers(0, 12, lead + (m, q)),
-                         dtype=torch.int32, device=dev),
-            torch.arange(m, dtype=torch.int32, device=dev),
-            bits(m, w), bits(m, w), bits(m, w)]
+    if args is None:
+        args = [bits(m, q, w),
+                torch.tensor(rng.integers(0, 12, lead + (m, q)),
+                             dtype=torch.int32, device=dev),
+                torch.arange(m, dtype=torch.int32, device=dev),
+                bits(m, w), bits(m, w), bits(m, w)]
+    q, w = args[0].shape[-2:]
     if seeds is None:
         flat = args
 
@@ -510,10 +578,12 @@ def phase_score(dev, rng, seeds=None):
     # and one bool [M, Q]; M = all rows of the batch.
     m = flat[2].numel()
     nbytes = 4 * (m * q * w + m * q + m + 3 * m * w + 3 * m * q) + m * q
+    plain_n = plain_iters(plain_fn)
     return dict(err=err, ms=device_ms(kern_fn, "score_kernel", cold()),
                 warm_ms=device_ms(kern_fn, "score_kernel"),
-                plain_ms=device_ms(plain_fn), call_ms=call_ms(kern_fn),
-                plain_call_ms=call_ms(plain_fn), nbytes=nbytes)
+                plain_ms=device_ms(plain_fn, iters=plain_n),
+                call_ms=call_ms(kern_fn),
+                plain_call_ms=call_ms(plain_fn, iters=plain_n), nbytes=nbytes)
 
 
 def phase_route_headline(dev, rng):
@@ -663,10 +733,12 @@ def phase_gsf_merge(dev, rng, seeds=None):
     if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
         fail(f"gsf_merge kernel differs from its plain version (max err "
              f"{err})")
+    plain_n = plain_iters(plain_fn)
     return dict(err=err, ms=device_ms(kern_fn, "gsf_merge_kernel", cold()),
                 warm_ms=device_ms(kern_fn, "gsf_merge_kernel"),
-                plain_ms=device_ms(plain_fn), call_ms=call_ms(kern_fn),
-                plain_call_ms=call_ms(plain_fn),
+                plain_ms=device_ms(plain_fn, iters=plain_n),
+                call_ms=call_ms(kern_fn),
+                plain_call_ms=call_ms(plain_fn, iters=plain_n),
                 nbytes=gsf_merge_bytes(flat, kern, levels),
                 admitted_individuals=int((kern[4] != 0).sum()))
 
@@ -718,10 +790,110 @@ def phase_gsf_score(dev, rng, seeds=None):
     nbytes = 4 * (m * q * w + m * q + m + 2 * m * w + 4 * m * q) + 2 * m * q
     # The wrapper launches one kernel: timed by its name, as the others,
     # so the flush's own spread is never subtracted.
+    plain_n = plain_iters(plain_fn)
     return dict(err=err, ms=device_ms(kern_fn, "gsf_score_kernel", cold()),
                 warm_ms=device_ms(kern_fn, "gsf_score_kernel"),
-                plain_ms=device_ms(plain_fn), call_ms=call_ms(kern_fn),
-                plain_call_ms=call_ms(plain_fn), nbytes=nbytes)
+                plain_ms=device_ms(plain_fn, iters=plain_n),
+                call_ms=call_ms(kern_fn),
+                plain_call_ms=call_ms(plain_fn, iters=plain_n), nbytes=nbytes)
+
+
+def window_case(dev, rng, hz, n, c, f, m, lo=0, n_dest=None):
+    """One K=2 window of sends at a scale path's shapes, drawn on the
+    card (the ring is GBs): counts part full with eight full rows, the
+    window's two rows cleared, arrivals t + [2, H], dests in [lo, lo +
+    n_dest) of which those outside [0, N) (another sub-plane's) are
+    invalid, 70% valid."""
+    import torch
+    g = torch.Generator(dev).manual_seed(int(rng.integers(1 << 31)))
+    t = 600
+
+    def ints(a, b, shape):
+        return torch.randint(a, b, shape, generator=g, dtype=torch.int32,
+                             device=dev)
+    ring = [ints(0, 1 << 20, (1, f, hz, n, c)), ints(0, n, (1, hz, n, c)),
+            ints(0, 300, (1, hz, n, c)), ints(0, 4, (1, hz, n))]
+    ring[3][:, :8] = c
+    ring[3][:, t % hz:t % hz + 2] = 0
+    dest = lo + ints(0, n_dest or n, (1, m))
+    msg = [t + ints(2, hz + 1, (1, m)), dest, ints(0, n, (1, m)),
+           ints(1, 300, (1, m)), ints(0, 1 << 20, (1, m, f)),
+           (torch.rand((1, m), generator=g, device=dev) < 0.7) &
+           (dest >= 0) & (dest < n)]
+    return ring, msg
+
+
+def phase_route_t3(dev, rng):
+    """K1 at the tier-3 line's shapes: cardinal 65,536 nodes (H 256, C
+    12, F 2), one K=2 window of 2 x 65,536 x 26 sends.  H*N is 16.8 M
+    cells, so a bucket is 8,192 cells and its rank tables live in device
+    scratch, not shared memory."""
+    return phase_route(dev, rng, window_case, hz=256, n=T3_NODES, c=12,
+                       f=2, m=2 * T3_NODES * 26)
+
+
+def phase_route_t2(dev, rng):
+    """K1 on one sub-plane of the tier-2 line's split ring: 16,384 of the
+    32,768 nodes (H 256, C 12, F 3) and a K=2 window of 2 x 32,768 x 25
+    sends, those to the other sub-plane shifted out of range."""
+    ns = T2_NODES // 2
+    return phase_route(dev, rng, window_case, hz=256, n=ns, c=12, f=3,
+                       m=2 * T2_NODES * 25, lo=-ns, n_dest=T2_NODES)
+
+
+def piece_case(dev, rng):
+    """K2 on one q_sig piece of the tier-2 line: 16,384 rows (32,768
+    nodes in two pieces), Q 16, S 12, W 1,024, 16 levels; the queue 70%
+    full, 60% of inbox slots valid, planted duplicates within the inbox
+    and against the queue (as `merge_case`), drawn on the card."""
+    import torch
+    m, q, s, w, n = T2_NODES // 2, 16, 12, T2_NODES // 32, T2_NODES
+    g = torch.Generator(dev).manual_seed(int(rng.integers(1 << 31)))
+
+    def ints(a, b, shape):
+        return torch.randint(a, b, shape, generator=g, dtype=torch.int32,
+                             device=dev)
+
+    def rand(shape):
+        return torch.rand(shape, generator=g, device=dev)
+    q_from = torch.where(rand((m, q)) < 0.7, ints(0, n, (m, q)), -1)
+    q_lvl = ints(0, 16, (m, q))
+    src, level = ints(0, n, (m, s)), ints(0, 16, (m, s))
+    pick = rand((m, s))
+    cols = torch.arange(s, device=dev)
+    prev = (ints(0, s, (m, s)) % cols.clamp_min(1)).long()
+    dup = (pick < 0.3) & (cols > 0)
+    src, level = (torch.where(dup, x.gather(1, prev), x)
+                  for x in (src, level))
+    qq = ints(0, q, (m, s)).long()
+    hit = (pick >= 0.3) & (pick < 0.6) & (q_from.gather(1, qq) >= 0)
+    src = torch.where(hit, q_from.gather(1, qq), src)
+    level = torch.where(hit, q_lvl.gather(1, qq), level)
+    return [q_from, q_lvl, ints(0, 2 * n, (m, q)), rand((m, q)) < 0.2,
+            ints(-2 ** 31, 2 ** 31 - 1, (m, q, w)), src, level,
+            ints(0, 2 * n, (m, s)), rand((m, s)) < 0.6,
+            ints(-2 ** 31, 2 ** 31 - 1, (m, s, w))]
+
+
+def phase_merge_t2(dev, rng):
+    return phase_merge(dev, rng, make=piece_case)
+
+
+def phase_score_t2(dev, rng):
+    """K3 on the second q_sig piece of the tier-2 line: 16,384 rows of
+    ids 16,384-32,767, Q 16, W 1,024, levels 0-15 (a level range spans
+    up to 512 words)."""
+    import torch
+    m, q, w = T2_NODES // 2, 16, T2_NODES // 32
+    g = torch.Generator(dev).manual_seed(int(rng.integers(1 << 31)))
+
+    def ints(a, b, shape):
+        return torch.randint(a, b, shape, generator=g, dtype=torch.int32,
+                             device=dev)
+    args = [ints(-2 ** 31, 2 ** 31 - 1, (m, q, w)), ints(0, 16, (m, q)),
+            m + torch.arange(m, dtype=torch.int32, device=dev)] + [
+        ints(-2 ** 31, 2 ** 31 - 1, (m, w)) for _ in range(3)]
+    return phase_score(dev, rng, args=args)
 
 
 def phase_route_gsf_r4(dev, rng):
@@ -778,11 +950,24 @@ KERNELS = [
     ("gsf_score_r4", "gsf_score", "gsf_batch",
      "wittgenstein_tpu_torch/csrc/gsf_score.cu",
      "wittgenstein_tpu/ops/pallas_score.py:94", phase_gsf_score_r4),
+    ("route_t3", "route", "t3", "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_t3),
+    ("route_t2", "route", "t2", "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154", phase_route_t2),
+    ("merge_t2", "merge", "t2", "wittgenstein_tpu_torch/csrc/merge.cu",
+     "wittgenstein_tpu/ops/pallas_merge.py:55", phase_merge_t2),
+    ("score_t2", "score", "t2", "wittgenstein_tpu_torch/csrc/score.cu",
+     "wittgenstein_tpu/ops/pallas_score.py:46", phase_score_t2),
 ]
 #: the launches each path's run must make, by wrapper (others: none).
 #: The per-ms paths launch each kernel once a simulated ms; the headline
 #: bins once a K=2 window, merges every ms and scores on the
 #: verification ms (t = 1 mod pairing 4), each launch for all seeds.
+#: The scale lines run one seed at K=2 with phase hints: T3 (cardinal)
+#: bins once a window and has no K2 or K3 (its count follows its stop
+#: time, set when it has run); T2 bins once a window per
+#: ring sub-plane (2) and merges every ms and scores on the verification
+#: ms once per q_sig piece (2).  The attacked Handel runs per ms.
 #: PingPong bins its pongs once a ms; the spill probe bins twice a ms
 #: (the drain, then the sends).  The PingPong harness bins once a K=2
 #: window for all seeds, so its count follows its stop time (set when
@@ -797,9 +982,14 @@ PATH_LAUNCHES = {
                  "score": HEADLINE_MS // 4},
     "pingpong": {"route": PP_MS},
     "spill": {"route": 2 * SPILL_MS},
-    "gsf_batch": {"route": GSF_MS, "gsf_merge": GSF_MS, "gsf_score": GSF_MS},
-    "gsf_batch_k2": {"route": GSF_MS // 2, "gsf_merge": GSF_MS,
-                     "gsf_score": GSF_MS}}
+    "gsf_batch": {"route": GSF_BATCH_MS, "gsf_merge": GSF_BATCH_MS,
+                  "gsf_score": GSF_BATCH_MS},
+    "gsf_batch_k2": {"route": GSF_BATCH_MS // 2, "gsf_merge": GSF_BATCH_MS,
+                     "gsf_score": GSF_BATCH_MS},
+    "t2": {"route": 2 * (T2_MS // 2), "merge": 2 * T2_MS,
+           "score": 2 * (T2_MS // 4)},
+    "attack": {"route": ATTACK_MS, "merge": ATTACK_MS,
+               "score": ATTACK_MS}}
 
 
 # ------------------------------------------------------------- main path
@@ -832,10 +1022,11 @@ def check_digest(what, got, want):
              f"first {bad[:5]}")
 
 
-def drive(proto, ms):
+def drive(proto, ms, mid=None):
     """Run `proto` from seed 0 for `ms` ms through `Runner.run_ms`, every
     launch counter set to 0 just before.  Returns the run's numbers,
-    the launch counts and the final state as numpy dicts."""
+    the launch counts, the final state as numpy dicts and, with `mid`,
+    the state digest at `mid` ms (taken outside the timed wall)."""
     import torch
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.core.network import Runner
@@ -844,10 +1035,14 @@ def drive(proto, ms):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    t0 = time.perf_counter()
-    net, ps = runner.run_ms(net, ps, ms)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, mid_digest = 0.0, None
+    for part in ((mid, ms - mid) if mid else (ms,)):
+        t0 = time.perf_counter()
+        net, ps = runner.run_ms(net, ps, part)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        if mid_digest is None and mid:
+            mid_digest = convert.state_digest(*convert.to_numpy(net, ps))
     launches = read_counters()
     down = net.nodes.down
     frac = float((net.nodes.done_at[~down] > 0).float().mean())
@@ -857,7 +1052,7 @@ def drive(proto, ms):
                time=int(net.time),
                msg_sent=int(net.nodes.msg_sent.sum()),
                peak_mem_bytes=torch.cuda.max_memory_allocated())
-    return res, launches, convert.to_numpy(net, ps)
+    return res, launches, convert.to_numpy(net, ps), mid_digest
 
 
 def check_launches(path, launches):
@@ -876,21 +1071,31 @@ def main_path(dev):
     from wittgenstein_tpu_torch.models.handel import (
         Handel, reference_default_params)
     return drive(Handel(**reference_default_params(N_NODES), device=dev),
-                 MAIN_MS)
+                 MAIN_MS, GOLDEN_MS)
 
 
 def gsf_path(dev):
     """600 ms of `GSFSignature(node_count=4096)` with its defaults, seed
     0, through the entry points a user calls."""
     from wittgenstein_tpu_torch.models.gsf import GSFSignature
-    return drive(GSFSignature(node_count=GSF_NODES, device=dev), GSF_MS)
+    return drive(GSFSignature(node_count=GSF_NODES, device=dev), GSF_MS,
+                 GSF_MS // 2)
 
 
-def golden_and_determinism(dev, final_np):
-    """Seed 0 again: the state at 200 ms against the JAX golden digest,
-    then at 1000 ms against the first run."""
+def determinism(what, proto, ms, want):
+    """Seed 0 again, to `ms` ms: its state digest equals `want`, the
+    first run's at `ms`."""
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.core.network import Runner
+    net, ps = Runner(proto).run_ms(*proto.init(0), ms)
+    check_digest(f"{what} seed 0 run twice, at {ms} ms",
+                 convert.state_digest(*convert.to_numpy(net, ps)), want)
+    log(f"{what} determinism: two runs of seed 0 identical at {ms} ms")
+
+
+def golden_and_determinism(dev, mid_digest):
+    """The Handel path's state at 200 ms (`mid_digest`) against the JAX
+    golden digest; seed 0 run again to 200 ms equals it."""
     from wittgenstein_tpu_torch.models.handel import (
         Handel, reference_default_params)
     path = os.path.join("wittgenstein_tpu_torch", "data",
@@ -899,47 +1104,29 @@ def golden_and_determinism(dev, final_np):
         golden = json.load(f)
     if golden["ms"] != GOLDEN_MS:
         fail(f"golden file is for {golden['ms']} ms, not {GOLDEN_MS}")
-    proto = Handel(**reference_default_params(N_NODES), device=dev)
-    runner = Runner(proto)
-    net, ps = runner.run_ms(*proto.init(0), GOLDEN_MS)
-    check_digest(f"state at {GOLDEN_MS} ms",
-                 convert.state_digest(*convert.to_numpy(net, ps)),
-                 golden["leaves"])
+    check_digest(f"state at {GOLDEN_MS} ms", mid_digest, golden["leaves"])
     log(f"golden: all {len(golden['leaves'])} leaves match the JAX "
         f"reference at {GOLDEN_MS} ms")
-    net, ps = runner.run_ms(net, ps, MAIN_MS - GOLDEN_MS)
-    net_np, ps_np = convert.to_numpy(net, ps)
-    again = convert.flatten({"net": net_np, "pstate": ps_np})
-    first = convert.flatten({"net": final_np[0], "pstate": final_np[1]})
-    diff = convert.first_difference(first, again)
-    if diff is not None:
-        fail(f"seed 0 run twice differs at {diff[0]} index {diff[1]}")
-    log(f"determinism: two runs of seed 0 identical at {MAIN_MS} ms")
+    determinism("Handel", Handel(**reference_default_params(N_NODES),
+                                 device=dev), GOLDEN_MS, mid_digest)
 
 
-def gsf_golden_and_determinism(dev, final_np):
-    """Seed 0 again: the GSF state at 600 ms against the JAX golden
-    digest and against the first run."""
+def gsf_golden_and_determinism(dev, final_np, mid_digest):
+    """The GSF path's state at 600 ms against the JAX golden digest;
+    seed 0 run again to 300 ms equals the path's state there
+    (`mid_digest`)."""
     from wittgenstein_tpu_torch import convert
-    from wittgenstein_tpu_torch.core.network import Runner
     from wittgenstein_tpu_torch.models.gsf import GSFSignature
     with open(GSF_GOLDEN) as f:
         golden = json.load(f)
     if golden["ms"] != GSF_MS:
         fail(f"GSF golden file is for {golden['ms']} ms, not {GSF_MS}")
-    proto = GSFSignature(node_count=GSF_NODES, device=dev)
-    net, ps = Runner(proto).run_ms(*proto.init(0), GSF_MS)
-    net_np, ps_np = convert.to_numpy(net, ps)
     check_digest(f"GSF state at {GSF_MS} ms",
-                 convert.state_digest(net_np, ps_np), golden["leaves"])
+                 convert.state_digest(*final_np), golden["leaves"])
     log(f"GSF golden: all {len(golden['leaves'])} leaves match the JAX "
         f"reference at {GSF_MS} ms (JAX counts {golden['counts']})")
-    again = convert.flatten({"net": net_np, "pstate": ps_np})
-    first = convert.flatten({"net": final_np[0], "pstate": final_np[1]})
-    diff = convert.first_difference(first, again)
-    if diff is not None:
-        fail(f"GSF seed 0 run twice differs at {diff[0]} index {diff[1]}")
-    log(f"GSF determinism: two runs of seed 0 identical at {GSF_MS} ms")
+    determinism("GSF", GSFSignature(node_count=GSF_NODES, device=dev),
+                GSF_MS // 2, mid_digest)
 
 
 def headline_init(dev):
@@ -953,13 +1140,14 @@ def headline_init(dev):
     return proto, init_batched(proto, torch.arange(HEADLINE_SEEDS))
 
 
-def headline_run(dev, golden=None):
-    """The benchmark headline through `bench_torch.py`'s path: five
+def headline_run(dev, golden=None, ms=HEADLINE_MS):
+    """The benchmark headline through `bench_torch.py`'s path: `ms` in
     200-ms chunks of `scan_chunk_batched` (superstep 2, t0_mod 0), every
     launch counter set to 0 just before.  With `golden` (the JAX
     package's per-seed digests at 200 ms) every seed's state is checked
     after the first chunk, outside the timed wall.  Returns the run's
-    numbers, the launch counts and each seed's final digest."""
+    numbers, the launch counts, each seed's final digest and, with
+    `golden`, each seed's digest at 200 ms."""
     import torch
     from torch.utils import _pytree as pytree
     from wittgenstein_tpu_torch import convert
@@ -971,19 +1159,19 @@ def headline_run(dev, golden=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    wall = 0.0
-    for i in range(HEADLINE_MS // HEADLINE_CHUNK):
+    wall, first = 0.0, None
+    for i in range(ms // HEADLINE_CHUNK):
         t0 = time.perf_counter()
         nets, ps = run(nets, ps, t=i * HEADLINE_CHUNK)
         torch.cuda.synchronize()
         wall += time.perf_counter() - t0
         if golden is not None and i == 0:
-            check_headline_golden(golden, nets, ps)
+            first = check_headline_golden(golden, nets, ps)
     launches = read_counters()
     frac = [float((nets.nodes.done_at[r][~nets.nodes.down[r]] > 0)
                   .float().mean()) for r in range(HEADLINE_SEEDS)]
-    res = dict(wall_s=wall, sim_ms_per_s=HEADLINE_MS / wall,
-               agg_sim_ms_per_s=HEADLINE_SEEDS * HEADLINE_MS / wall,
+    res = dict(wall_s=wall, sim_ms_per_s=ms / wall,
+               agg_sim_ms_per_s=HEADLINE_SEEDS * ms / wall,
                frac_done=sum(frac) / len(frac), frac_done_min=min(frac),
                dropped=int(nets.dropped.sum()),
                clamped=int(nets.clamped.sum()),
@@ -992,34 +1180,31 @@ def headline_run(dev, golden=None):
                msg_sent=int(nets.nodes.msg_sent.sum()),
                state_bytes=state_bytes,
                peak_mem_bytes=torch.cuda.max_memory_allocated())
-    return res, launches, convert.seed_digests(*convert.to_numpy(nets, ps))
+    return (res, launches, convert.seed_digests(*convert.to_numpy(nets, ps)),
+            first)
 
 
 def check_headline_golden(golden, nets, ps):
+    """Every seed against the JAX golden digests; returns their digests."""
     from wittgenstein_tpu_torch import convert
     got = convert.seed_digests(*convert.to_numpy(nets, ps))
     for r, (g, w) in enumerate(zip(got, golden["seeds"])):
         check_digest(f"headline seed {r} at {golden['ms']} ms", g, w)
     log(f"headline golden: all {len(got)} seeds match the JAX reference "
         f"at {golden['ms']} ms, {len(got[0])} leaves each")
+    return got
 
 
-def headline_golden_and_determinism(dev, digests, dense_final_np):
-    """A second headline run: every seed at 200 ms against the JAX
-    golden digests, every seed at 1000 ms against the first run; seed 0
-    against the dense path's state of phase 3."""
+def headline_determinism(dev, first, digests, dense_final_np):
+    """A second headline run to 200 ms: every seed equals the first run's
+    state there (`first`); the first run's seed 0 at 1000 ms (`digests`)
+    equals the dense path's state of phase 3."""
     from wittgenstein_tpu_torch import convert
-    with open(HEADLINE_GOLDEN) as f:
-        golden = json.load(f)
-    if golden["ms"] != HEADLINE_CHUNK or \
-            len(golden["seeds"]) != HEADLINE_SEEDS:
-        fail(f"headline golden is for {len(golden['seeds'])} seeds at "
-             f"{golden['ms']} ms, not {HEADLINE_SEEDS} at {HEADLINE_CHUNK}")
-    res, _, again = headline_run(dev, golden)
-    bad = [r for r, (a, b) in enumerate(zip(digests, again)) if a != b]
+    res, _, again, _ = headline_run(dev, ms=HEADLINE_CHUNK)
+    bad = [r for r, (a, b) in enumerate(zip(first, again)) if a != b]
     if bad:
         fail(f"headline run twice differs in seeds {bad}")
-    log(f"headline determinism: two runs identical at {HEADLINE_MS} ms "
+    log(f"headline determinism: two runs identical at {HEADLINE_CHUNK} ms "
         f"(second run wall {res['wall_s']:.3f} s)")
     if digests[0] != convert.state_digest(*dense_final_np):
         fail("headline seed 0 differs from the dense path's state at "
@@ -1246,7 +1431,7 @@ def check_seed_goldens(what, nets, ps, golden):
 
 
 def gsf_batch_run(dev, k):
-    """GSF 4096, seeds 0-3 in one batch, to 600 ms in 200-ms chunks: K=1
+    """GSF 4096, seeds 0-3 in one batch, to 300 ms in 150-ms chunks: K=1
     on the harness's engine (`network.scan_chunk` on the batch), K=2 on
     the seed-folded engine (`scan_chunk_batched`); counters set to 0
     just before the run, the peak taken from before the batch is built.
@@ -1258,7 +1443,7 @@ def gsf_batch_run(dev, k):
     from wittgenstein_tpu_torch.core.network import scan_chunk
     from wittgenstein_tpu_torch.core.state import init_batched
     from wittgenstein_tpu_torch.models.gsf import GSFSignature
-    golden = load_golden(GSF_BATCH_GOLDEN, GSF_MS, GSF_SEEDS)
+    golden = load_golden(GSF_BATCH_GOLDEN, GSF_BATCH_MS, GSF_SEEDS)
     proto = GSFSignature(node_count=GSF_NODES, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1270,15 +1455,16 @@ def gsf_batch_run(dev, k):
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.perf_counter()
-    for i in range(GSF_MS // GSF_CHUNK):
+    for i in range(GSF_BATCH_MS // GSF_CHUNK):
         nets, ps = run(nets, ps, t=i * GSF_CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
     frac = [float((nets.nodes.done_at[r][~nets.nodes.down[r]] > 0)
                   .float().mean()) for r in range(GSF_SEEDS)]
-    res = dict(superstep=k, wall_s=wall, sim_ms_per_s=GSF_MS / wall,
-               agg_sim_ms_per_s=GSF_SEEDS * GSF_MS / wall, frac_done=frac,
+    res = dict(superstep=k, wall_s=wall, sim_ms_per_s=GSF_BATCH_MS / wall,
+               agg_sim_ms_per_s=GSF_SEEDS * GSF_BATCH_MS / wall,
+               frac_done=frac,
                dropped=int(nets.dropped.sum()),
                clamped=int(nets.clamped.sum()),
                evicted=int(ps.evicted.sum()), time=nets.time.tolist(),
@@ -1430,6 +1616,147 @@ def ff_pingpong_batch(dev):
                 oracle_ms=oracle_ms(proto, nets, ps, PP_CHUNK)), launches
 
 
+def scale_init(dev, line, seeds=1):
+    """A scale line's protocol and seed batch: ``t3``, cardinal mode at
+    65,536 nodes (`tier3_params`); ``t2``, exact mode at 32,768 nodes
+    with the tier-2 switches (`tier2_params`, ring sub-planes
+    `TIER2_BOX_SPLIT`)."""
+    import dataclasses
+
+    import torch
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.handel import (
+        TIER2_BOX_SPLIT, Handel, tier2_params, tier3_params)
+    if line == "t3":
+        proto = Handel(**tier3_params(T3_NODES), device=dev)
+    else:
+        proto = Handel(**tier2_params(T2_NODES), device=dev)
+        proto.cfg = dataclasses.replace(proto.cfg,
+                                        box_split=TIER2_BOX_SPLIT)
+    return proto, init_batched(proto, torch.arange(seeds))
+
+
+def scale_run(dev, line):
+    """A scale line through the seed-folded engine (K=2, phase hints,
+    t0_mod 0), one seed, in chunks, every launch counter set to 0 just
+    before; peak memory while the state is built (`init_batched` holds
+    it and one seed's copy) and over the run, apart.  After
+    each chunk that ends on a golden checkpoint the state is checked
+    against the JAX digests, outside the timed wall.  T3 runs past its
+    last golden until its live frac_done passes 0.99, which must happen
+    by T3_MS (its launch count follows the stop); T2 runs to T2_MS.
+    Zero drops, clamps and evictions for both."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    from wittgenstein_tpu_torch.ops.merge import merge_queue
+    path, chunk, ms = ((T3_GOLDEN, T3_CHUNK, T3_MS) if line == "t3" else
+                       (T2_GOLDEN, T2_CHUNK, T2_MS))
+    with open(path) as f:
+        golden = json.load(f)["ms"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    proto, (nets, ps) = scale_init(dev, line)
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in pytree.tree_leaves((nets, ps)))
+    run = scan_chunk_batched(proto, chunk, t0_mod=0, superstep=2)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    word = merge_queue.word_launches
+    live = ~nets.nodes.down[0]
+    last = max(map(int, golden))
+    walls = []
+    for t in range(chunk, ms + 1, chunk):
+        t0 = time.perf_counter()
+        nets, ps = run(nets, ps, t=t - chunk)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        want = golden.get(str(t))
+        if want is not None:
+            got = convert.seed_digests(*convert.to_numpy(nets, ps))[0]
+            check_digest(f"{line} at {t} ms", got,
+                         want.get("leaves") or want["seeds"][0])
+            log(f"{line} golden: all {len(got)} leaves match the JAX "
+                f"reference at {t} ms (JAX counts {want['counts']})")
+        frac = float((nets.nodes.done_at[0][live] > 0).float().mean())
+        if line == "t3" and t >= last and frac > 0.99:
+            break
+    wall = sum(walls)
+    launches = read_counters()
+    if line == "t3":
+        PATH_LAUNCHES["t3"] = {"route": t // 2}
+    res = dict(wall_s=wall, chunk_walls_s=walls, sim_ms=t,
+               sim_ms_per_s=t / wall, frac_done=frac,
+               dropped=int(nets.dropped.sum()),
+               clamped=int(nets.clamped.sum()),
+               evicted=int(ps.evicted.sum()), time=int(nets.time[0]),
+               msg_sent=int(nets.nodes.msg_sent.sum()),
+               merge_word_launches=merge_queue.word_launches - word,
+               state_bytes=state_bytes, init_peak_mem_bytes=init_peak,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if res["dropped"] or res["clamped"] or res["evicted"]:
+        fail(f"{line}: drops, clamps and evictions must be 0: {res}")
+    if line == "t3" and not res["frac_done"] > 0.99:
+        fail(f"t3 did not converge by {t} ms: live frac_done "
+             f"{res['frac_done']}")
+    return res, launches
+
+
+def scale_memory(dev, line, seeds, ms):
+    """Peak device memory of a scale line at `seeds` seeds
+    (`--memory-seeds`): while the batch is built (`init_batched` holds
+    the batch and one seed's state), and over its first `ms` ms."""
+    import torch
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    proto, (nets, ps) = scale_init(dev, line, seeds)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nets, ps = scan_chunk_batched(proto, ms, t0_mod=0)(nets, ps, t=0)
+    torch.cuda.synchronize()
+    res = dict(seeds=seeds, ms=ms, wall_s=time.perf_counter() - t0,
+               init_peak_mem_bytes=init_peak,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               dropped=int(nets.dropped.sum()),
+               evicted=int(ps.evicted.sum()))
+    log(f"{line} at {seeds} seeds: {json.dumps(res)}")
+    return res
+
+
+def attack_run(dev):
+    """`Handel(**reference_default_params(1024), byzantine_suicide=True)`
+    (the attacker controls its 102 down nodes), seed 0, through
+    `Runner.run_ms` for ATTACK_MS ms, counters set to 0 just before:
+    every leaf equal to the JAX golden, the suicide plants seen (honest
+    blacklists filled), kernels once a ms."""
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.models.handel import (
+        Handel, reference_default_params)
+    from wittgenstein_tpu_torch.ops import bitset
+    with open(ATTACK_GOLDEN) as f:
+        golden = json.load(f)
+    if golden["ms"] != ATTACK_MS:
+        fail(f"attack golden is for {golden['ms']} ms, not {ATTACK_MS}")
+    proto = Handel(**reference_default_params(ATTACK_NODES),
+                   byzantine_suicide=True, device=dev)
+    res, launches, final_np, _ = drive(proto, ATTACK_MS)
+    check_digest(f"attacked Handel at {ATTACK_MS} ms",
+                 convert.state_digest(*final_np), golden["leaves"])
+    net, ps = convert.from_reference(*final_np, "cpu")
+    res["blacklisted"] = int(bitset.popcount(ps.blacklist).sum())
+    if not res["blacklisted"] > 0:
+        fail("byzantine_suicide planted nothing that was caught")
+    log(f"attacked Handel: all {len(golden['leaves'])} leaves match the "
+        f"JAX reference at {ATTACK_MS} ms")
+    return res, launches
+
+
 #: kernel names (substrings of the profiler's keys) whose device time
 #: a simulated ms `--profile` reports for each path
 PROFILE_KERNELS = {
@@ -1440,6 +1767,8 @@ PROFILE_KERNELS = {
 PROFILE_KERNELS["headline"] = PROFILE_KERNELS["handel"]
 PROFILE_KERNELS["pingpong"] = {"route": "route_"}
 PROFILE_KERNELS["gsf_batch"] = PROFILE_KERNELS["gsf"]
+PROFILE_KERNELS["t2"] = PROFILE_KERNELS["handel"]
+PROFILE_KERNELS["t3"] = {"route": "route_"}
 
 
 def dense_window(proto, start, ms):
@@ -1478,6 +1807,16 @@ def gsf_batch_window(dev, start, ms, k):
                 scan_chunk_batched(proto, n, superstep=k))
     nets, ps = chunk(start)(nets, ps, t=0)
     window = chunk(ms)
+    return lambda: window(nets, ps, t=start)
+
+
+def scale_window(dev, line, start, ms):
+    """The same for a scale line, one seed, in phase-specialized
+    chunks."""
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    proto, (nets, ps) = scale_init(dev, line)
+    nets, ps = scan_chunk_batched(proto, start, t0_mod=0)(nets, ps, t=0)
+    window = scan_chunk_batched(proto, ms, t0_mod=0)
     return lambda: window(nets, ps, t=start)
 
 
@@ -1535,6 +1874,9 @@ def main(argv=None) -> int:
                     default="profile_pingpong.txt")
     ap.add_argument("--profile-gsf-batch-file",
                     default="profile_gsf_batch.txt")
+    ap.add_argument("--profile-t3-file", default="profile_t3.txt")
+    ap.add_argument("--profile-t2-file", default="profile_t2.txt")
+    ap.add_argument("--memory-seeds", type=int, default=0, metavar="R")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1583,7 +1925,7 @@ def main(argv=None) -> int:
 
     done("2")
     # 3. the Handel path
-    res, launches, final_np = main_path(dev)
+    res, launches, final_np, mid_digest = main_path(dev)
     log(f"Handel path: {json.dumps(res)} launches {launches}")
     if not res["frac_done"] > 0.99:
         fail(f"Handel did not converge: live frac_done {res['frac_done']}")
@@ -1595,7 +1937,7 @@ def main(argv=None) -> int:
     done("3")
 
     # 3b. the GSF path
-    gres, glaunches, gfinal_np = gsf_path(dev)
+    gres, glaunches, gfinal_np, gmid_digest = gsf_path(dev)
     log(f"GSF path: {json.dumps(gres)} launches {glaunches}")
     if not gres["frac_done"] > 0.99:
         fail(f"GSF did not converge: live frac_done {gres['frac_done']}")
@@ -1606,13 +1948,14 @@ def main(argv=None) -> int:
     done("3b")
 
     # 4. against the reference
-    golden_and_determinism(dev, final_np)
-    gsf_golden_and_determinism(dev, gfinal_np)
+    golden_and_determinism(dev, mid_digest)
+    gsf_golden_and_determinism(dev, gfinal_np, gmid_digest)
 
     done("4")
 
     # 5. the benchmark headline, 16 seeds in one batch
-    hres, hlaunches, hdigests = headline_run(dev)
+    hres, hlaunches, hdigests, hfirst = headline_run(
+        dev, load_golden(HEADLINE_GOLDEN, HEADLINE_CHUNK, HEADLINE_SEEDS))
     log(f"headline: {json.dumps(hres)} launches {hlaunches}")
     if not hres["frac_done"] > 0.99:
         fail(f"headline did not converge: mean live frac_done "
@@ -1625,7 +1968,7 @@ def main(argv=None) -> int:
     done("5")
 
     # 5b. against the reference and the dense path
-    headline_golden_and_determinism(dev, hdigests, final_np)
+    headline_determinism(dev, hfirst, hdigests, final_np)
 
     done("5b")
 
@@ -1679,6 +2022,30 @@ def main(argv=None) -> int:
     check_launches("ff_pingpong_batch", fclaunches)
     done("8")
 
+    # 9-10. Handel's scale lines, one seed each on the seed-folded engine
+    t3res, t3launches = scale_run(dev, "t3")
+    log(f"tier 3 (cardinal {T3_NODES}): {json.dumps(t3res)} launches "
+        f"{t3launches}")
+    check_launches("t3", t3launches)
+    done("9")
+    t2res, t2launches = scale_run(dev, "t2")
+    log(f"tier 2 (exact {T2_NODES}, hashed, pool-free, 2 q_sig pieces, 2 "
+        f"ring sub-planes): {json.dumps(t2res)} launches {t2launches}")
+    check_launches("t2", t2launches)
+    done("10")
+
+    # 11. an attack mode against its golden
+    ares, alaunches = attack_run(dev)
+    log(f"attacked Handel: {json.dumps(ares)} launches {alaunches}")
+    check_launches("attack", alaunches)
+    done("11")
+
+    memory = {}
+    if args.memory_seeds:
+        memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
+                  for line, ms in (("t3", T3_CHUNK), ("t2", T2_CHUNK))}
+        done("memory")
+
     profiles = {}
     if args.profile:
         from wittgenstein_tpu_torch.models.gsf import GSFSignature
@@ -1720,19 +2087,29 @@ def main(argv=None) -> int:
                 gsf_batch_window(dev, 300, gms, k), 300, gms,
                 root + ("_k2" if k == 2 else "") + ext,
                 PROFILE_KERNELS["gsf_batch"])
+        for line, start, label, path in (
+                ("t3", 600, f"tier 3, cardinal {T3_NODES} nodes",
+                 args.profile_t3_file),
+                ("t2", 200, f"tier 2, exact {T2_NODES} nodes",
+                 args.profile_t2_file)):
+            profiles[line] = profile(label, scale_window(dev, line, start,
+                                                         hms),
+                                     start, hms, path, PROFILE_KERNELS[line])
         done("profile")
 
     path_ms = {"handel": MAIN_MS, "gsf": GSF_MS, "headline": HEADLINE_MS,
                "pingpong": PP_MS, "pingpong_harness": hpres["sim_ms"],
-               "spill": SPILL_MS, "gsf_batch": GSF_MS,
-               "gsf_batch_k2": GSF_MS, "ff_headline": FF_MS,
-               "ff_pingpong": PP_MS, "ff_pingpong_batch": PP_CHUNK}
+               "spill": SPILL_MS, "gsf_batch": GSF_BATCH_MS,
+               "gsf_batch_k2": GSF_BATCH_MS, "ff_headline": FF_MS,
+               "ff_pingpong": PP_MS, "ff_pingpong_batch": PP_CHUNK,
+               "t3": t3res["sim_ms"], "t2": T2_MS, "attack": ATTACK_MS}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
                      "pingpong_harness": hplaunches, "spill": slaunches,
                      "gsf_batch": gblaunches, "gsf_batch_k2": gb2launches,
                      "ff_headline": falaunches, "ff_pingpong": fblaunches,
-                     "ff_pingpong_batch": fclaunches}
+                     "ff_pingpong_batch": fclaunches, "t3": t3launches,
+                     "t2": t2launches, "attack": alaunches}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -1752,8 +2129,9 @@ def main(argv=None) -> int:
                "bound_us": bound_ms * 1e3, "library_us": None,
                "bytes": r["nbytes"], "call_ms": r["call_ms"],
                "plain_call_ms": r["plain_call_ms"]}
-        if "phases_us" in r:
-            rec["phases_us"] = r["phases_us"]
+        for extra in ("phases_us", "gather"):
+            if extra in r:
+                rec[extra] = r[extra]
         print(json.dumps(rec), flush=True)
         kernels.append(rec)
     print(json.dumps({"kernels": kernels, "main_path": res,
@@ -1763,6 +2141,8 @@ def main(argv=None) -> int:
                       "gsf_batch_k2_path": gb2res,
                       "ff_headline_path": fares, "ff_pingpong_path": fbres,
                       "ff_pingpong_batch_path": fcres,
+                      "t3_path": t3res, "t2_path": t2res,
+                      "attack_path": ares, "memory": memory,
                       "profiles": profiles}),
           flush=True)
     print(smi, flush=True)

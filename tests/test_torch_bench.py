@@ -4,6 +4,7 @@ step, and `bench_torch.py` end to end on the CPU at a small size (32
 nodes, 2 seeds, 600 ms: converged, no drops), its JSON line in
 `bench.py`'s shape."""
 
+import argparse
 import json
 import time
 
@@ -148,3 +149,41 @@ def test_bench_torch_fast_forward_cpu_lines(capsys, proto, argv):
     assert line["skip_rate"] == round(line["skipped_ms"] / line["sim_ms"],
                                       3)
     assert line["value"] > 0 and line["dropped"] == 0
+
+
+def test_bench_torch_scale_flags_cpu_line(capsys):
+    """The tier-3 switches (`bench.py`'s WTPU_BENCH_MODE=cardinal and
+    WTPU_BENCH_BOX_SPLIT) at 32 nodes, 4 seeds in batches of 2: the
+    microbatched line, one timed window over both batches, converged
+    with no drops, clamps or evictions."""
+    line = _line(capsys, ["--mode", "cardinal", "--box-split", "2",
+                          "--nodes", "32", "--seeds", "4", "--seed-batch",
+                          "2", "--ms", "600"])
+    assert line["metric"] == "handel_32n_4seeds_agg_sim_ms_per_sec_cardinal"
+    assert (line["engine"], line["superstep"], line["microbatches"],
+            line["seed_batch"]) == ("batched", 2, 2, 2)
+    assert line["batch_wall_min_s"] <= line["batch_wall_max_s"]
+    assert line["value"] > 0 and line["frac_done"] > 0.99
+    assert line["dropped"] == line["clamped"] == line["evicted"] == 0
+    with pytest.raises(SystemExit):
+        bench_torch.main(["--proto", "pingpong", "--mode", "cardinal"])
+
+
+@pytest.mark.parametrize("argv,params", [
+    (["--nodes", "32768", "--emission", "hashed", "--pool", "0",
+      "--state-split", "2"], "tier2"),
+    (["--nodes", "65536", "--mode", "cardinal"], "tier3")])
+def test_bench_torch_flags_map_to_the_scale_lines(argv, params):
+    """`bench.py`'s environment mapping (bench.py:389-419): the tier-2
+    flags give `tier2_params`, the tier-3 flags `tier3_params`."""
+    from wittgenstein_tpu_torch.models import handel
+    ap = argparse.ArgumentParser()
+    for flag, kw in (("--nodes", dict(type=int)), ("--mode",
+                     dict(default="exact")), ("--emission", {}),
+                     ("--pool", dict(type=int)),
+                     ("--state-split", dict(type=int))):
+        ap.add_argument(flag, **kw)
+    args = ap.parse_args(argv)
+    want = {"mode": "exact", **getattr(handel, f"{params}_params")(
+        args.nodes)}
+    assert bench_torch.handel_params(args) == want

@@ -113,26 +113,40 @@ def test_state_roundtrip_through_convert():
                                 dict(snapshot_pool=False),
                                 dict(state_split=2),
                                 dict(byzantine_suicide=True),
-                                dict(hidden_byzantine=True)])
-def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Handel(**reference_default_params(64), **kw, device="cpu")
+                                dict(hidden_byzantine=True)],
+                         ids=["cardinal", "hashed", "pool_free",
+                              "state_split", "byzantine_suicide",
+                              "hidden_byzantine"])
+def test_scale_and_attack_modes_construct_and_step(kw):
+    """Every mode the JAX constructor takes constructs in the port and
+    steps 40 ms, every leaf equal to the JAX package's."""
+    params = dict(reference_default_params(64), **kw)
+    jproto = JHandel(**params)
+    ref = tp.jax_state(*JRunner(jproto).run_ms(*jproto.init(1), 40))
+    proto = Handel(**params, device="cpu")
+    assert type(proto).__name__ == type(jproto).__name__
+    net, ps = Runner(proto).run_ms(*proto.init(1), 40)
+    tp.assert_states_equal(ref, convert.to_numpy(net, ps), str(kw))
+    assert int(net.time) == 40
 
 
 @pytest.mark.parametrize("field,value", [("box_split", 2)])
-def test_engine_later_slices_raise(field, value):
+def test_engine_sub_planes_run(field, value):
+    """Ring sub-planes on the per-ms engine, equal to the JAX package's
+    after 40 ms; the fast-forward and superstep engines take them."""
     import dataclasses
-
-    from wittgenstein_tpu_torch.core.network import check_config
-    from wittgenstein_tpu_torch.core.state import EngineConfig
-    cfg = dataclasses.replace(EngineConfig(n=64, bcast_slots=0),
-                              **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_config(cfg)
-    proto = Handel(**reference_default_params(64), device="cpu")
+    params = reference_default_params(64)
+    jproto = JHandel(**params)
+    proto = Handel(**params, device="cpu")
+    for p in (jproto, proto):
+        p.cfg = dataclasses.replace(p.cfg, **{field: value})
+    ref = tp.jax_state(*JRunner(jproto).run_ms(*jproto.init(0), 40))
+    tp.assert_states_equal(ref, convert.to_numpy(
+        *Runner(proto).run_ms(*proto.init(0), 40)), f"{field}={value}")
     runner = Runner(proto, fast_forward=True)  # fast-forward is ported
     net, _ = runner.run_ms(*proto.init(0), 40)
     assert int(net.time) == 40 and runner.ff_stats() is not None
+    assert len(net.box_src) == value
     Runner(proto, superstep=2)          # the superstep engine is ported
 
 

@@ -1137,3 +1137,129 @@ def test_cuda_score_vmap_rule():
                                  *[a[i] for a in args[3:]])
         for g, w_ in zip(got, want):
             assert torch.equal(g[i], w_)
+
+
+# ------------------------------------------- Handel's scale modes' shapes
+
+
+def _cuda_ints(g, lo, hi, shape):
+    return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32,
+                         device="cuda")
+
+
+def _cuda_window(g, r, f, hz, n, c, m, t, n_dest, lo=0):
+    """A ring (counts part full, eight full rows) and one K=2 window's
+    messages, made on the card: arrivals t + [2, H], dests in
+    [lo, lo + n_dest), 70% valid."""
+    ring = [_cuda_ints(g, 0, 1 << 20, (r, f, hz, n, c)),
+            _cuda_ints(g, 0, n, (r, hz, n, c)),
+            _cuda_ints(g, 0, 300, (r, hz, n, c)),
+            _cuda_ints(g, 0, 4, (r, hz, n))]
+    ring[3][:, :8] = c
+    ring[3][:, t % hz:t % hz + 2] = 0
+    msg = [t + _cuda_ints(g, 2, hz + 1, (r, m)),
+           lo + _cuda_ints(g, 0, n_dest, (r, m)),
+           _cuda_ints(g, 0, n, (r, m)), _cuda_ints(g, 1, 300, (r, m)),
+           _cuda_ints(g, 0, 1 << 20, (r, m, f)),
+           torch.rand((r, m), generator=g, device="cuda") < 0.7]
+    return ring, msg
+
+
+def _route_kernel_vs_plain(ring, msg):
+    plain = [x.clone() for x in ring]
+    kern = [x.clone() for x in ring]
+    dp = route.bin_into_ring_plain(*plain, *msg)
+    dk = route.bin_into_ring(*kern, *msg)
+    torch.cuda.synchronize()
+    for a, b in zip(plain + [dp], kern + [dk]):
+        assert torch.equal(a, b)
+    return kern
+
+
+@pytest.mark.cuda
+def test_cuda_route_tier3_window():
+    """K1 at the tier-3 line's shapes (cardinal 65,536 nodes: H 256, C
+    12, F 2, one K=2 window of 2 x 65,536 x 26 sends): H*N is 16.8 M
+    cells, so a bucket is 8,192 cells and its rank tables (160 KB) live
+    in device scratch, the rank kernel's global-table branch; bit-equal
+    to the plain version."""
+    _cuda()
+    k = _route_consts()
+    hz, n = 256, 65536
+    cb = _cells_per_bucket(hz * n)
+    assert cb == 8192 and cb * (4 + k["RT"] // 32) > 96 * 1024
+    g = torch.Generator("cuda").manual_seed(8)
+    ring, msg = _cuda_window(g, 1, 2, hz, n, 12, 2 * n * 26, 600, n)
+    _route_kernel_vs_plain(ring, msg)
+
+
+@pytest.mark.cuda
+def test_cuda_route_sub_planes():
+    """K1 on a ring split into 2 node-range sub-planes (the tier-2 line:
+    32,768 nodes, H 256, C 12, F 3, a K=2 window of 2 x 32,768 x 25
+    sends), through the engine's `_bin_into_ring`: one launch a
+    sub-plane, each bit-equal to the plain version on its own messages,
+    and the sub-planes side by side equal to the unsplit ring binned in
+    one launch."""
+    from wittgenstein_tpu_torch.core.network import RING, _bin_into_ring
+    _cuda()
+    hz, n, c, f, ns = 256, 32768, 12, 3, 16384
+    g = torch.Generator("cuda").manual_seed(9)
+    ring, msg = _cuda_window(g, 1, f, hz, n, c, 2 * n * 25, 600, n)
+    whole = dict(zip(RING, (x.clone() for x in ring)))
+    subs = {k: tuple(x.narrow(x.dim() - (1 if k == "box_count" else 2),
+                              j * ns, ns).contiguous() for j in range(2))
+            for k, x in zip(RING, ring)}
+    for j in range(2):
+        d = msg[1] - j * ns
+        _route_kernel_vs_plain(
+            [subs[k][j].clone() for k in RING],
+            msg[:1] + [d] + msg[2:5] + [msg[5] & (d >= 0) & (d < ns)])
+    before = route.bin_into_ring.launches
+    d_split = _bin_into_ring(subs, *msg)
+    assert route.bin_into_ring.launches == before + 2
+    d_whole = _bin_into_ring(whole, *msg)
+    torch.cuda.synchronize()
+    assert torch.equal(d_split, d_whole)
+    for k in RING:
+        axis = whole[k].dim() - (1 if k == "box_count" else 2)
+        assert torch.equal(torch.cat(subs[k], axis), whole[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("piece", ["own", "slice"])
+def test_cuda_merge_score_w1024_piece(piece):
+    """K2 and K3 at the tier-2 line's shapes: one q_sig piece of 16,384
+    rows, Q 16, S 12, W 1,024 (32,768 nodes in two pieces), as its own
+    tensor (the merge's output) or as the second half of a 32,768-row
+    tensor (16-byte aligned all the same: the vector gathers run);
+    bit-equal to the plain versions on the card."""
+    from wittgenstein_tpu_torch.ops.merge import merge_queue_plain
+    from wittgenstein_tpu_torch.ops.score import score_queue_plain
+    _cuda()
+    m, q, s, w, levels = 16384, 16, 12, 1024, 16
+    g = torch.Generator("cuda").manual_seed(10)
+    sig = _cuda_ints(g, -2 ** 31, 2 ** 31 - 1, (2 * m, q, w))
+    q_sig = sig[m:] if piece == "slice" else sig[m:].clone()
+    assert q_sig.is_contiguous() and q_sig.data_ptr() % 16 == 0
+    q_from = torch.where(torch.rand((m, q), generator=g, device="cuda")
+                         < 0.7, _cuda_ints(g, 0, 2 * m, (m, q)), -1)
+    q_lvl = _cuda_ints(g, 0, levels, (m, q))
+    src = _cuda_ints(g, 0, 2 * m, (m, s))
+    level = _cuda_ints(g, 0, levels, (m, s))
+    dup = torch.rand((m, s), generator=g, device="cuda") < 0.3
+    src = torch.where(dup, q_from[:, :s].abs(), src)
+    level = torch.where(dup, q_lvl[:, :s], level)
+    args = [q_from, q_lvl, _cuda_ints(g, 0, 4 * m, (m, q)),
+            torch.rand((m, q), generator=g, device="cuda") < 0.2, q_sig,
+            src, level, _cuda_ints(g, 0, 4 * m, (m, s)),
+            torch.rand((m, s), generator=g, device="cuda") < 0.6,
+            _cuda_ints(g, -2 ** 31, 2 ** 31 - 1, (m, s, w))]
+    for a, b in zip(merge_queue_plain(*args), merge.merge_queue(*args)):
+        assert torch.equal(a, b)
+    ids = m + torch.arange(m, dtype=torch.int32, device="cuda")
+    rows = [_cuda_ints(g, -2 ** 31, 2 ** 31 - 1, (m, w)) for _ in range(3)]
+    sargs = [q_sig, q_lvl, ids] + rows
+    for a, b in zip(score_queue_plain(*sargs), score.score_queue(*sargs)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()

@@ -5,8 +5,10 @@ port ships (the distance-latency table, the 2048-node Handel golden
 digest, the 4096-node GSF golden digest, the per-seed digests of the
 benchmark headline's 16-seed batch, the 1000-node PingPong's digest
 and per-seed harness digests, the per-seed digests of a 4-seed batch of
-the 4096-node GSF, and the JAX fast-forward engine's skip counts on two
-PingPong runs).
+the 4096-node GSF, the JAX fast-forward engine's skip counts on two
+PingPong runs, and Handel at scale: the tier-3 cardinal line at 65,536
+nodes, the tier-2 exact line at 32,768 nodes and a 1,024-node run under
+the byzantineSuicide attack).
 
 Regenerate the first three with ``JAX_PLATFORMS=cpu python
 tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
@@ -14,7 +16,9 @@ GSF digest alone, ``... headline-golden`` for the headline's, about 5
 minutes and 4.5 GB of JAX on the CPU, ``... pingpong-golden`` for the
 1000-node PingPong's two, about a minute, ``... gsf-batch-golden`` for
 the GSF batch's, ``... ff-stats`` for the skip counts, a few minutes
-each); ``... tests/torch_parity.py check N MS`` runs the N-node
+each; ``... cardinal-golden``, ``... tier2-golden`` and ``...
+attack-golden`` for the scale lines, their costs in their writers'
+docstrings); ``... tests/torch_parity.py check N MS`` runs the N-node
 reference-default Handel in both packages
 on the CPU for MS ms and compares the full state every 100 ms, ``...
 check N MS gsf`` (or ``pingpong``) does the same for
@@ -53,9 +57,16 @@ PINGPONG_HARNESS_FILE = os.path.join(PORT_DATA,
                                      "golden_pingpong1000_r16_k2_200ms.json")
 PINGPONG_N, PINGPONG_MS = 1000, 800
 PINGPONG_SEEDS, PINGPONG_HARNESS_MS = 16, 200
-GSF_BATCH_FILE = os.path.join(PORT_DATA, "golden_gsf4096_r4_600ms.json")
-GSF_BATCH_SEEDS = 4
+GSF_BATCH_FILE = os.path.join(PORT_DATA, "golden_gsf4096_r4_300ms.json")
+GSF_BATCH_SEEDS, GSF_BATCH_MS = 4, 300
 FF_STATS_FILE = os.path.join(PORT_DATA, "golden_pingpong1000_ff_stats.json")
+CARDINAL_N, CARDINAL_MS = 65536, (200, 1000)
+CARDINAL_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_cardinal65536_k2.json")
+TIER2_N, TIER2_MS = 32768, (100, 400)
+TIER2_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_tier2_32768.json")
+ATTACK_N, ATTACK_MS = 1024, 200
+ATTACK_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                  "golden_handel1024_suicide_200ms.json")
 
 
 def jax_nested(obj):
@@ -273,7 +284,7 @@ def write_pingpong_goldens():
 
 
 def jax_gsf_batch_digests(n=GSF_GOLDEN_N, seeds=GSF_BATCH_SEEDS,
-                          ms=GSF_GOLDEN_MS, batch=2):
+                          ms=GSF_BATCH_MS, batch=2):
     """Per-seed leaf sha256s of ``jax.jit(jax.vmap(scan_chunk(
     GSFSignature(node_count=n), ms)))`` over ``jax.vmap(proto.init)`` of
     seeds 0..seeds-1 (the JAX harness's chunk at K=1, as
@@ -297,18 +308,13 @@ def jax_gsf_batch_digests(n=GSF_GOLDEN_N, seeds=GSF_BATCH_SEEDS,
 
 def write_gsf_batch_golden():
     digests = jax_gsf_batch_digests()
-    with open(GSF_GOLDEN_FILE) as f:
-        one = json.load(f)["leaves"]
-    if digests[0] != one:
-        raise AssertionError("seed 0 of the batch differs from the one-seed "
-                             "GSF golden")
     with open(GSF_BATCH_FILE, "w") as f:
         json.dump({"config": f"GSFSignature(node_count={GSF_GOLDEN_N}), "
                    f"seeds 0-{GSF_BATCH_SEEDS - 1}",
                    "call": f"jax.jit(jax.vmap(wittgenstein_tpu.core.network."
-                   f"scan_chunk(proto, {GSF_GOLDEN_MS})))(*jax.vmap("
+                   f"scan_chunk(proto, {GSF_BATCH_MS})))(*jax.vmap("
                    f"proto.init)(jnp.arange({GSF_BATCH_SEEDS})))",
-                   "ms": GSF_GOLDEN_MS, "seeds": digests}, f, indent=1,
+                   "ms": GSF_BATCH_MS, "seeds": digests}, f, indent=1,
                   sort_keys=True)
         f.write("\n")
 
@@ -368,6 +374,135 @@ def write_ff_stats():
                                      PINGPONG_HARNESS_FILE), **batch_stats}},
                   f, indent=1, sort_keys=True)
         f.write("\n")
+
+
+def _run_counts(net, ps):
+    """The drop, clamp and eviction counters and the live done fraction
+    of a run (or of seed 0 of a batch)."""
+    pick = (lambda x: np.asarray(x)[0]) if np.ndim(net.time) else np.asarray
+    live = ~pick(net.nodes.down)
+    return {"dropped": int(pick(net.dropped)),
+            "clamped": int(pick(net.clamped)),
+            "evicted": int(pick(ps.evicted)),
+            "frac_done": float((pick(net.nodes.done_at)[live] > 0).mean())}
+
+
+def _write_golden(path, body, t0):
+    """Write a golden with the generator's wall and peak RSS on this
+    host beside it."""
+    import resource
+    import time
+    body["generator"] = {
+        "wall_s": round(time.monotonic() - t0, 1),
+        "peak_rss_gb": round(resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20, 2)}
+    with open(path, "w") as f:
+        json.dump(body, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(path, body["generator"], flush=True)
+
+
+def write_cardinal_golden(n=CARDINAL_N, ms=CARDINAL_MS, chunk=200):
+    """Per-seed leaf sha256s of the JAX package's tier-3 line, cardinal
+    mode at `n` nodes (`tier3_params`), at each checkpoint of `ms`:
+    ``scan_chunk_batched(proto, chunk, t0_mod=0, superstep=2)`` calls
+    over ``jax.vmap(proto.init)`` of seed 0, the seed-folded engine with
+    phase hints.  On an 8-core CPU host: 657 s and 11.0 GB resident to
+    1,000 ms beside other work, 143 s to 200 ms alone (the run's own
+    numbers are in the file, under "generator")."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.batched import scan_chunk_batched
+    from wittgenstein_tpu.models.handel import Handel
+    from wittgenstein_tpu_torch.models.handel import tier3_params
+
+    t0 = time.monotonic()
+    proto = Handel(**tier3_params(n))
+    nets, ps = jax.vmap(proto.init)(jnp.arange(1, dtype=jnp.int32))
+    run = jax.jit(scan_chunk_batched(proto, chunk, t0_mod=0, superstep=2),
+                  donate_argnums=(0, 1))
+    at = {}
+    for t in range(chunk, ms[-1] + 1, chunk):
+        nets, ps = run(nets, ps)
+        if t in ms:
+            at[str(t)] = {"counts": _run_counts(nets, ps),
+                          "seeds": convert.seed_digests(
+                              *jax_state(nets, ps))}
+        print(f"cardinal golden: {t} ms at {time.monotonic() - t0:.0f} s",
+              flush=True)
+    _write_golden(CARDINAL_GOLDEN_FILE, {
+        "config": f"tier3_params({n}), seed 0",
+        "call": f"jax.jit(wittgenstein_tpu.core.batched.scan_chunk_batched("
+                f"proto, {chunk}, t0_mod=0, superstep=2)) called from "
+                "jax.vmap(proto.init)(jnp.arange(1))",
+        "ms": at}, t0)
+
+
+def write_tier2_golden(n=TIER2_N, ms=TIER2_MS, chunk=20):
+    """Leaf sha256s of the JAX package's tier-2 exact line at `n` nodes
+    (`tier2_params`: hashed emission, no snapshot pool, two q_sig
+    pieces, and ``box_split=TIER2_BOX_SPLIT`` ring sub-planes), seed 0,
+    at each checkpoint of `ms`, through ``scan_chunk(proto, chunk,
+    t0_mod=0, superstep=2)`` calls (the phase-specialized K=2 scan,
+    bit-identical to the per-ms one).  On an 8-core CPU host: 437 s and
+    13.4 GB resident to 400 ms (the run's own numbers are in the file,
+    under "generator")."""
+    import time
+
+    import jax
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.handel import Handel
+    from wittgenstein_tpu_torch.models.handel import (TIER2_BOX_SPLIT,
+                                                      tier2_params)
+
+    t0 = time.monotonic()
+    proto = Handel(**tier2_params(n))
+    proto.cfg = dataclasses.replace(proto.cfg, box_split=TIER2_BOX_SPLIT)
+    net, ps = proto.init(0)
+    run = jax.jit(scan_chunk(proto, chunk, t0_mod=0, superstep=2),
+                  donate_argnums=(0, 1))
+    at = {}
+    for t in range(chunk, ms[-1] + 1, chunk):
+        net, ps = run(net, ps)
+        if t in ms:
+            at[str(t)] = {"counts": _run_counts(net, ps),
+                          "leaves": convert.state_digest(
+                              *jax_state(net, ps))}
+        print(f"tier-2 golden: {t} ms at {time.monotonic() - t0:.0f} s",
+              flush=True)
+    _write_golden(TIER2_GOLDEN_FILE, {
+        "config": f"tier2_params({n}), box_split {TIER2_BOX_SPLIT}, seed 0",
+        "call": f"jax.jit(wittgenstein_tpu.core.network.scan_chunk(proto, "
+                f"{chunk}, t0_mod=0, superstep=2)) called from "
+                "proto.init(0)",
+        "ms": at}, t0)
+
+
+def write_attack_golden(n=ATTACK_N, ms=ATTACK_MS):
+    """Leaf sha256s of the JAX package's exact Handel at `n` nodes
+    under the byzantineSuicide attack (``reference_default_params(n)``,
+    whose nodes_down the attacker controls), seed 0, after
+    ``Runner(proto).run_ms(net, ps, ms)``.  On an 8-core CPU host: 16 s
+    and 1.1 GB resident."""
+    import time
+
+    from wittgenstein_tpu.core.network import Runner
+    from wittgenstein_tpu.models.handel import Handel
+    from wittgenstein_tpu_torch.models.handel import reference_default_params
+
+    t0 = time.monotonic()
+    proto = Handel(**reference_default_params(n), byzantine_suicide=True)
+    net, ps = Runner(proto).run_ms(*proto.init(0), ms)
+    _write_golden(ATTACK_GOLDEN_FILE, {
+        "config": f"reference_default_params({n}), byzantine_suicide=True,"
+                  " seed 0",
+        "call": f"Runner(proto).run_ms(*proto.init(0), {ms})",
+        "ms": ms, "counts": _run_counts(net, ps),
+        "leaves": convert.state_digest(*jax_state(net, ps))}, t0)
 
 
 def _protocols(n: int, protocol: str):
@@ -433,6 +568,15 @@ def main():
         return
     if sys.argv[1:2] == ["ff-stats"]:
         write_ff_stats()
+        return
+    if sys.argv[1:2] == ["cardinal-golden"]:
+        write_cardinal_golden()
+        return
+    if sys.argv[1:2] == ["tier2-golden"]:
+        write_tier2_golden()
+        return
+    if sys.argv[1:2] == ["attack-golden"]:
+        write_attack_golden()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

@@ -3,13 +3,17 @@
 Both sides meet as nested dicts of numpy arrays under the JAX field
 names: ``{"time": ..., "nodes": {"x": ...}, "box_data": [plane, ...],
 ...}`` for the `NetState` and the same for the protocol state (a
-`HandelState`, a `GSFState` or a `PingPongState`, told apart by their
-leaf names; a protocol whose state is a plain dict of tensors, as the
+`HandelState`, a `HandelCardinalState`, a `GSFState` or a
+`PingPongState`, told apart by their leaf names; a protocol whose state is a plain dict of tensors, as the
 engine tests' probes have, converts leaf for leaf).  The JAX
 side builds them from its dataclasses (the tests do so with
 `jax.tree_util`); `from_reference` turns them into the port's state and
 `to_numpy` back.  uint32 leaves (bitsets) are reinterpreted, never
-converted: the port keeps the same bits in int32.
+converted: the port keeps the same bits in int32.  A ring split into
+``box_split`` sub-planes is a tuple of sub-plane tensors per leaf here
+and F*P (payload) or P flat planes there, plane ``f*P + j`` holding
+payload word f of sub-plane j; Handel's q_sig is a tuple of
+`state_split` pieces on both sides.
 """
 
 from __future__ import annotations
@@ -23,14 +27,16 @@ import torch
 from .core.state import NetState, NodeState
 from .models.gsf import GSFState
 from .models.handel import HandelState
+from .models.handel_cardinal import HandelCardinalState
 from .models.pingpong import PingPongState
 
 #: per protocol state class: the leaves the JAX package stores as uint32
-#: bitsets, and whether its q_sig is a list of `state_split` pieces
+#: bitsets, and whether its q_sig is a tuple of `state_split` pieces
 #: (Handel) rather than one [N, Q, W] array (GSF)
 STATES = {
     HandelState: (("ver_ind", "last_agg", "finished_peers", "blacklist",
                    "demoted", "q_sig", "pool", "pend_sig"), True),
+    HandelCardinalState: (("blacklist",), False),
     GSFState: (("verified", "ver_indiv", "got_indiv", "q_sig", "pend_sig",
                 "pool"), False),
     PingPongState: ((), False),
@@ -59,40 +65,44 @@ def _numpy(t: torch.Tensor, u32: bool = False):
 
 def from_reference(net_np: dict, pstate_np: dict, device):
     """``(NetState, protocol state)`` on `device` from the JAX package's
-    state as nested dicts of numpy arrays (one ring sub-plane; for
-    Handel one q_sig piece), of one run or of a seed batch (every leaf
-    with a leading R axis, as `jax.vmap` lays it out).  Every leaf is
-    copied."""
+    state as nested dicts of numpy arrays (any number of ring
+    sub-planes and q_sig pieces), of one run or of a seed batch (every
+    leaf with a leading R axis, as `jax.vmap` lays it out).  Every leaf
+    is copied."""
     dev = torch.device(device)
     nodes = NodeState(**{k: _tensor(v, dev)
                          for k, v in net_np["nodes"].items()})
-    f = len(net_np["box_data"])
     lead = np.ndim(net_np["time"])              # 0, or 1 for a batch
-    hnc = net_np["box_count"].shape + (-1,)
-    if len(net_np["box_src"]) != 1:
-        raise NotImplementedError("box_split > 1 is not ported yet")
-    ring = {
-        "box_data": torch.stack([_tensor(p, dev).reshape(hnc)
-                                 for p in net_np["box_data"]], lead),
-        "box_src": _tensor(net_np["box_src"][0], dev).reshape(hnc),
-        "box_size": _tensor(net_np["box_size"][0], dev).reshape(hnc),
-    }
-    if ring["box_data"].shape[lead] != f:
-        raise ValueError("box_data planes do not match payload_words")
+    p = len(net_np["box_src"])
+    f, rem = divmod(len(net_np["box_data"]), p)
+    if rem:
+        raise ValueError("box_data planes are not F per sub-plane")
+    count = net_np["box_count"]                 # [..., H, N]
+    ns = count.shape[-1] // p
+    hnc = count.shape[:-1] + (ns, -1)
+
+    def sub(j):
+        return {"box_data": torch.stack(
+                    [_tensor(net_np["box_data"][fi * p + j], dev).reshape(hnc)
+                     for fi in range(f)], lead),
+                "box_src": _tensor(net_np["box_src"][j], dev).reshape(hnc),
+                "box_size": _tensor(net_np["box_size"][j], dev).reshape(hnc),
+                "box_count": _tensor(count[..., j * ns:(j + 1) * ns], dev)}
+
+    subs = [sub(j) for j in range(p)]
+    ring = {k: subs[0][k] if p == 1 else tuple(x[k] for x in subs)
+            for k in subs[0]}
     rest = {k: _tensor(v, dev) for k, v in net_np.items()
-            if k not in ("nodes", "box_data", "box_src", "box_size")}
+            if k not in ("nodes",) + tuple(ring)}
     net = NetState(nodes=nodes, **ring, **rest)
 
     try:
         cls = state_class(pstate_np)
     except ValueError:
         return net, {k: _tensor(v, dev) for k, v in pstate_np.items()}
-    ps = dict(pstate_np)
-    if STATES[cls][1]:
-        if len(ps["q_sig"]) != 1:
-            raise NotImplementedError("state_split > 1 is not ported yet")
-        ps["q_sig"] = ps["q_sig"][0]
-    pstate = cls(**{k: _tensor(v, dev) for k, v in ps.items()})
+    pstate = cls(**{k: tuple(_tensor(x, dev) for x in v)
+                    if STATES[cls][1] and k == "q_sig" else _tensor(v, dev)
+                    for k, v in pstate_np.items()})
     return net, pstate
 
 
@@ -101,20 +111,23 @@ def to_numpy(net: NetState, pstate):
     the JAX names, dtypes and layouts (ring planes flat, uint32
     bitsets).  A seed batch (`core/state.init_batched`, ``time`` of shape
     [R]) comes out as the JAX package's ``jax.vmap`` lays it out: every
-    leaf with a leading R axis, each ring plane [R, H*N*C]."""
+    leaf with a leading R axis, each ring plane [R, H*Ns*C]."""
     lead = tuple(net.time.shape)                # () or (R,)
     net_np = {}
     for fld in dataclasses.fields(net):
         v = getattr(net, fld.name)
+        subs = v if isinstance(v, tuple) else (v,)
         if fld.name == "nodes":
             net_np["nodes"] = {g.name: _numpy(getattr(v, g.name))
                                for g in dataclasses.fields(v)}
         elif fld.name == "box_data":
             net_np["box_data"] = [
-                _numpy(v[..., i, :, :, :]).reshape(*lead, -1)
-                for i in range(v.shape[len(lead)])]
+                _numpy(x[..., fi, :, :, :]).reshape(*lead, -1)
+                for fi in range(subs[0].shape[len(lead)]) for x in subs]
         elif fld.name in ("box_src", "box_size"):
-            net_np[fld.name] = [_numpy(v).reshape(*lead, -1)]
+            net_np[fld.name] = [_numpy(x).reshape(*lead, -1) for x in subs]
+        elif fld.name == "box_count":
+            net_np[fld.name] = np.concatenate([_numpy(x) for x in subs], -1)
         else:
             net_np[fld.name] = _numpy(v)
     if isinstance(pstate, dict):
@@ -122,8 +135,10 @@ def to_numpy(net: NetState, pstate):
     u32, split = STATES[type(pstate)]
     ps_np = {}
     for fld in dataclasses.fields(pstate):
-        a = _numpy(getattr(pstate, fld.name), fld.name in u32)
-        ps_np[fld.name] = [a] if split and fld.name == "q_sig" else a
+        v = getattr(pstate, fld.name)
+        ps_np[fld.name] = ([_numpy(x, True) for x in v]
+                           if split and fld.name == "q_sig" else
+                           _numpy(v, fld.name in u32))
     return net_np, ps_np
 
 

@@ -29,7 +29,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..utils import stats as stats_mod
-from .network import check_config, pick_superstep, scan_chunk
+from .network import pick_superstep, scan_chunk
 from .state import init_batched
 
 
@@ -99,7 +99,6 @@ class _BatchDriver:
 
     def __init__(self, protocol, run_count, chunk, cont_if, first_seed,
                  fail_on_drop, where):
-        check_config(protocol.cfg)
         self.cont = cont_if or cont_until_done
         self.seeds = torch.arange(first_seed, first_seed + run_count,
                                   dtype=torch.int32)

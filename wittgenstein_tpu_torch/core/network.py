@@ -47,9 +47,10 @@ branch, `enqueue_broadcast`, `_alloc_free_slots`, `_park_in_spill`,
 superstep gate (`unicast_floor_ms`, `superstep_ok`,
 `check_chunk_config`, `pick_superstep`), `scan_chunk` with phase hints,
 the fast-forward engine (`fast_forward_ok`, `next_work`, `_jump`,
-`fast_forward_chunk`) and `Runner` with `ff_stats`.  Ring sub-planes
-(``box_split > 1``) and fault hooks raise `NotImplementedError` and are
-queued in ROADMAP.md.
+`fast_forward_chunk`) and `Runner` with `ff_stats`, over one ring or
+its ``box_split`` node-range sub-planes (the binning kernel runs once per
+sub-plane, `_bin_into_ring`).  Fault hooks raise `NotImplementedError`
+and are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -81,12 +82,6 @@ def _unported(what: str):
         "the first slice)")
 
 
-def check_config(cfg: EngineConfig) -> None:
-    """Refuse engine configurations the port does not run yet."""
-    if cfg.box_split != 1:
-        raise _unported("ring sub-planes (box_split > 1)")
-
-
 def _split_ring(net: NetState):
     """``(net with empty ring leaves, {ring leaf: tensor})``: the state
     the per-run functions see (under `torch.func.vmap` for a batch,
@@ -97,6 +92,16 @@ def _split_ring(net: NetState):
     return net.replace(**dict.fromkeys(RING, empty)), ring
 
 
+def _sub_planes(ring: dict) -> list:
+    """The ring's node-range sub-planes in order, each a dict of the four
+    ring leaves over its own N/P nodes: ``[ring]`` itself when the ring
+    is not split (``box_split == 1``)."""
+    if not isinstance(ring["box_count"], tuple):
+        return [ring]
+    return [dict(zip(RING, leaves))
+            for leaves in zip(*(ring[k] for k in RING))]
+
+
 def _bin_into_ring(ring: dict, arrival, dest, src, size, payload, valid):
     """Bin a batch of messages into the ring, in place
     (wittgenstein_tpu/core/network.py:198-285), for one run (message
@@ -104,12 +109,29 @@ def _bin_into_ring(ring: dict, arrival, dest, src, size, payload, valid):
     messages).  `dest` is clipped to [0, n) for valid messages, and
     their ``arrival - t`` spans at most H - 1 consecutive values (the
     kernel groups by ring row): [1, H-1] per ms, [K, H+K-2] for a K-ms
-    window.  Returns the dropped count (a scalar, or [R])."""
-    msgs = (arrival, dest, src, size, payload, valid)
-    if ring["box_count"].dim() == 3:
-        return bin_into_ring(*ring.values(), *msgs)
-    return bin_into_ring(*(x[None] for x in ring.values()),
-                         *(x[None] for x in msgs))[0]
+    window.  A split ring takes one launch per sub-plane j, with the
+    messages to its nodes valid and their dests shifted by ``-j*N/P``
+    (wittgenstein_tpu/ops/pallas_route.py:398-413): a message's rank
+    among the same cell's messages is the same in either form, so the
+    split is bit-identical.  Returns the dropped count (a scalar, or
+    [R]), summed over the sub-planes."""
+    subs = _sub_planes(ring)
+    ns = subs[0]["box_count"].shape[-1]
+    batch = subs[0]["box_count"].dim() == 3
+    dropped = None
+    for j, sub in enumerate(subs):
+        d, ok = dest, valid
+        if len(subs) > 1:
+            d = dest - j * ns
+            ok = valid & (d >= 0) & (d < ns)
+        msgs = (arrival, d, src, size, payload, ok)
+        if batch:
+            n_drop = bin_into_ring(*sub.values(), *msgs)
+        else:
+            n_drop = bin_into_ring(*(x[None] for x in sub.values()),
+                                   *(x[None] for x in msgs))[0]
+        dropped = n_drop if dropped is None else dropped + n_drop
+    return dropped
 
 
 def _set_drop(table, slot_w, vals):
@@ -199,14 +221,20 @@ def _unicast_inbox_window(cfg: EngineConfig, ring: dict, t: int, k: int):
     views of the ring rows ``t % H .. t % H + K - 1`` (`step_kms`
     requires ``t % K == 0`` and ``K | H``, so they never wrap), with the
     seed axis in front for a batch.  `filled` marks the occupied slots;
-    `_receive_window` adds the delivery-time checks."""
+    `_receive_window` adds the delivery-time checks.  A split ring's
+    sub-plane windows are concatenated on the node axis (a copy)."""
     h = t % cfg.horizon
-    data = ring["box_data"][..., h:h + k, :, :].movedim(-4, -1)
-    src = ring["box_src"][..., h:h + k, :, :]
-    size = ring["box_size"][..., h:h + k, :, :]
-    slots = torch.arange(cfg.inbox_cap, dtype=I32, device=src.device)
-    filled = slots < ring["box_count"][..., h:h + k, :, None]
-    return data, src, size, filled
+    parts = []
+    for sub in _sub_planes(ring):
+        src = sub["box_src"][..., h:h + k, :, :]
+        slots = torch.arange(cfg.inbox_cap, dtype=I32, device=src.device)
+        parts.append((sub["box_data"][..., h:h + k, :, :].movedim(-4, -1),
+                      src, sub["box_size"][..., h:h + k, :, :],
+                      slots < sub["box_count"][..., h:h + k, :, None]))
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(xs, -3 if i == 0 else -2)
+                 for i, xs in enumerate(zip(*parts)))
 
 
 def _receive_window(nodes, src, size, filled):
@@ -350,7 +378,6 @@ def protocol_step(protocol, pstate, nodes, inbox, t: int, hints=None):
 
 
 def _check_step(protocol):
-    check_config(protocol.cfg)
     if getattr(protocol, "apply_faults", None) is not None:
         raise _unported("fault hooks (apply_faults)")
 
@@ -435,11 +462,12 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
                                             t=t + i))(net, out)
 
     h = t % cfg.horizon
-    rows = ring["box_count"][..., h:h + k, :]
-    if frozen is None:
-        rows.zero_()
-    else:
-        rows.copy_(torch.where(frozen[:, None, None], rows, 0))
+    for sub in _sub_planes(ring):
+        rows = sub["box_count"][..., h:h + k, :]
+        if frozen is None:
+            rows.zero_()
+        else:
+            rows.copy_(torch.where(frozen[:, None, None], rows, 0))
     batches = []
     for i, out in enumerate(outs):
         net, b = per_run(functools.partial(_route_unicast, cfg, model,
@@ -657,7 +685,9 @@ def next_work(protocol, net: NetState, pstate, t: int):
     cfg, model = protocol.cfg, protocol.latency
     lead = net.time.dim()
     rows = torch.arange(cfg.horizon, dtype=I32, device=net.time.device)
-    row_any = (net.box_count > 0).any(-1)               # [H] or [R, H]
+    row_any = functools.reduce(torch.logical_or, (
+        (sub["box_count"] > 0).any(-1)                  # [H] or [R, H]
+        for sub in _sub_planes({k: getattr(net, k) for k in RING})))
     nxt = torch.where(row_any, t + (rows - t) % cfg.horizon,
                       FAR_FUTURE).min()
     nat = getattr(protocol, "next_action_time", None)
@@ -790,7 +820,6 @@ class Runner:
     `Runner` does."""
 
     def __init__(self, protocol, superstep=1, fast_forward=False):
-        check_config(protocol.cfg)
         self.protocol = protocol
         self._superstep = int(superstep)
         self._fast_forward = bool(fast_forward) and fast_forward_ok(protocol)

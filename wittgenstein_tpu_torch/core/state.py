@@ -7,8 +7,10 @@ port of `wittgenstein_tpu/core/state.py`.
 stacks a batch of runs on a leading seed axis.  The ring is stored as
 ``[F, H, N, C]`` payload planes plus ``[H, N, C]`` src and size planes
 (the JAX package keeps the same cells as F+2 flat ``[H*N*C]`` buffers;
-`convert.py` maps one onto the other).  The engine updates the ring IN PLACE (see `core/network.py`);
-every other leaf is replaced, not mutated.
+`convert.py` maps one onto the other); with ``box_split`` P > 1 every
+ring leaf is a tuple of P node-range sub-planes.  The engine updates the
+ring IN PLACE (see `core/network.py`); every other leaf is replaced,
+not mutated.
 """
 
 from __future__ import annotations
@@ -131,9 +133,12 @@ class NetState(_Struct):
     """Full simulator state (wittgenstein_tpu/core/state.py:129-168).
 
     box_data [F, H, N, C], box_src/box_size [H, N, C] and box_count
-    [H, N] are the unicast ring; bc_* is the broadcast table [B] and
-    sp_* the far-future spill buffer [S] (both empty on the slice's
-    path, kept so every JAX leaf has its counterpart)."""
+    [H, N] are the unicast ring (with ``box_split`` P > 1 each is a
+    tuple of P node-range sub-planes over N/P nodes, which the binning
+    kernel fills one launch each, as the JAX package splits its
+    planes); bc_* is the broadcast table [B] and sp_* the far-future
+    spill buffer [S] (both empty on Handel's path, kept so every JAX
+    leaf has its counterpart)."""
 
     time: torch.Tensor
     seed: torch.Tensor
@@ -166,10 +171,6 @@ def init_net(cfg: EngineConfig, nodes: NodeState, seed) -> NetState:
     p = cfg.box_split
     if n % p:
         raise ValueError(f"box_split {p} must divide node count {n}")
-    if p != 1:
-        raise NotImplementedError(
-            "box_split > 1 is not ported yet (ROADMAP.md, Handel scale "
-            "modes)")
     ns = cfg.split_n
     if h * ns * c >= 1 << 31:
         raise ValueError(
@@ -185,11 +186,19 @@ def init_net(cfg: EngineConfig, nodes: NodeState, seed) -> NetState:
     def scalar(v):
         return torch.tensor(v, dtype=I32, device=dev)
 
+    def ring(*lead, cells=(c,)):
+        """One ring leaf [*lead, N, *cells]: a tensor, or with P > 1 a
+        tuple of P sub-planes [*lead, N/P, *cells], sub-plane j holding
+        nodes [j*N/P, (j+1)*N/P)."""
+        if p == 1:
+            return z(*lead, n, *cells)
+        return tuple(z(*lead, ns, *cells) for _ in range(p))
+
     return NetState(
         time=scalar(0), seed=torch.as_tensor(seed, device=dev).to(I32).clone(),
         nodes=nodes,
-        box_data=z(f, h, n, c), box_src=z(h, n, c), box_size=z(h, n, c),
-        box_count=z(h, n),
+        box_data=ring(f, h), box_src=ring(h), box_size=ring(h),
+        box_count=ring(h, cells=()),
         bc_active=z(b, dtype=torch.bool), bc_src=z(b), bc_time=z(b),
         bc_payload=z(b, f), bc_size=z(b), bc_seed=z(b),
         sp_arrival=torch.full((s,), -1, dtype=I32, device=dev),

@@ -57,10 +57,14 @@ class StaticScheduleMixin:
         node with a non-empty queue, the next dissemination tick of any
         live node, a queued fast-path send, or the queue compaction the
         ms after a pick leaves a hole (the merge re-sorts the queue
-        every ms it runs).  The JAX mixin's branch for the attack modes
-        has no counterpart: the port refuses those modes."""
-        live = ~nodes.down
+        every ms it runs).  Under an attack flag every ms is active:
+        the plants scan window state on each pick tick, outside the
+        delivery flow (fast-forward then never jumps)."""
         start = pstate.start_at + 1
+        if getattr(self, "byzantine_suicide", False) or \
+                getattr(self, "hidden_byzantine", False):
+            return torch.full_like(start, t).amin()
+        live = ~nodes.down
         pend = masked_min(pstate.pend_at.clamp_min(t),
                           live & (pstate.pend_from >= 0))
         filled = pstate.q_from >= 0
@@ -98,6 +102,41 @@ def keyed_level_peer(seed, tag, ids, level, pos):
     key = prng.hash3(prng.hash2(seed, tag), ids, level)
     return base + prng.bij_perm_dyn(key, torch.where(pos < half, pos, 0),
                                     (level - 1).clamp_min(0))
+
+
+def byz_candidates(proto, p, nodes, excl_bits, demoted=None,
+                   min_rank=None):
+    """Per (node, level) lowest-reception-rank byzantine (down) peer not
+    in `excl_bits` [N, W]: the adversary's peer scan of the attack modes
+    (createSuicideByzantineSig, Handel.java:538-559;
+    HiddenByzantine.firstByzantine, :844-858), as in
+    wittgenstein_tpu/models/handel.py:315-340 (ranks raised by N for the
+    senders set in `demoted`) and handel_cardinal.py:193-220 (only ranks
+    above the [N, L] floor `min_rank` qualify).  Returns ([N, L] rank,
+    BIG for none; [N, L] id, -1 for none).  A loop over the levels, each
+    an [N, half] block: O(N^2) work, run only under an attack flag."""
+    n, levels, ids = proto.node_count, proto.levels, proto._ids
+    far = 1 << 30
+    br = [torch.full((n,), far, dtype=I32, device=ids.device)]
+    bi = [torch.full((n,), -1, dtype=I32, device=ids.device)]
+    for lv in range(1, levels):
+        half = 1 << (lv - 1)
+        cand = sibling_base(ids, half)[:, None] + torch.arange(
+            half, dtype=I32, device=ids.device)[None, :]
+        rank = proto._rank(p.seed, ids[:, None], cand)
+        if demoted is not None:
+            rank = rank + torch.where(get_bit_rows(demoted, cand), n,
+                                      0).to(I32)
+        ok = nodes.down[cand.long()] & ~get_bit_rows(excl_bits, cand)
+        if min_rank is not None:
+            ok = ok & (rank > min_rank[:, lv][:, None])
+        rank = torch.where(ok, rank, far)
+        pos = rank.argmin(1, keepdim=True)
+        best = torch.gather(rank, 1, pos)[:, 0]
+        br.append(best)
+        bi.append(torch.where(best < far, torch.gather(cand, 1, pos)[:, 0],
+                              -1))
+    return torch.stack(br, 1), torch.stack(bi, 1)
 
 
 def get_bit_rows(bits, idx):
@@ -241,7 +280,20 @@ class LevelMixin:
 
     def _sender_block_mask(self, src, level):
         """[., W] mask of the sender's outgoing set at `level`
-        (wittgenstein_tpu/models/_levels.py:319-324)."""
+        (wittgenstein_tpu/models/_levels.py:319-324): the `half`-aligned
+        block of `half` bits holding `src`, ``range_mask(base, half)``.
+        Such a block is whole words when half >= 32 and part of one word
+        otherwise, so the mask is one word value over a word range: its
+        [., W] transients are a bool and the result, not the int64
+        shifts of `range_mask` (at 32,768 nodes a q_sig piece's [16,384,
+        12, 1,024] block masks took 6 GB a seed that way)."""
         half = torch.where(level > 0, _pow2((level - 1).clamp(0, 30)), 0)
         base = src & ~(half - 1).clamp_min(0)
-        return bitset.range_mask(base, half, self.w)
+        first = (base >> 5)[..., None]
+        word = torch.arange(self.w, dtype=I32, device=src.device)
+        inside = (word >= first) & (word < first + ((half + 31) >> 5)[
+            ..., None])
+        bits = bitset.to_i32(((torch.ones_like(half, dtype=torch.int64)
+                               << half.clamp_max(32).to(torch.int64)) - 1)
+                             << (base & 31).to(torch.int64))
+        return torch.where(inside, bits[..., None], 0)

@@ -98,6 +98,10 @@ def _merge(q_from, q_lvl, q_rank, q_bad, q_sig, src, level, rank_all, ok,
         _build.stream_of(q_from))
     _build.check(err, "wtpu_merge")
     merge_queue.launches += 1
+    # The kernel's 16-byte gathers need W % 4 == 0 and 16-byte aligned
+    # sig planes (csrc/merge.cu); otherwise it gathers word by word.
+    if w % 4 or any(t.data_ptr() % 16 for t in (q_sig, sig_all, o_sig)):
+        merge_queue.word_launches += 1
     return o_from, o_lvl, o_rank, o_bad, o_sig, o_ev
 
 
@@ -116,7 +120,9 @@ def merge_queue(q_from: torch.Tensor, q_lvl: torch.Tensor,
     are fresh tensors; the inputs are not modified.  The kernel reads
     and writes the bool columns as bytes and sums `evicted` itself, so
     the launch is the only op besides the allocations and one zero fill.
-    `merge_queue.launches` counts kernel launches."""
+    `merge_queue.launches` counts kernel launches, and
+    `merge_queue.word_launches` those of them whose sig rows were
+    gathered word by word rather than 16 bytes at a time."""
     return _merge(q_from, q_lvl, q_rank, q_bad, q_sig, src, level,
                   rank_all, ok, sig_all)
 
@@ -154,3 +160,4 @@ def _merge_vmap(info, in_dims, *args):
 
 torch.library.register_vmap(merge_queue, _merge_vmap)
 merge_queue.launches = 0
+merge_queue.word_launches = 0
