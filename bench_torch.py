@@ -33,12 +33,30 @@ runs `core/batched.fast_forward_chunk_batched` (K=2, no phase hints:
 the two do not compose) and PingPong `network.fast_forward_chunk` on the
 seed batch; the line then carries ``fast_forward``, ``skipped_ms``,
 ``jump_count`` and ``skip_rate`` of one repetition (bench.py:81-96).
-GSF has no fast-forward oracle and refuses it.
+GSF and SanFermin have no fast-forward oracle and refuse it.
+
+``--proto dfinity`` and ``--proto p2pflood`` are `bench_quiet`'s other
+two lines (4 seeds, 1,000 ms in 200-ms chunks of `network.scan_chunk`
+on the seed batch at the proved K, 2): Dfinity at the reference default
+(31 nodes, 10-ms ticks) and ``P2PFlood(256, dead 25, peers 8, 1-ms
+delays)`` (`models/p2pflood.quiet_params`), each checked for progress.
+``--proto dfinity --attesters 10000`` is `tools/bench_suite.py`'s
+Dfinity line (10 block producers, 100 attesters a round, 10,111 nodes):
+one run, 12,000 ticks (120 simulated s) in 2,000-tick chunks, zero
+unicast and arena drops, heads within one height, the highest at least
+30.  ``--proto sanfermin`` is bench_suite's SanFermin line:
+``SanFermin(node_count=32768, inbox_cap=16)`` with two ring sub-planes,
+one run, 6,000 ms in 500-ms chunks at the proved K (2), zero drops and
+at most 2% of the nodes stranded.
 
     python3 bench_torch.py                      # 2048 nodes x 16 seeds, cuda
     python3 bench_torch.py --device cpu --nodes 64 --seeds 2 --ms 200
     python3 bench_torch.py --proto pingpong     # 256 nodes x 4 seeds, cuda
     python3 bench_torch.py --proto gsf          # 4096 nodes x 4 seeds, cuda
+    python3 bench_torch.py --proto dfinity      # 31 nodes x 4 seeds
+    python3 bench_torch.py --proto dfinity --attesters 10000 --reps 1
+    python3 bench_torch.py --proto p2pflood     # 256 nodes x 4 seeds
+    python3 bench_torch.py --proto sanfermin --reps 1   # 32768 nodes
     python3 bench_torch.py --fast-forward       # the headline, fast-forward
     python3 bench_torch.py --mode cardinal --nodes 65536 --seeds 1
     python3 bench_torch.py --nodes 32768 --seeds 1 --emission hashed \
@@ -49,8 +67,9 @@ Prints one JSON line in `bench.py`'s shape: ``metric``
 (``{proto}_{N}n_{R}seeds_agg_sim_ms_per_sec``, ``_cardinal`` and
 ``_ff`` appended as `bench.py` appends them), ``value`` (aggregate
 simulated ms per second over all seeds), ``platform`` (``cuda`` or
-``cpu``), ``engine`` (``batched``, ``fast_forward``, or ``vmapped`` as
-`bench_quiet` names the seed-batched dense engine), ``superstep``, the
+``cpu``), ``engine`` (``batched``, ``fast_forward``, ``vmapped`` as
+`bench_quiet` names the seed-batched dense engine, or ``scan`` for the
+one-run lines), ``superstep``, the
 card's name and power limit, and the measurement's walls.
 """
 
@@ -79,7 +98,13 @@ SUPERSTEP = 2
 #: per protocol: default node count, seed count, simulated ms and chunk
 #: (bench.py's _handel_setup and bench_quiet, bench_suite's bench_gsf)
 DEFAULTS = {"handel": (2048, 16, 1000, 200), "pingpong": (256, 4, 1000, 200),
-            "gsf": (4096, 4, 2500, 250)}
+            "gsf": (4096, 4, 2500, 250), "dfinity": (None, 4, 1000, 200),
+            "p2pflood": (256, 4, 1000, 200),
+            "sanfermin": (32768, 1, 6000, 500)}
+#: `--proto dfinity --attesters A`, bench_suite's line: one seed, 12,000
+#: ticks (the 120 simulated s its docstring and height check describe)
+#: in 2,000-tick chunks
+DFINITY_TRACKED = (1, 12000, 2000)
 
 
 def handel_params(args):
@@ -133,18 +158,24 @@ def handel_line(args, seeds):
     return proto, run, check, "batched", SUPERSTEP
 
 
-def pingpong_line(args, seeds):
-    """`bench_quiet("pingpong")`'s protocol, chunk runner and check."""
+def quiet_runner(proto, args):
+    """The chunk runner of a quiet line at the largest K the gate proves
+    up to SUPERSTEP: `network.scan_chunk`, or `fast_forward_chunk` on
+    the state's layout with ``--fast-forward``."""
     from wittgenstein_tpu_torch.core.network import (
         fast_forward_chunk, pick_superstep, scan_chunk)
-    from wittgenstein_tpu_torch.models.pingpong import PingPong
-    proto = PingPong(node_count=args.nodes, device=args.device)
     k = pick_superstep(proto, args.chunk, t0=0, max_k=SUPERSTEP)
     if args.fast_forward:
-        run = fast_forward_chunk(proto, args.chunk, seed_axis=True,
-                                 superstep=k)
-    else:
-        run = scan_chunk(proto, args.chunk, superstep=k)
+        return fast_forward_chunk(proto, args.chunk,
+                                  seed_axis=not args.single, superstep=k), k
+    return scan_chunk(proto, args.chunk, superstep=k), k
+
+
+def pingpong_line(args, seeds):
+    """`bench_quiet("pingpong")`'s protocol, chunk runner and check."""
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    proto = PingPong(node_count=args.nodes, device=args.device)
+    run, k = quiet_runner(proto, args)
 
     def check(nets, ps):
         progress = int(ps.pongs.sum())
@@ -173,6 +204,94 @@ def gsf_line(args, seeds):
             raise AssertionError(f"drops or clamps: {counts}")
         return {"frac_done": frac, **counts}
     return proto, run, check, "vmapped", 1
+
+
+def dfinity_line(args, seeds):
+    """`bench_quiet("dfinity")`: the reference-default Dfinity (31 nodes;
+    the count is role-derived, `--nodes` does not apply), its check
+    progress (the highest block) > 0.  With ``--attesters A``,
+    `tools/bench_suite.py`'s `bench_dfinity`: 10 block producers and A
+    attesters in 100-attester committees, one run, and its check: zero
+    unicast and arena drops, heads within one height, and a highest
+    head of 30 per 120 simulated s (its 30 at 120 s)."""
+    from wittgenstein_tpu_torch.models.dfinity import (Dfinity,
+                                                       tracked_10k_params)
+    if args.attesters:
+        proto = Dfinity(**dict(
+            tracked_10k_params(), attesters_count=args.attesters,
+            attesters_per_round=min(100, args.attesters // 4)),
+            device=args.device)
+    else:
+        proto = Dfinity(device=args.device)
+    args.nodes = proto.node_count
+    run, k = quiet_runner(proto, args)
+    ticks = max(1, -(-args.ms // args.chunk)) * args.chunk
+    min_height = ticks * proto.tick_ms * 30 // 120_000
+
+    def check(nets, ps):
+        heights = ps.arena.height.gather(-1, ps.head.long()).cpu()
+        out = {"progress": int(heights.max()),
+               "dropped": int(nets.dropped.sum()),
+               "bc_dropped": int(nets.bc_dropped.sum()),
+               "arena_dropped": int(ps.arena.dropped.sum()),
+               "height_min": int(heights.min())}
+        if not out["progress"] > 0:
+            raise AssertionError("dfinity made no progress")
+        if args.attesters:
+            if out["dropped"] or out["arena_dropped"]:
+                raise AssertionError(f"drops: {out}")
+            if out["progress"] - out["height_min"] > 1:
+                raise AssertionError(f"nodes disagree: {out}")
+            if out["progress"] < min_height:
+                raise AssertionError(f"height {out['progress']} < "
+                                     f"{min_height} after {args.ms} ticks")
+        return out
+    return proto, run, check, "scan" if args.single else "vmapped", k
+
+
+def p2pflood_line(args, seeds):
+    """`bench_quiet("p2pflood")`: `quiet_params(nodes)` (a tenth down, 8
+    peers, 1-ms delays), its check progress (nodes done) > 0."""
+    from wittgenstein_tpu_torch.models.p2pflood import P2PFlood, quiet_params
+    proto = P2PFlood(**quiet_params(args.nodes), device=args.device)
+    run, k = quiet_runner(proto, args)
+
+    def check(nets, ps):
+        progress = int((nets.nodes.done_at > 0).sum())
+        if not progress > 0:
+            raise AssertionError("p2pflood made no progress")
+        return {"progress": progress, "dropped": int(nets.dropped.sum()),
+                "bc_dropped": int(nets.bc_dropped.sum())}
+    return proto, run, check, "vmapped", k
+
+
+def sanfermin_line(args, seeds):
+    """`tools/bench_suite.py`'s `bench_sanfermin`: ``SanFermin(
+    node_count=nodes, inbox_cap=16)`` with two ring sub-planes, one run
+    at the proved K, and its check: zero drops, at most 2% of the nodes
+    stranded (not done)."""
+    import dataclasses
+
+    from wittgenstein_tpu_torch.models.sanfermin import SanFermin
+    proto = SanFermin(node_count=args.nodes, inbox_cap=16, device=args.device)
+    proto.cfg = dataclasses.replace(proto.cfg, box_split=2)
+    run, k = quiet_runner(proto, args)
+
+    def check(nets, ps):
+        done_at = nets.nodes.done_at.cpu().numpy()
+        finished = done_at[done_at > 0]
+        out = {"dropped": int(nets.dropped.sum()),
+               "clamped": int(nets.clamped.sum()),
+               "stranded_pct": round(100 * (1 - finished.size /
+                                            done_at.size), 2),
+               "done_mean_ms": round(float(finished.mean()), 1)
+               if finished.size else None}
+        if out["dropped"]:
+            raise AssertionError(f"dropped={out['dropped']}")
+        if out["stranded_pct"] > 2:
+            raise AssertionError(f"stranded={out['stranded_pct']}%")
+        return out
+    return proto, run, check, "scan", k
 
 
 def ff_step(run, clock, chunk):
@@ -241,18 +360,28 @@ def main(argv=None) -> int:
     ap.add_argument("--state-split", type=int, default=None)
     ap.add_argument("--box-split", type=int, default=1)
     ap.add_argument("--seed-batch", type=int, default=16)
+    ap.add_argument("--attesters", type=int, default=None)
     args = ap.parse_args(argv)
-    if args.fast_forward and args.proto == "gsf":
-        ap.error("GSF has no fast-forward oracle (next_action_time)")
+    if args.attesters and args.proto != "dfinity":
+        ap.error("--attesters is Dfinity's")
+    if args.fast_forward and args.proto in ("gsf", "sanfermin"):
+        ap.error(f"{args.proto} has no fast-forward oracle "
+                 "(next_action_time)")
     scale = (args.mode != "exact" or args.emission or args.pool is not None
              or args.state_split or args.box_split > 1)
     if scale and args.proto != "handel":
         ap.error("--mode, --emission, --pool, --state-split and "
                  "--box-split are Handel's")
     nodes, n_seeds, ms, args.chunk = DEFAULTS[args.proto]
+    if args.attesters:
+        n_seeds, ms, args.chunk = DFINITY_TRACKED
     args.nodes = nodes if args.nodes is None else args.nodes
     args.seeds = n_seeds if args.seeds is None else args.seeds
     args.ms = ms if args.ms is None else args.ms
+    # bench_suite's single-seed lines run one unbatched state
+    args.single = args.proto == "sanfermin" or bool(args.attesters)
+    if args.single and args.seeds != 1:
+        ap.error("the SanFermin and --attesters lines run one seed")
 
     import torch
 
@@ -260,7 +389,9 @@ def main(argv=None) -> int:
     from wittgenstein_tpu_torch.utils.measure import timed_chunks
 
     line = {"handel": handel_line, "pingpong": pingpong_line,
-            "gsf": gsf_line}[args.proto]
+            "gsf": gsf_line, "dfinity": dfinity_line,
+            "p2pflood": p2pflood_line,
+            "sanfermin": sanfermin_line}[args.proto]
     micro = args.proto == "handel" and args.seeds > args.seed_batch
     if micro and args.seeds % args.seed_batch:
         ap.error(f"--seeds {args.seeds} is not a multiple of --seed-batch "
@@ -275,6 +406,8 @@ def main(argv=None) -> int:
 
     def init(first=0):
         clock["t"] = 0
+        if args.single:
+            return proto.init(first)
         return init_batched(proto, seeds + first)
 
     def step(nets, ps):

@@ -26,7 +26,7 @@ Phases (any failure exits non-zero; nothing is caught):
    JAX package's golden digest, and a second run of seed 0 to 200 ms
    matches it;
 4b. the GSF path's state at 600 ms matches the JAX golden digest, and a
-   second run of seed 0 to 300 ms the path's state there;
+   second run of seed 0 to 150 ms the path's state there;
 5. the benchmark headline (`bench_torch.py`'s path): 16 seeds of the
    2048-node Handel in one batch on the seed-folded engine
    (`core/batched.scan_chunk_batched`, superstep K=2, phase hints,
@@ -42,8 +42,8 @@ Phases (any failure exits non-zero; nothing is caught):
    the reference's curve (80 < pongs@100 < 400, 500 < pongs@300 <=
    1000, pongs@800 == 1000, monotone), zero drops, broadcast drops and
    clamps, and route launched once a simulated ms (800);
-6b. a second PingPong run of seed 0 matches the JAX golden digest at
-   800 ms and the first run;
+6b. the PingPong run matches the JAX golden digest at 800 ms, and a
+   second run of seed 0 the first one at 400 ms;
 6c. the harness: `run_multiple_times(PingPong(1000), 16, chunk=200)` on
    the seed batch at K=2, counters reset just before: every run stopped
    with 1000 pongs and zero drops and clamps, route launched once a
@@ -57,12 +57,12 @@ Phases (any failure exits non-zero; nothing is caught):
    the 2 lowest senders' deliver (got [0, 1, 1, 0]); two seeds of the
    first through the harness at K = 1 deliver at 511 each;
 7. GSF on a seed batch: `GSFSignature(node_count=4096)`, seeds 0-3 in
-   one batch to 300 ms in 150-ms chunks, (a) on the harness's engine at
+   one batch to 150 ms in one chunk, (a) on the harness's engine at
    K=1 (`network.scan_chunk` on the batch, `tools/bench_suite.py`'s GSF
    line) and (b) on the seed-folded engine (`scan_chunk_batched`, K=2),
    counters reset just before each: every seed's state equals the JAX
-   golden digests, zero drops and clamps, route once a window (300,
-   150), gsf_merge and gsf_score once a ms (300) for all 4 seeds;
+   golden digests, zero drops and clamps, route once a window (150,
+   75), gsf_merge and gsf_score once a ms (150) for all 4 seeds;
 8. the fast-forward engine, each run beside the dense run of its path
    in this process: (a) the headline on `fast_forward_chunk_batched`
    (K=2, no phase hints) to 200 ms, every seed equal to its golden, the
@@ -88,7 +88,34 @@ Phases (any failure exits non-zero; nothing is caught):
 11. an attack: `Handel(**reference_default_params(1024),
    byzantine_suicide=True)`, seed 0, 200 ms through `Runner.run_ms`:
    equal to its JAX golden, honest blacklists filled, the kernels once
-   a ms.
+   a ms;
+S. SanFermin at 32,768 nodes, `tools/bench_suite.py`'s line
+   (``SanFermin(node_count=32768, inbox_cap=16)``, two ring
+   sub-planes), one seed at K=2 in 500-ms chunks to 1,000 ms (the
+   bench line runs on to 6,000): equal to the JAX golden at 500 and
+   1,000 ms, zero drops and clamps, route once a window per sub-plane;
+C. `SanFerminCappos()` (2,048 nodes), one seed, 200 ms at K=2: equal
+   to its JAX golden;
+D. Dfinity with 10,000 attesters (bench_suite's line, 10,111 nodes),
+   one seed: dense to 400 ticks at K=2, equal to its JAX golden; then
+   fast-forwarded from tick 0 in 400-tick chunks to 12,000 ticks (120
+   simulated s): equal to the golden at 400 and to the JAX run's at
+   12,000, every chunk's skip counts the JAX engine's, zero unicast and
+   arena drops, heads within 1 (the JAX run stops at height 2, short of
+   bench_suite's 30: the port is held to the JAX run);
+Q. `bench.py` `bench_quiet`'s lines, 4 seeds in one batch, 1,000 ms in
+   200-ms `network.scan_chunk` chunks at K=2: Dfinity (31 nodes) dense
+   and fast-forwarded (the JAX engine's skip counts chunk by chunk),
+   P2PFlood (`quiet_params`, 256 nodes) dense; every seed equal to its
+   golden.
+
+Each of S-Q logs its wall, its peak allocated memory and its PyTorch
+ops a simulated ms (torch.profiler, host side, over OPS_MS more ms or
+one more fast-forwarded chunk), and checks route's launches.  K1 is
+also timed against its plain version on a batch taken from S's, D's
+and Q's P2PFlood windows (`capture_route`: of all their windows, S's
+first sub-plane, the one with the most valid messages), right after
+each path.
 
 Phase 2 holds route, merge and score at the headline's shapes too:
 route with R 16 on a K=2 window, merge and score through their vmap
@@ -115,12 +142,15 @@ kernels by name, and writes the tables to ``--profile-file``,
 ``--profile-gsf-file``, ``--profile-headline-file``,
 ``--profile-pingpong-file``, ``--profile-gsf-batch-file`` (K=2's
 beside it, ``_k2`` added to its name), ``--profile-t3-file`` (from
-t=600) and ``--profile-t2-file`` (from t=200).
+t=600) and ``--profile-t2-file`` (from t=200), and S (from t=300), D
+and Q's two batches (from 0) to ``--profile-protocols-prefix`` with
+the path's name and ``.txt`` appended.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -150,10 +180,10 @@ PP_HARNESS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                                  "golden_pingpong1000_r16_k2_200ms.json")
 SPILL_MS = 520
 GSF_SEEDS = 4
-GSF_BATCH_MS = 300
+GSF_BATCH_MS = 150
 GSF_CHUNK = 150
 GSF_BATCH_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                                "golden_gsf4096_r4_300ms.json")
+                                "golden_gsf4096_r4_150ms.json")
 FF_MS = 200
 FF_STATS = os.path.join("wittgenstein_tpu_torch", "data",
                         "golden_pingpong1000_ff_stats.json")
@@ -171,6 +201,29 @@ ATTACK_NODES = 1024
 ATTACK_MS = 200
 ATTACK_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                              "golden_handel1024_suicide_200ms.json")
+SF_NODES = 32768
+SF_CHUNK = 500
+SF_MS = 1000            # the golden's last checkpoint (bench_torch.py runs on)
+SF_BOX_SPLIT = 2
+SF_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                         "golden_sanfermin32768_box2.json")
+CAPPOS_MS = 200
+CAPPOS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                             "golden_cappos2048_200ms.json")
+D_CHUNK = 200
+D_TICKS = 400
+D_FF_CHUNK = 400
+D_FF_TICKS = 12000      # 120 simulated s in 10-ms ticks
+D_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                        "golden_dfinity10k_400ticks.json")
+Q_SEEDS = 4
+Q_CHUNK = 200
+Q_MS = 1000
+QD_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                         "golden_dfinity31_r4_1000ticks.json")
+QP_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                         "golden_p2pflood256_r4_1000ms.json")
+OPS_MS = 2              # simulated ms over which a path's ops are counted
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 3, 20
 PLAIN_BUDGET_S = 0.25
@@ -232,11 +285,14 @@ def kernel_device_us(events, match=None):
                (match is None or match in e.key))
 
 
-def device_ms(fn, match=None, reset=None, iters=ITERS):
+def device_ms(fn, match=None, reset=None, iters=ITERS, by_name=None):
     """Mean device ms per call of fn() from `torch.profiler`: the time of
     the CUDA kernels named like `match` (all of fn's kernels if None),
     over `iters` calls after the warm-up (as `call_ms`); the time of
-    `reset`'s own kernels is measured the same way and taken off."""
+    `reset`'s own kernels is measured the same way and taken off.  A
+    call of a few µs can stay at or below the noise of the reset's time:
+    then, with `by_name`, the call is timed by its kernels named like
+    it, and the fallback is logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -256,13 +312,19 @@ def device_ms(fn, match=None, reset=None, iters=ITERS):
             torch.cuda.synchronize()
         return kernel_device_us(prof.key_averages(), match)
     # The profiler now and then delivers none of a window's device
-    # events: such a window is measured again, twice at most.
+    # events, and a call of a few µs can come out at or below the noise
+    # of the reset measured apart: such a measurement is taken again,
+    # twice at most.
     for _ in range(3):
         total = run(True)
+        if total > 0 and reset and match is None:
+            total -= run(False)
         if total > 0:
             break
-    if total > 0 and reset and match is None:
-        total -= run(False)
+    if total <= 0 and by_name:
+        log(f"the call's time is within the noise of its reset's; timed "
+            f"by its kernels named like {by_name!r}")
+        return device_ms(fn, by_name, reset, iters)
     if total <= 0:
         fail(f"the profiler saw no device time for {match or 'the call'}")
     return total / iters / 1e3
@@ -429,7 +491,8 @@ def phase_route(dev, rng, make=route_case, **shape):
     phases = {k: device_ms(kern_fn, k, cold(reset)) * 1e3
               for k in ("route_bucket_kernel", "route_rank_kernel")}
     plain_n = plain_iters(plain_fn, reset)
-    return dict(err=err, ms=device_ms(kern_fn, None, cold(reset)),
+    return dict(err=err, ms=device_ms(kern_fn, None, cold(reset),
+                                      by_name="route_"),
                 warm_ms=device_ms(kern_fn, "route_", reset), phases_us=phases,
                 plain_ms=device_ms(plain_fn, None, reset, plain_n),
                 call_ms=call_ms(kern_fn, reset),
@@ -910,6 +973,48 @@ def phase_gsf_score_r4(dev, rng):
     return phase_gsf_score(dev, rng, seeds=GSF_SEEDS)
 
 
+#: K1 cases taken from the paths' own batches (`capture_route`), by
+#: kernel entry name: (ring, messages) as the wrapper received them
+ROUTE_CASES = {}
+
+
+@contextlib.contextmanager
+def capture_route(name, calls):
+    """While active, of the route calls numbered in `calls` (0-based,
+    counted from entry; one call a window and ring sub-plane) keep the
+    one with the most valid messages in ROUTE_CASES[name]: its ring and
+    messages cloned before the kernel writes.  Each of those calls reads
+    its valid count back (the host waits for the card there, as the
+    host-bound paths mostly do anyway); the launch counter counts every
+    call once, as without the capture."""
+    from wittgenstein_tpu_torch.core import network
+    orig = network.bin_into_ring
+    seen, best = [0], [-1]
+
+    def wrapper(*args):
+        if seen[0] in calls:
+            n_valid = int(args[-1].sum())
+            if n_valid > best[0]:
+                best[0] = n_valid
+                ROUTE_CASES.pop(name, None)
+                ROUTE_CASES[name] = ([t.clone() for t in args[:4]],
+                                     [t.clone() for t in args[4:]])
+        seen[0] += 1
+        return orig(*args)
+    network.bin_into_ring = wrapper
+    try:
+        yield
+    finally:
+        network.bin_into_ring = orig
+
+
+def phase_route_captured(name):
+    """Phase-2 timing of K1 on the case captured from a path."""
+    def phase(dev, rng):
+        return phase_route(dev, rng, lambda dev, rng: ROUTE_CASES.pop(name))
+    return phase
+
+
 #: kernel entries of the ``kernels`` line: (name, wrapper key, path,
 #: source, TPU kernel it replaces, phase-2 case)
 KERNELS = [
@@ -958,7 +1063,22 @@ KERNELS = [
      "wittgenstein_tpu/ops/pallas_merge.py:55", phase_merge_t2),
     ("score_t2", "score", "t2", "wittgenstein_tpu_torch/csrc/score.cu",
      "wittgenstein_tpu/ops/pallas_score.py:46", phase_score_t2),
+    ("route_sanfermin", "route", "sanfermin",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_sanfermin")),
+    ("route_dfinity", "route", "dfinity",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_dfinity")),
+    ("route_p2pflood", "route", "quiet_p2pflood",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_p2pflood")),
 ]
+#: the kernel entries whose case is captured from their path's run
+#: (`capture_route`) and timed right after it, not in phase 2
+CAPTURED = ("route_sanfermin", "route_dfinity", "route_p2pflood")
 #: the launches each path's run must make, by wrapper (others: none).
 #: The per-ms paths launch each kernel once a simulated ms; the headline
 #: bins once a K=2 window, merges every ms and scores on the
@@ -975,6 +1095,8 @@ KERNELS = [
 #: merges and scores every ms, each launch for all 4 seeds.  A
 #: fast-forward run launches on the ms it steps only: the counts of
 #: those paths follow their skip counts (set when they have run).
+#: SanFermin bins once a K=2 window per ring sub-plane (2); Dfinity, its
+#: quiet batch and P2PFlood's once a window.
 PATH_LAUNCHES = {
     "handel": {"route": MAIN_MS, "merge": MAIN_MS, "score": MAIN_MS},
     "gsf": {"route": GSF_MS, "gsf_merge": GSF_MS, "gsf_score": GSF_MS},
@@ -989,7 +1111,9 @@ PATH_LAUNCHES = {
     "t2": {"route": 2 * (T2_MS // 2), "merge": 2 * T2_MS,
            "score": 2 * (T2_MS // 4)},
     "attack": {"route": ATTACK_MS, "merge": ATTACK_MS,
-               "score": ATTACK_MS}}
+               "score": ATTACK_MS},
+    "sanfermin": {"route": SF_BOX_SPLIT * (SF_MS // 2)},
+    "dfinity": {"route": D_TICKS // 2}}
 
 
 # ------------------------------------------------------------- main path
@@ -1079,7 +1203,7 @@ def gsf_path(dev):
     0, through the entry points a user calls."""
     from wittgenstein_tpu_torch.models.gsf import GSFSignature
     return drive(GSFSignature(node_count=GSF_NODES, device=dev), GSF_MS,
-                 GSF_MS // 2)
+                 GSF_MS // 4)
 
 
 def determinism(what, proto, ms, want):
@@ -1113,7 +1237,7 @@ def golden_and_determinism(dev, mid_digest):
 
 def gsf_golden_and_determinism(dev, final_np, mid_digest):
     """The GSF path's state at 600 ms against the JAX golden digest;
-    seed 0 run again to 300 ms equals the path's state there
+    seed 0 run again to 150 ms equals the path's state there
     (`mid_digest`)."""
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.models.gsf import GSFSignature
@@ -1126,7 +1250,7 @@ def gsf_golden_and_determinism(dev, final_np, mid_digest):
     log(f"GSF golden: all {len(golden['leaves'])} leaves match the JAX "
         f"reference at {GSF_MS} ms (JAX counts {golden['counts']})")
     determinism("GSF", GSFSignature(node_count=GSF_NODES, device=dev),
-                GSF_MS // 2, mid_digest)
+                GSF_MS // 4, mid_digest)
 
 
 def headline_init(dev):
@@ -1212,9 +1336,9 @@ def headline_determinism(dev, first, digests, dense_final_np):
     log(f"headline seed 0 equals the dense path's state at {HEADLINE_MS} ms")
 
 
-def pingpong_run(dev):
-    """`PingPong(1000)`, seed 0, through `Runner.run_ms` in 8 steps of 100
-    ms, every launch counter set to 0 just before.  Returns the run's
+def pingpong_run(dev, ms=PP_MS):
+    """`PingPong(1000)`, seed 0, through `Runner.run_ms` in 100-ms steps
+    to `ms`, every launch counter set to 0 just before.  Returns the run's
     numbers (the pong curve among them), the launch counts, the state
     digest after each step and the final state as numpy dicts."""
     import torch
@@ -1228,14 +1352,14 @@ def pingpong_run(dev):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     curve, digests, wall = [], {}, 0.0
-    for t in range(100, PP_MS + 1, 100):
+    for t in range(100, ms + 1, 100):
         t0 = time.perf_counter()
         net, ps = runner.run_ms(net, ps, 100)
         curve.append(int(ps.pongs))
         wall += time.perf_counter() - t0
         digests[t] = convert.state_digest(*convert.to_numpy(net, ps))
     launches = read_counters()
-    res = dict(wall_s=wall, sim_ms_per_s=PP_MS / wall, pongs=curve,
+    res = dict(wall_s=wall, sim_ms_per_s=ms / wall, pongs=curve,
                dropped=int(net.dropped), bc_dropped=int(net.bc_dropped),
                clamped=int(net.clamped), time=int(net.time),
                msg_sent=int(net.nodes.msg_sent.sum()),
@@ -1253,15 +1377,13 @@ def check_pingpong(res):
         fail(f"PingPong drops/broadcast drops/clamps must be 0: {res}")
 
 
-def pingpong_golden_and_determinism(dev, final_np):
-    """Seed 0 again: the state at 800 ms against the JAX golden digest
-    and against the first run.  Returns the run's digests by ms."""
-    from wittgenstein_tpu_torch import convert
+def pingpong_golden_and_determinism(dev, res, digests):
+    """The first run's curve and state at 800 ms against the JAX golden;
+    seed 0 again to 400 ms equals the first run there."""
     with open(PP_GOLDEN) as f:
         golden = json.load(f)
     if golden["ms"] != PP_MS:
         fail(f"PingPong golden is for {golden['ms']} ms, not {PP_MS}")
-    res, _, digests, again = pingpong_run(dev)
     if res["pongs"] != golden["counts"]["pongs"]:
         fail(f"PingPong curve {res['pongs']} differs from the JAX run's "
              f"{golden['counts']['pongs']}")
@@ -1269,10 +1391,11 @@ def pingpong_golden_and_determinism(dev, final_np):
                  golden["leaves"])
     log(f"PingPong golden: all {len(golden['leaves'])} leaves match the "
         f"JAX reference at {PP_MS} ms, curve {res['pongs']}")
-    if digests[PP_MS] != convert.state_digest(*final_np):
+    again = pingpong_run(dev, PP_MS // 2)[2]
+    if again[PP_MS // 2] != digests[PP_MS // 2]:
         fail("PingPong seed 0 run twice differs")
-    log(f"PingPong determinism: two runs of seed 0 identical at {PP_MS} ms")
-    return digests
+    log(f"PingPong determinism: two runs of seed 0 identical at "
+        f"{PP_MS // 2} ms")
 
 
 def pingpong_harness(dev, dense_digests):
@@ -1307,8 +1430,8 @@ def pingpong_harness(dev, dense_digests):
     if res["dropped"] or res["bc_dropped"] or res["clamped"]:
         fail(f"PingPong harness drops/clamps must be 0: {res}")
     PATH_LAUNCHES["pingpong_harness"] = {"route": max(stop) // 2}
-    seed0 = convert.seed_digests(*convert.to_numpy(out.nets,
-                                                   out.pstates))[0]
+    seed0 = convert.seed_digests(*convert.to_numpy(out.nets, out.pstates),
+                                 seeds=[0])[0]
     if stop[0] not in dense_digests or seed0 != dense_digests[stop[0]]:
         fail(f"PingPong harness seed 0 at {stop[0]} ms differs from the "
              "per-ms run's state")
@@ -1431,7 +1554,7 @@ def check_seed_goldens(what, nets, ps, golden):
 
 
 def gsf_batch_run(dev, k):
-    """GSF 4096, seeds 0-3 in one batch, to 300 ms in 150-ms chunks: K=1
+    """GSF 4096, seeds 0-3 in one batch, to 150 ms in one chunk: K=1
     on the harness's engine (`network.scan_chunk` on the batch), K=2 on
     the seed-folded engine (`scan_chunk_batched`); counters set to 0
     just before the run, the peak taken from before the batch is built.
@@ -1757,6 +1880,299 @@ def attack_run(dev):
     return res, launches
 
 
+# ------------------------------------- SanFermin, Dfinity and P2PFlood
+
+def ops_per_ms(window, ms):
+    """Top-level PyTorch ops a simulated ms of `window()` (`ms`
+    simulated ms), counted by torch.profiler on the host side only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        window()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and e.cpu_parent is None
+               and e.name.startswith("aten::")) / ms
+
+
+def counts_of(net, ps=None):
+    """A state's drop and clamp counters (summed over a batch), and for
+    a Dfinity state its arena's drops and its head heights' range."""
+    out = {k: int(getattr(net, k).sum()) for k in
+           ("dropped", "clamped", "bc_dropped", "sp_dropped")}
+    if ps is not None and hasattr(ps, "arena"):
+        heights = ps.arena.height.gather(-1, ps.head.long())
+        out.update(arena_dropped=int(ps.arena.dropped.sum()),
+                   height_max=int(heights.max()),
+                   height_min=int(heights.min()))
+    return out
+
+
+def chunked(run, state, t0, t1, chunk, check=None, ff=False):
+    """`run` (a chunk function of `chunk` ms) from t0 to t1 in calls;
+    the host waits for the card after each, and `check(t, state,
+    stats)` runs outside the timed wall.  Returns the state, the wall
+    and, fast-forwarded, each call's skip counts."""
+    import torch
+    wall, stats = 0.0, []
+    for t in range(t0, t1, chunk):
+        c0 = time.perf_counter()
+        state = run(*state, t=t)
+        if ff:
+            *state, st = state
+            stats.append(st)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - c0
+        if check:
+            check(t + chunk, state, stats)
+    return tuple(state), wall, stats
+
+
+def sanfermin_run(dev):
+    """Path S: `tools/bench_suite.py`'s SanFermin line,
+    ``SanFermin(node_count=32768, inbox_cap=16)`` with two ring
+    sub-planes, seed 0, one run at the proved K (2) in 500-ms
+    `network.scan_chunk` calls, counters set to 0 just before: equal to
+    the JAX golden at 500 and 1,000 ms (outside the timed wall), zero
+    drops and clamps, route once a window per sub-plane.  A K1 case is
+    captured from its windows."""
+    import dataclasses
+
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import (pick_superstep,
+                                                     scan_chunk)
+    from wittgenstein_tpu_torch.models.sanfermin import SanFermin
+    n, ms, chunk = SF_NODES, SF_MS, SF_CHUNK
+    with open(SF_GOLDEN) as f:
+        golden = json.load(f)["ms"]
+    proto = SanFermin(node_count=n, inbox_cap=16, device=dev)
+    proto.cfg = dataclasses.replace(proto.cfg, box_split=SF_BOX_SPLIT)
+    k = pick_superstep(proto, chunk, t0=0)
+    if k != 2:
+        fail(f"SanFermin: the gate proves K={k}, want 2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = proto.init(0)
+    reset_counters()
+
+    def check(t, state, _):
+        want = golden.get(str(t))
+        if want is not None:
+            check_digest(f"SanFermin {n} at {t} ms", convert.state_digest(
+                *convert.to_numpy(*state)), want["leaves"])
+            log(f"SanFermin golden: all {len(want['leaves'])} leaves match "
+                f"the JAX reference at {t} ms (JAX counts {want['counts']})")
+    # sub-plane 0 of every window
+    with capture_route("route_sanfermin", set(range(0, ms, 2))):
+        (net, ps), wall, _ = chunked(scan_chunk(proto, chunk, superstep=k),
+                                     state, 0, ms, chunk, check)
+    launches = read_counters()
+    res = dict(superstep=k, wall_s=wall, sim_ms_per_s=ms / wall,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               done_frac=float(ps.done.float().mean()),
+               **counts_of(net))
+    window = scan_chunk(proto, OPS_MS, superstep=k)
+    res["aten_ops_per_ms"] = ops_per_ms(lambda: window(net, ps, t=ms),
+                                        OPS_MS)
+    if res["dropped"] or res["clamped"]:
+        fail(f"SanFermin: drops and clamps must be 0: {res}")
+    return res, launches
+
+
+def cappos_run(dev):
+    """Path C: `SanFerminCappos()` at its default 2,048 nodes, seed 0,
+    one 200-ms `network.scan_chunk` call at the proved K (2), counters
+    set to 0 just before: equal to the JAX golden at 200 ms."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import (pick_superstep,
+                                                     scan_chunk)
+    from wittgenstein_tpu_torch.models.sanfermin import SanFerminCappos
+    with open(CAPPOS_GOLDEN) as f:
+        golden = json.load(f)
+    proto = SanFerminCappos(device=dev)
+    k = pick_superstep(proto, CAPPOS_MS, t0=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = proto.init(0)
+    reset_counters()
+    (net, ps), wall, _ = chunked(scan_chunk(proto, CAPPOS_MS, superstep=k),
+                                 state, 0, CAPPOS_MS, CAPPOS_MS)
+    launches = read_counters()
+    check_digest(f"Cappos at {CAPPOS_MS} ms", convert.state_digest(
+        *convert.to_numpy(net, ps)), golden["leaves"])
+    log(f"Cappos golden: all {len(golden['leaves'])} leaves match the JAX "
+        f"reference at {CAPPOS_MS} ms")
+    res = dict(superstep=k, wall_s=wall, sim_ms_per_s=CAPPOS_MS / wall,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               **counts_of(net))
+    window = scan_chunk(proto, OPS_MS, superstep=k)
+    res["aten_ops_per_ms"] = ops_per_ms(
+        lambda: window(net, ps, t=CAPPOS_MS), OPS_MS)
+    PATH_LAUNCHES["cappos"] = {"route": CAPPOS_MS // k}
+    return res, launches
+
+
+def dfinity_run(dev):
+    """Path D: `tools/bench_suite.py`'s Dfinity line (10,111 nodes,
+    `tracked_10k_params`), seed 0.  Dense: 200-tick `network.scan_chunk`
+    calls at the proved K (2) to 400 ticks, equal to the JAX golden;
+    then again from tick 0 in 400-tick `fast_forward_chunk` calls
+    (K=2) to 12,000 ticks (120 simulated s): equal to the same golden
+    at tick 400 and to the JAX run's at 12,000, every call's skip counts
+    the JAX engine's, zero unicast and arena drops, heads within 1 and
+    the JAX run's highest head.  Counters set to 0 before each run; a
+    K1 case is captured from the dense run's windows."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import (
+        fast_forward_chunk, pick_superstep, scan_chunk)
+    from wittgenstein_tpu_torch.models.dfinity import (Dfinity,
+                                                       tracked_10k_params)
+    ticks, ff_ticks = D_TICKS, D_FF_TICKS
+    with open(D_GOLDEN) as f:
+        golden = json.load(f)
+    proto = Dfinity(**tracked_10k_params(), device=dev)
+    k = pick_superstep(proto, D_CHUNK, t0=0, max_k=2)
+    if k != 2:
+        fail(f"Dfinity: the gate proves K={k}, want 2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = proto.init(0)
+    reset_counters()
+    with capture_route("route_dfinity", set(range(ticks // k))):
+        (net, ps), wall, _ = chunked(scan_chunk(proto, D_CHUNK, superstep=k),
+                                     state, 0, ticks, D_CHUNK)
+    launches = read_counters()
+    check_digest(f"Dfinity at {ticks} ticks", convert.state_digest(
+        *convert.to_numpy(net, ps)), golden["leaves"])
+    log(f"Dfinity golden: all {len(golden['leaves'])} leaves match the JAX "
+        f"reference at {ticks} ticks (JAX counts {golden['counts']})")
+    dense = dict(superstep=k, wall_s=wall, sim_ticks_per_s=ticks / wall,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 **counts_of(net, ps))
+    window = scan_chunk(proto, OPS_MS, superstep=k)
+    dense["aten_ops_per_ms"] = ops_per_ms(
+        lambda: window(net, ps, t=ticks), OPS_MS)
+    del net, ps, state
+
+    want_ff = golden["fast_forward"]
+
+    def check(t, state, stats):
+        want = {ticks: golden["leaves"], ff_ticks: want_ff["leaves"]}.get(t)
+        if want is not None:
+            check_digest(f"fast-forwarded Dfinity at {t} ticks",
+                         convert.state_digest(*convert.to_numpy(*state)),
+                         want)
+            log(f"fast-forwarded Dfinity equals the JAX golden at {t} "
+                f"ticks")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = proto.init(0)
+    reset_counters()
+    run = fast_forward_chunk(proto, ticks, superstep=k)
+    (net, ps), ff_wall, stats = chunked(run, state, 0, ff_ticks, ticks,
+                                        check, ff=True)
+    ff_launches = read_counters()
+    if stats != want_ff["chunks"]:
+        fail(f"fast-forwarded Dfinity skips {stats}, the JAX engine "
+             f"{want_ff['chunks']}")
+    skipped = sum(s["skipped_ms"] for s in stats)
+    PATH_LAUNCHES["dfinity_ff"] = {"route": (ff_ticks - skipped) // k}
+    ff = dict(superstep=k, wall_s=ff_wall, dense_wall_s=wall,
+              sim_ticks=ff_ticks, sim_ticks_per_s=ff_ticks / ff_wall,
+              skipped_ms=skipped, jump_count=sum(s["jump_count"]
+                                                 for s in stats),
+              skip_rate=skipped / ff_ticks,
+              peak_mem_bytes=torch.cuda.max_memory_allocated(),
+              **counts_of(net, ps))
+    ff["aten_ops_per_ms"] = ops_per_ms(
+        lambda: run(net, ps, t=ff_ticks), ticks)
+    # bench_suite also asks for a highest head of 30 by 120 s; the JAX
+    # run of this line stops at the height its golden records, and the
+    # port is held to that run.
+    if ff["dropped"] or ff["arena_dropped"] or \
+            ff["height_max"] - ff["height_min"] > 1 or \
+            ff["height_max"] != want_ff["counts"]["height_max"]:
+        fail(f"Dfinity at {ff_ticks} ticks: want zero drops and arena drops, "
+             f"heads within 1 and the JAX run's highest head "
+             f"{want_ff['counts']['height_max']}: {ff}")
+    log(f"Dfinity at {ff_ticks} ticks: highest head {ff['height_max']} "
+        f"and {ff['bc_dropped']} broadcasts dropped, as in the JAX run "
+        f"(bench_suite asks for a highest head of 30)")
+    return (dense, launches), (ff, ff_launches)
+
+
+def quiet_run(dev, line, n=None, golden_path=None):
+    """Path Q: `bench.py` `bench_quiet`'s lines, 4 seeds in one batch,
+    1,000 ms in 200-ms `network.scan_chunk` calls on `init_batched` at
+    the proved K (2), counters set to 0 just before: ``dfinity``, the
+    reference default (31 nodes), dense and then fast-forwarded
+    (`fast_forward_chunk(seed_axis=True)`, the JAX engine's skip counts
+    chunk by chunk); ``p2pflood``, `quiet_params` (256 nodes), dense and
+    its K1 case captured.  Every seed equal to its JAX golden."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import (
+        fast_forward_chunk, pick_superstep, scan_chunk)
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.dfinity import Dfinity
+    from wittgenstein_tpu_torch.models.p2pflood import P2PFlood, quiet_params
+    if line == "dfinity":
+        proto = Dfinity(device=dev)
+        golden = load_golden(golden_path or QD_GOLDEN, Q_MS, Q_SEEDS)
+    else:
+        proto = P2PFlood(**quiet_params(n or 256), device=dev)
+        golden = load_golden(golden_path or QP_GOLDEN, Q_MS, Q_SEEDS)
+    k = pick_superstep(proto, Q_CHUNK, t0=0, max_k=2)
+    seeds = torch.arange(Q_SEEDS)
+    out = {}
+    runs = ("dense", "ff") if line == "dfinity" else ("dense",)
+    for mode in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_batched(proto, seeds)
+        reset_counters()
+        ff = mode == "ff"
+        run = (fast_forward_chunk(proto, Q_CHUNK, seed_axis=True,
+                                  superstep=k) if ff else
+               scan_chunk(proto, Q_CHUNK, superstep=k))
+        calls = set(range(Q_MS // k)) if line == "p2pflood" else set()
+        with capture_route(f"route_{line}", calls):
+            (nets, ps), wall, stats = chunked(run, state, 0, Q_MS, Q_CHUNK,
+                                              ff=ff)
+        launches = read_counters()
+        check_seed_goldens(f"{line} x {Q_SEEDS} seeds ({mode})", nets, ps,
+                           golden)
+        res = dict(superstep=k, wall_s=wall,
+                   agg_sim_ms_per_s=Q_SEEDS * Q_MS / wall,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   **counts_of(nets, ps))
+        key = f"quiet_{line}" + ("_ff" if ff else "")
+        if ff:
+            want = golden["fast_forward"]["chunks"]
+            if stats != want:
+                fail(f"fast-forwarded {line} batch skips {stats}, the JAX "
+                     f"engine {want}")
+            skipped = sum(s["skipped_ms"] for s in stats)
+            res.update(skipped_ms=skipped, skip_rate=skipped / Q_MS,
+                       jump_count=sum(s["jump_count"] for s in stats))
+            PATH_LAUNCHES[key] = {"route": (Q_MS - skipped) // k}
+        else:
+            PATH_LAUNCHES[key] = {"route": Q_MS // k}
+        # ops of one more chunk (fast-forwarded) or a dense OPS_MS window
+        window = run if ff else scan_chunk(proto, OPS_MS, superstep=k)
+        res["aten_ops_per_ms"] = ops_per_ms(
+            lambda: window(nets, ps, t=Q_MS), Q_CHUNK if ff else OPS_MS)
+        if res["dropped"] or res["clamped"]:
+            fail(f"{line} batch: drops and clamps must be 0: {res}")
+        out[key] = (res, launches)
+    return out
+
+
 #: kernel names (substrings of the profiler's keys) whose device time
 #: a simulated ms `--profile` reports for each path
 PROFILE_KERNELS = {
@@ -1768,6 +2184,8 @@ PROFILE_KERNELS["headline"] = PROFILE_KERNELS["handel"]
 PROFILE_KERNELS["pingpong"] = {"route": "route_"}
 PROFILE_KERNELS["gsf_batch"] = PROFILE_KERNELS["gsf"]
 PROFILE_KERNELS["t2"] = PROFILE_KERNELS["handel"]
+for _path in ("sanfermin", "dfinity", "quiet_dfinity", "quiet_p2pflood"):
+    PROFILE_KERNELS[_path] = {"route": "route_"}
 PROFILE_KERNELS["t3"] = {"route": "route_"}
 
 
@@ -1818,6 +2236,35 @@ def scale_window(dev, line, start, ms):
     nets, ps = scan_chunk_batched(proto, start, t0_mod=0)(nets, ps, t=0)
     window = scan_chunk_batched(proto, ms, t0_mod=0)
     return lambda: window(nets, ps, t=start)
+
+
+def protocol_window(dev, path, start, ms):
+    """The same for S, D and Q's batches: dense `network.scan_chunk` at
+    K=2 from init to `start`, then a window of `ms`."""
+    import dataclasses
+
+    import torch
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.dfinity import (Dfinity,
+                                                       tracked_10k_params)
+    from wittgenstein_tpu_torch.models.p2pflood import P2PFlood, quiet_params
+    from wittgenstein_tpu_torch.models.sanfermin import SanFermin
+    if path == "sanfermin":
+        proto = SanFermin(node_count=SF_NODES, inbox_cap=16, device=dev)
+        proto.cfg = dataclasses.replace(proto.cfg, box_split=SF_BOX_SPLIT)
+        state = proto.init(0)
+    elif path == "dfinity":
+        proto = Dfinity(**tracked_10k_params(), device=dev)
+        state = proto.init(0)
+    else:
+        proto = (Dfinity(device=dev) if path == "quiet_dfinity" else
+                 P2PFlood(**quiet_params(), device=dev))
+        state = init_batched(proto, torch.arange(Q_SEEDS))
+    if start:
+        state = scan_chunk(proto, start, superstep=2)(*state, t=0)
+    window = scan_chunk(proto, ms, superstep=2)
+    return lambda: window(*state, t=start)
 
 
 def profile(label, window, start, ms, path, kernels):
@@ -1876,6 +2323,7 @@ def main(argv=None) -> int:
                     default="profile_gsf_batch.txt")
     ap.add_argument("--profile-t3-file", default="profile_t3.txt")
     ap.add_argument("--profile-t2-file", default="profile_t2.txt")
+    ap.add_argument("--profile-protocols-prefix", default="profile_")
     ap.add_argument("--memory-seeds", type=int, default=0, metavar="R")
     args = ap.parse_args(argv)
     import torch
@@ -1913,15 +2361,23 @@ def main(argv=None) -> int:
     # 2. kernels against their plain versions
     rng = np.random.default_rng(0)
     results = {}
-    for name, _, _, _, _, phase in KERNELS:
-        results[name] = phase(dev, rng)
-        r = results[name]
-        log(f"kernel {name}: bit-equal to its plain version; device "
+
+    def kernel_case(name):
+        """Run a kernel entry's case against its plain version and log
+        its times."""
+        phase = next(e[5] for e in KERNELS if e[0] == name)
+        t0 = time.perf_counter()
+        results[name] = r = phase(dev, rng)
+        log(f"kernel {name} ({time.perf_counter() - t0:.1f} s): bit-equal "
+            f"to its plain version; device "
             f"{r['ms'] * 1e3:.2f} us cold, {r['warm_ms'] * 1e3:.2f} us warm"
             f" vs plain {r['plain_ms'] * 1e3:.2f} us;"
             f" per call {r['call_ms'] * 1e3:.2f} us vs plain "
             f"{r['plain_call_ms'] * 1e3:.2f} us"
             + (f"; phases {r['phases_us']}" if "phases_us" in r else ""))
+    for name, *_ in KERNELS:
+        if name not in CAPTURED:
+            kernel_case(name)
 
     done("2")
     # 3. the Handel path
@@ -1973,7 +2429,7 @@ def main(argv=None) -> int:
     done("5b")
 
     # 6. PingPong on the per-ms engine
-    pres, plaunches, _, pfinal_np = pingpong_run(dev)
+    pres, plaunches, pdigests, _ = pingpong_run(dev)
     log(f"PingPong path: {json.dumps(pres)} launches {plaunches}")
     check_pingpong(pres)
     check_launches("pingpong", plaunches)
@@ -1981,7 +2437,7 @@ def main(argv=None) -> int:
     done("6")
 
     # 6b. against the reference
-    pdigests = pingpong_golden_and_determinism(dev, pfinal_np)
+    pingpong_golden_and_determinism(dev, pres, pdigests)
 
     done("6b")
 
@@ -2040,6 +2496,37 @@ def main(argv=None) -> int:
     check_launches("attack", alaunches)
     done("11")
 
+    # S. SanFermin 32k, bench_suite's line, and K1 on its window
+    sfres, sflaunches = sanfermin_run(dev)
+    log(f"SanFermin {SF_NODES}: {json.dumps(sfres)} launches {sflaunches}")
+    check_launches("sanfermin", sflaunches)
+    kernel_case("route_sanfermin")
+    done("S")
+
+    # C. SanFerminCappos at its default 2,048 nodes
+    cres, claunches = cappos_run(dev)
+    log(f"Cappos 2048: {json.dumps(cres)} launches {claunches}")
+    check_launches("cappos", claunches)
+    done("C")
+
+    # D. Dfinity 10k validators, dense and fast-forwarded
+    (dres, dlaunches), (dfres, dflaunches) = dfinity_run(dev)
+    log(f"Dfinity 10k, dense: {json.dumps(dres)} launches {dlaunches}")
+    log(f"Dfinity 10k, fast-forwarded: {json.dumps(dfres)} launches "
+        f"{dflaunches}")
+    check_launches("dfinity", dlaunches)
+    check_launches("dfinity_ff", dflaunches)
+    kernel_case("route_dfinity")
+    done("D")
+
+    # Q. bench.py's quiet lines, 4 seeds each
+    quiet = {**quiet_run(dev, "dfinity"), **quiet_run(dev, "p2pflood")}
+    for key, (qres, qlaunches) in quiet.items():
+        log(f"{key}: {json.dumps(qres)} launches {qlaunches}")
+        check_launches(key, qlaunches)
+    kernel_case("route_p2pflood")
+    done("Q")
+
     memory = {}
     if args.memory_seeds:
         memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
@@ -2095,6 +2582,20 @@ def main(argv=None) -> int:
             profiles[line] = profile(label, scale_window(dev, line, start,
                                                          hms),
                                      start, hms, path, PROFILE_KERNELS[line])
+        # S from t=300 (the first reply timeouts fire at 301), D and Q
+        # from 0 (the beacon kick, the floods); windows of whole K=2
+        # windows
+        pms = -(-args.profile // 2) * 2
+        for path, start, label in (
+                ("sanfermin", 300, f"SanFermin {SF_NODES} nodes"),
+                ("dfinity", 0, "Dfinity 10,111 nodes"),
+                ("quiet_dfinity", 0, f"Dfinity 31 nodes x {Q_SEEDS} seeds"),
+                ("quiet_p2pflood", 0,
+                 f"P2PFlood 256 nodes x {Q_SEEDS} seeds")):
+            profiles[path] = profile(
+                label, protocol_window(dev, path, start, pms), start, pms,
+                f"{args.profile_protocols_prefix}{path}.txt",
+                PROFILE_KERNELS[path])
         done("profile")
 
     path_ms = {"handel": MAIN_MS, "gsf": GSF_MS, "headline": HEADLINE_MS,
@@ -2102,14 +2603,20 @@ def main(argv=None) -> int:
                "spill": SPILL_MS, "gsf_batch": GSF_BATCH_MS,
                "gsf_batch_k2": GSF_BATCH_MS, "ff_headline": FF_MS,
                "ff_pingpong": PP_MS, "ff_pingpong_batch": PP_CHUNK,
-               "t3": t3res["sim_ms"], "t2": T2_MS, "attack": ATTACK_MS}
+               "t3": t3res["sim_ms"], "t2": T2_MS, "attack": ATTACK_MS,
+               "sanfermin": SF_MS, "cappos": CAPPOS_MS, "dfinity": D_TICKS,
+               "dfinity_ff": D_FF_TICKS, "quiet_dfinity": Q_MS,
+               "quiet_dfinity_ff": Q_MS, "quiet_p2pflood": Q_MS}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
                      "pingpong_harness": hplaunches, "spill": slaunches,
                      "gsf_batch": gblaunches, "gsf_batch_k2": gb2launches,
                      "ff_headline": falaunches, "ff_pingpong": fblaunches,
                      "ff_pingpong_batch": fclaunches, "t3": t3launches,
-                     "t2": t2launches, "attack": alaunches}
+                     "t2": t2launches, "attack": alaunches,
+                     "sanfermin": sflaunches, "cappos": claunches,
+                     "dfinity": dlaunches, "dfinity_ff": dflaunches,
+                     **{k: v[1] for k, v in quiet.items()}}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -2142,7 +2649,11 @@ def main(argv=None) -> int:
                       "ff_headline_path": fares, "ff_pingpong_path": fbres,
                       "ff_pingpong_batch_path": fcres,
                       "t3_path": t3res, "t2_path": t2res,
-                      "attack_path": ares, "memory": memory,
+                      "attack_path": ares, "sanfermin_path": sfres,
+                      "cappos_path": cres, "dfinity_path": dres,
+                      "dfinity_ff_path": dfres,
+                      **{f"{k}_path": v[0] for k, v in quiet.items()},
+                      "memory": memory,
                       "profiles": profiles}),
           flush=True)
     print(smi, flush=True)

@@ -1,0 +1,119 @@
+"""The golden digests that `chip_smoke.py` holds the port's SanFermin,
+Cappos, Dfinity and P2PFlood paths against (phases S, C, D and Q): each
+file's schema and call, its leaf names those of the port's state of the
+same configuration, and its counters; marked slow, the quiet lines'
+digests recomputed from the JAX package and the port's CPU runs of them
+against the files."""
+
+import dataclasses
+import json
+
+import pytest
+import torch_parity as tp
+
+from wittgenstein_tpu_torch import convert
+
+#: golden file -> (protocol, port size with the same leaves, box_split)
+FILES = {tp.SANFERMIN_GOLDEN_FILE: ("sanfermin", 64, 2),
+         tp.CAPPOS_GOLDEN_FILE: ("cappos", 64, 1),
+         tp.DFINITY10K_GOLDEN_FILE: ("dfinity", 10, 1),
+         tp.DFINITY_QUIET_FILE: ("dfinity", 10, 1),
+         tp.P2PFLOOD_QUIET_FILE: ("p2pflood", 64, 1)}
+#: the quiet goldens' committed paths
+COMMITTED = {"DFINITY_QUIET_FILE": tp.DFINITY_QUIET_FILE,
+             "P2PFLOOD_QUIET_FILE": tp.P2PFLOOD_QUIET_FILE}
+
+
+def _load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _leaf_names(protocol, n, box_split):
+    proto = tp.port_protocol(protocol, n)
+    proto.cfg = dataclasses.replace(proto.cfg, box_split=box_split)
+    return sorted(convert.state_digest(*convert.to_numpy(*proto.init(0))))
+
+
+def _entries(golden):
+    """(leaves, counts) of every checkpoint and seed of a golden."""
+    if "seeds" in golden:
+        return list(zip(golden["seeds"], golden["counts"]))
+    if isinstance(golden.get("ms"), dict):
+        return [(v["leaves"], v["counts"]) for v in golden["ms"].values()]
+    ff = golden.get("fast_forward", {})
+    return [(golden["leaves"], golden["counts"])] + (
+        [(ff["leaves"], ff["counts"])] if "leaves" in ff else [])
+
+
+@pytest.mark.parametrize("path", sorted(FILES))
+def test_golden_schema(path):
+    golden = _load(path)
+    assert golden["call"].startswith("jax.jit(")
+    assert "scan_chunk(proto," in golden["call"]
+    assert {"wall_s", "peak_rss_gb"} <= set(golden["generator"])
+    names = _leaf_names(*FILES[path])
+    entries = _entries(golden)
+    assert entries
+    for leaves, counts in entries:
+        assert sorted(leaves) == names
+        assert counts["dropped"] == counts["clamped"] == 0
+        assert counts["sp_dropped"] == 0
+    assert len({json.dumps(x, sort_keys=True) for x, _ in entries}) == \
+        len(entries)
+
+
+def test_golden_calls_and_depths():
+    """Each golden at the depth and with the skip counts its phase
+    reads."""
+    sf = _load(tp.SANFERMIN_GOLDEN_FILE)
+    assert sorted(map(int, sf["ms"])) == list(tp.SANFERMIN_MS)
+    assert sf["config"].startswith(f"SanFermin(node_count={tp.SANFERMIN_N}")
+    assert _load(tp.CAPPOS_GOLDEN_FILE)["ms"] == tp.CAPPOS_MS
+    d10k = _load(tp.DFINITY10K_GOLDEN_FILE)
+    assert d10k["ticks"] == tp.DFINITY10K_TICKS
+    assert d10k["counts"]["arena_dropped"] == 0
+    ff = d10k["fast_forward"]
+    assert "fast_forward_chunk(proto, 400, superstep=2)" in ff["call"]
+    assert ff["ticks"] == tp.DFINITY10K_FF_TICKS
+    assert len(ff["chunks"]) == tp.DFINITY10K_FF_TICKS // tp.DFINITY10K_TICKS
+    assert ff["skipped_ms"] == sum(c["skipped_ms"] for c in ff["chunks"])
+    assert 0 < ff["chunks"][0]["skipped_ms"] < tp.DFINITY10K_TICKS
+    assert ff["counts"]["arena_dropped"] == 0
+    quiet = _load(tp.DFINITY_QUIET_FILE)
+    assert quiet["ms"] == tp.QUIET_MS
+    assert len(quiet["seeds"]) == tp.QUIET_SEEDS
+    ff = quiet["fast_forward"]
+    assert len(ff["chunks"]) == tp.QUIET_MS // tp.QUIET_CHUNK
+    assert ff["skipped_ms"] == sum(c["skipped_ms"] for c in ff["chunks"])
+    flood = _load(tp.P2PFLOOD_QUIET_FILE)
+    assert len(flood["seeds"]) == tp.QUIET_SEEDS
+    assert all(c["frac_done"] == 1.0 for c in flood["counts"])
+
+
+@pytest.mark.slow
+def test_quiet_goldens_match_jax_and_port(tmp_path, monkeypatch):
+    """The quiet lines regenerated from the JAX package into a scratch
+    directory equal the committed files; the port's CPU runs of the same
+    batches (`network.scan_chunk` at K=2, and Dfinity fast-forwarded)
+    equal them seed by seed, with the JAX engine's skip counts."""
+    import torch
+    from wittgenstein_tpu_torch.core.state import init_batched
+    for name in ("DFINITY_QUIET_FILE", "P2PFLOOD_QUIET_FILE"):
+        monkeypatch.setattr(tp, name, str(tmp_path / name))
+    tp.write_quiet_goldens()
+    for name, protocol, n in (("DFINITY_QUIET_FILE", "dfinity", 10),
+                              ("P2PFLOOD_QUIET_FILE", "p2pflood", 256)):
+        fresh = _load(getattr(tp, name))
+        golden = _load(COMMITTED[name])
+        assert fresh["seeds"] == golden["seeds"]
+        proto = tp.port_protocol(protocol, n)
+        runs = [False, True] if "fast_forward" in golden else [False]
+        for ff in runs:
+            got, stats = tp.port_chunks(
+                proto, init_batched(proto, torch.arange(tp.QUIET_SEEDS)),
+                tp.QUIET_MS, tp.QUIET_CHUNK, 2, fast_forward=ff)
+            assert convert.seed_digests(*got[tp.QUIET_MS]) == \
+                golden["seeds"]
+            if ff:
+                assert stats == golden["fast_forward"]["chunks"]

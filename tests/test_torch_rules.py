@@ -47,6 +47,13 @@ def test_default_device_refuses_without_card(monkeypatch):
         Handel(node_count=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GSFSignature(node_count=64)
+    from wittgenstein_tpu_torch.models.dfinity import Dfinity
+    from wittgenstein_tpu_torch.models.p2pflood import P2PFlood
+    from wittgenstein_tpu_torch.models.sanfermin import (SanFermin,
+                                                         SanFerminCappos)
+    for proto in (Dfinity, P2PFlood, SanFermin, SanFerminCappos):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            proto()
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
@@ -75,6 +82,31 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_phase_failure_exits_nonzero(monkeypatch, tmp_path):
+    """A path that disagrees with its golden ends the smoke with exit
+    code 1 and no result: phase Q's P2PFlood batch run on the CPU at 32
+    nodes against a golden whose digests are not the run's."""
+    import json
+
+    import chip_smoke
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "Q_MS", chip_smoke.Q_CHUNK)
+    path = tmp_path / "golden.json"
+    path.write_text(json.dumps({"ms": chip_smoke.Q_CHUNK,
+                                "seeds": [{"net.time": "0"}] * 4}))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.raises(SystemExit) as e:
+            chip_smoke.quiet_run("cpu", "p2pflood", n=32,
+                                 golden_path=str(path))
+    finally:
+        torch.set_num_threads(threads)
+    assert e.value.code == 1
 
 
 def test_kernel_ab_fails_without_card():

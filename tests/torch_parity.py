@@ -40,6 +40,9 @@ if __name__ == "__main__":
     sys.path.insert(0, ROOT)
 
 from wittgenstein_tpu_torch import convert  # noqa: E402
+from wittgenstein_tpu_torch.models.dfinity import \
+    tracked_10k_params  # noqa: E402
+from wittgenstein_tpu_torch.models.p2pflood import quiet_params  # noqa: E402
 
 PORT_DATA = os.path.join(ROOT, "wittgenstein_tpu_torch", "data")
 TABLE_FILE = os.path.join(PORT_DATA, "latency_by_distance_w_jitter.npy")
@@ -57,8 +60,8 @@ PINGPONG_HARNESS_FILE = os.path.join(PORT_DATA,
                                      "golden_pingpong1000_r16_k2_200ms.json")
 PINGPONG_N, PINGPONG_MS = 1000, 800
 PINGPONG_SEEDS, PINGPONG_HARNESS_MS = 16, 200
-GSF_BATCH_FILE = os.path.join(PORT_DATA, "golden_gsf4096_r4_300ms.json")
-GSF_BATCH_SEEDS, GSF_BATCH_MS = 4, 300
+GSF_BATCH_FILE = os.path.join(PORT_DATA, "golden_gsf4096_r4_150ms.json")
+GSF_BATCH_SEEDS, GSF_BATCH_MS = 4, 150
 FF_STATS_FILE = os.path.join(PORT_DATA, "golden_pingpong1000_ff_stats.json")
 CARDINAL_N, CARDINAL_MS = 65536, (200, 1000)
 CARDINAL_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_cardinal65536_k2.json")
@@ -98,6 +101,78 @@ def assert_states_equal(ref, got, what=""):
     assert diff is None, (f"{what}: first difference at leaf {diff[0]} "
                           f"index {diff[1]}: reference {diff[2]!r}, port "
                           f"{diff[3]!r}")
+
+
+def seed_state(tree, r):
+    """Seed r's state out of a batched nested state (every leaf with a
+    leading seed axis)."""
+    if isinstance(tree, dict):
+        return {k: seed_state(v, r) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [seed_state(v, r) for v in tree]
+    return np.asarray(tree)[r]
+
+
+def jax_chunk_states(jproto, seeds, ms, chunk):
+    """The JAX package's states of `jproto` from ``jproto.init(seed)``
+    for each seed, after each of ``jax.jit(scan_chunk(jproto, chunk))``'s
+    calls to `ms`: ``{(seed, t): (net_np, pstate_np)}``.  One compiled
+    function serves every seed."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import scan_chunk
+
+    run = jax.jit(scan_chunk(jproto, chunk))
+    out = {}
+    for seed in seeds:
+        state = jax.tree.map(jnp.copy, jproto.init(seed))
+        for t in range(chunk, ms + 1, chunk):
+            state = run(*state)
+            out[seed, t] = jax_state(*state)
+    return out
+
+
+def jax_ff_batch(jproto, seeds, ms, chunk, superstep):
+    """The JAX fast-forward engine on a seed batch: ``jax.jit(
+    fast_forward_chunk(jproto, chunk, seed_axis=True, superstep=K))``
+    called from ``jax.vmap(jproto.init)(seeds)`` to `ms`.  Returns the
+    final batched state as nested numpy dicts and each call's skip
+    counts."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import fast_forward_chunk
+
+    run = jax.jit(fast_forward_chunk(jproto, chunk, seed_axis=True,
+                                     superstep=superstep))
+    state = jax.vmap(jproto.init)(jnp.asarray(seeds, jnp.int32))
+    stats = []
+    for _ in range(ms // chunk):
+        *state, st = run(*state)
+        stats.append({k: int(v) for k, v in st.items()})
+    return jax_state(*state), stats
+
+
+def port_chunks(proto, state, ms, chunk, superstep=1, fast_forward=False):
+    """The port's `network.scan_chunk` (or `fast_forward_chunk`, on the
+    state's own layout) in `chunk`-ms calls from `state` at time 0 to
+    `ms`: the numpy state after each call, and the skip counts of each
+    fast-forwarded call."""
+    from wittgenstein_tpu_torch.core import network
+    seed_axis = state[0].time.dim() > 0
+    run = (network.fast_forward_chunk(proto, chunk, seed_axis=seed_axis,
+                                      superstep=superstep)
+           if fast_forward else
+           network.scan_chunk(proto, chunk, superstep=superstep))
+    out, stats = {}, []
+    for t in range(chunk, ms + 1, chunk):
+        state = run(*state, t=t - chunk)
+        if fast_forward:
+            *state, st = state
+            stats.append(st)
+        out[t] = convert.to_numpy(*state)
+    return out, stats
 
 
 def jax_latency_table():
@@ -505,21 +580,263 @@ def write_attack_golden(n=ATTACK_N, ms=ATTACK_MS):
         "leaves": convert.state_digest(*jax_state(net, ps))}, t0)
 
 
+SANFERMIN_N, SANFERMIN_MS, SANFERMIN_BOX_SPLIT = 32768, (500, 1000), 2
+SANFERMIN_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                     "golden_sanfermin32768_box2.json")
+CAPPOS_MS = 200
+CAPPOS_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_cappos2048_200ms.json")
+DFINITY10K_TICKS, DFINITY10K_FF_TICKS = 400, 12000
+DFINITY10K_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                      "golden_dfinity10k_400ticks.json")
+QUIET_SEEDS, QUIET_MS, QUIET_CHUNK = 4, 1000, 200
+DFINITY_QUIET_FILE = os.path.join(PORT_DATA,
+                                  "golden_dfinity31_r4_1000ticks.json")
+P2PFLOOD_QUIET_FILE = os.path.join(PORT_DATA,
+                                   "golden_p2pflood256_r4_1000ms.json")
+
+
+def _chain_counts(net, ps):
+    """A run's engine drop and clamp counters, and (for a Dfinity
+    state) its arena's drops and the highest and lowest head height;
+    of seed 0 for a batch."""
+    pick = (lambda x: np.asarray(x)[0]) if np.ndim(net.time) else np.asarray
+    out = {k: int(pick(getattr(net, k)))
+           for k in ("dropped", "clamped", "bc_dropped", "sp_dropped")}
+    live = ~pick(net.nodes.down)
+    out["frac_done"] = float((pick(net.nodes.done_at)[live] > 0).mean())
+    if hasattr(ps, "arena"):
+        heights = pick(ps.arena.height)[pick(ps.head)]
+        out.update(arena_dropped=int(pick(ps.arena.dropped)),
+                   arena_n=int(pick(ps.arena.n)),
+                   height_max=int(heights.max()),
+                   height_min=int(heights.min()))
+    return out
+
+
+def write_sanfermin_golden(n=SANFERMIN_N, ms=SANFERMIN_MS, chunk=500):
+    """Leaf sha256s of the JAX package's SanFermin line of
+    `tools/bench_suite.py` (``SanFermin(node_count=n, inbox_cap=16)``,
+    ``box_split=SANFERMIN_BOX_SPLIT`` ring sub-planes), seed 0, at each
+    checkpoint of `ms`, through ``scan_chunk(proto, chunk)`` calls (K=1,
+    bench_suite's default).  The run's wall and peak RSS are in the
+    file, under "generator"."""
+    import time
+
+    import jax
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.sanfermin import SanFermin
+
+    t0 = time.monotonic()
+    proto = SanFermin(node_count=n, inbox_cap=16)
+    proto.cfg = dataclasses.replace(proto.cfg, box_split=SANFERMIN_BOX_SPLIT)
+    net, ps = proto.init(0)
+    run = jax.jit(scan_chunk(proto, chunk), donate_argnums=(0, 1))
+    at = {}
+    for t in range(chunk, ms[-1] + 1, chunk):
+        net, ps = run(net, ps)
+        if t in ms:
+            at[str(t)] = {"counts": _chain_counts(net, ps),
+                          "leaves": convert.state_digest(
+                              *jax_state(net, ps))}
+        print(f"sanfermin golden: {t} ms at {time.monotonic() - t0:.0f} s",
+              flush=True)
+    _write_golden(SANFERMIN_GOLDEN_FILE, {
+        "config": f"SanFermin(node_count={n}, inbox_cap=16), box_split "
+                  f"{SANFERMIN_BOX_SPLIT}, seed 0",
+        "call": f"jax.jit(wittgenstein_tpu.core.network.scan_chunk(proto, "
+                f"{chunk})) called from proto.init(0)",
+        "ms": at}, t0)
+
+
+def write_cappos_golden(ms=CAPPOS_MS):
+    """Leaf sha256s of the JAX package's ``SanFerminCappos()`` (its
+    default 2,048 nodes), seed 0, after ``scan_chunk(proto, ms)``."""
+    import time
+
+    import jax
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.sanfermin import SanFerminCappos
+
+    t0 = time.monotonic()
+    proto = SanFerminCappos()
+    net, ps = jax.jit(scan_chunk(proto, ms))(*proto.init(0))
+    _write_golden(CAPPOS_GOLDEN_FILE, {
+        "config": f"SanFerminCappos(), {proto.node_count} nodes, seed 0",
+        "call": f"jax.jit(wittgenstein_tpu.core.network.scan_chunk(proto, "
+                f"{ms}))(*proto.init(0))",
+        "ms": ms, "counts": _chain_counts(net, ps),
+        "leaves": convert.state_digest(*jax_state(net, ps))}, t0)
+
+
+def write_dfinity10k_golden(ticks=DFINITY10K_TICKS, chunk=200,
+                            ff_ticks=DFINITY10K_FF_TICKS):
+    """Leaf sha256s of the JAX package's Dfinity 10k-validator line
+    (`tracked_10k_params`), seed 0, after `ticks` engine ticks of
+    ``scan_chunk(proto, chunk)`` calls (K=1); then the same run
+    fast-forwarded from tick 0 in ``fast_forward_chunk(proto, ticks,
+    superstep=2)`` calls to `ff_ticks` (bench_suite's 120 simulated s):
+    equal to the dense state at `ticks`, each call's skip counts, and
+    the digests and counters at the end.  On an 8-core CPU host about 6
+    minutes dense and 3 fast-forwarded, 3.3 GB resident (the run's own
+    numbers are in the file, under "generator")."""
+    import time
+
+    import jax
+
+    from wittgenstein_tpu.core.network import fast_forward_chunk, scan_chunk
+    from wittgenstein_tpu.models.dfinity import Dfinity
+
+    t0 = time.monotonic()
+    proto = Dfinity(**tracked_10k_params())
+    run = jax.jit(scan_chunk(proto, chunk), donate_argnums=(0, 1))
+    net, ps = proto.init(0)
+    for t in range(chunk, ticks + 1, chunk):
+        net, ps = run(net, ps)
+    leaves = convert.state_digest(*jax_state(net, ps))
+    counts = _chain_counts(net, ps)
+    dense_s = time.monotonic() - t0
+    print(f"dfinity 10k golden: {ticks} ticks dense at {dense_s:.0f} s",
+          flush=True)
+    del net, ps
+    ff = jax.jit(fast_forward_chunk(proto, ticks, superstep=2),
+                 donate_argnums=(0, 1))
+    net, ps = proto.init(0)
+    chunks = []
+    for t in range(ticks, ff_ticks + 1, ticks):
+        net, ps, stats = ff(net, ps)
+        chunks.append({k: int(v) for k, v in stats.items()})
+        if t == ticks and convert.state_digest(
+                *jax_state(net, ps)) != leaves:
+            raise AssertionError("fast-forwarded Dfinity differs from the "
+                                 "dense run")
+    _write_golden(DFINITY10K_GOLDEN_FILE, {
+        "config": f"Dfinity(**tracked_10k_params()) = "
+                  f"{tracked_10k_params()}"
+                  f", {proto.node_count} nodes, seed 0",
+        "call": f"jax.jit(wittgenstein_tpu.core.network.scan_chunk(proto, "
+                f"{chunk})) called from proto.init(0)",
+        "ticks": ticks, "counts": counts, "leaves": leaves,
+        "dense_wall_s": round(dense_s, 1),
+        "fast_forward": {
+            "call": f"jax.jit(wittgenstein_tpu.core.network."
+                    f"fast_forward_chunk(proto, {ticks}, superstep=2)) "
+                    f"called from proto.init(0) to {ff_ticks} ticks; at "
+                    f"{ticks} equal to the dense state",
+            "chunks": chunks, "ticks": ff_ticks,
+            **{k: sum(c[k] for c in chunks) for k in chunks[0]},
+            "counts": _chain_counts(net, ps),
+            "leaves": convert.state_digest(*jax_state(net, ps))}}, t0)
+
+
+def _quiet_golden(proto, path, config, fast_forward):
+    """Per-seed leaf sha256s of `proto` on seeds 0..QUIET_SEEDS-1 after
+    QUIET_MS ms as `bench.py` `bench_quiet` drives it: QUIET_CHUNK-ms
+    ``jax.vmap(scan_chunk(proto, QUIET_CHUNK))`` calls (K=1) over
+    ``jax.vmap(proto.init)``; with `fast_forward`, the same batch again
+    through ``fast_forward_chunk(proto, QUIET_CHUNK, seed_axis=True,
+    superstep=2)`` calls, checked against the dense states, with the
+    skip counts of each call."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import fast_forward_chunk, scan_chunk
+
+    t0 = time.monotonic()
+    seeds = jnp.arange(QUIET_SEEDS, dtype=jnp.int32)
+    run = jax.jit(jax.vmap(scan_chunk(proto, QUIET_CHUNK)))
+    nets, ps = jax.vmap(proto.init)(seeds)
+    for _ in range(QUIET_MS // QUIET_CHUNK):
+        nets, ps = run(nets, ps)
+    digests = convert.seed_digests(*jax_state(nets, ps))
+    counts = [_chain_counts(*jax.tree.map(lambda x, r=r: x[r:r + 1],
+                                          (nets, ps)))
+              for r in range(QUIET_SEEDS)]
+    body = {"config": config,
+            "call": f"jax.jit(jax.vmap(wittgenstein_tpu.core.network."
+                    f"scan_chunk(proto, {QUIET_CHUNK}))) called "
+                    f"{QUIET_MS // QUIET_CHUNK} times from jax.vmap("
+                    f"proto.init)(jnp.arange({QUIET_SEEDS}))",
+            "ms": QUIET_MS, "counts": counts, "seeds": digests}
+    if fast_forward:
+        ff = jax.jit(fast_forward_chunk(proto, QUIET_CHUNK, seed_axis=True,
+                                        superstep=2))
+        nets, ps = jax.vmap(proto.init)(seeds)
+        chunks = []
+        for _ in range(QUIET_MS // QUIET_CHUNK):
+            nets, ps, stats = ff(nets, ps)
+            chunks.append({k: int(v) for k, v in stats.items()})
+        if convert.seed_digests(*jax_state(nets, ps)) != digests:
+            raise AssertionError(f"{config}: fast-forwarded batch differs "
+                                 "from the dense run")
+        body["fast_forward"] = {
+            "call": f"jax.jit(wittgenstein_tpu.core.network."
+                    f"fast_forward_chunk(proto, {QUIET_CHUNK}, "
+                    "seed_axis=True, superstep=2)) called "
+                    f"{QUIET_MS // QUIET_CHUNK} times, equal to the dense "
+                    "states", "chunks": chunks,
+            **{k: sum(c[k] for c in chunks) for k in chunks[0]}}
+    _write_golden(path, body, t0)
+
+
+def write_quiet_goldens():
+    """bench_quiet's Dfinity (the reference default, 31 nodes) and
+    P2PFlood (`quiet_params`) lines, a minute or two each."""
+    from wittgenstein_tpu.models.dfinity import Dfinity
+    from wittgenstein_tpu.models.p2pflood import P2PFlood
+
+    _quiet_golden(Dfinity(), DFINITY_QUIET_FILE,
+                  "Dfinity(), 31 nodes, seeds 0-3", True)
+    _quiet_golden(P2PFlood(**quiet_params()), P2PFLOOD_QUIET_FILE,
+                  f"P2PFlood(**quiet_params()) = "
+                  f"{quiet_params()}, seeds 0-3", False)
+
+
+def _params(protocol: str, n: int) -> dict:
+    """Constructor arguments of `protocol` at size `n` (for Dfinity, n
+    attesters, committees of up to 10)."""
+    if protocol == "dfinity":
+        return dict(attesters_count=n, attesters_per_round=min(n, 10))
+    if protocol == "p2pflood":
+        return quiet_params(n)
+    if protocol == "handel":
+        from wittgenstein_tpu_torch.models.handel import \
+            reference_default_params
+        return reference_default_params(n)
+    return dict(node_count=n)
+
+
+_CLASSES = {"pingpong": ("pingpong", "PingPong"),
+            "gsf": ("gsf", "GSFSignature"), "handel": ("handel", "Handel"),
+            "sanfermin": ("sanfermin", "SanFermin"),
+            "cappos": ("sanfermin", "SanFerminCappos"),
+            "dfinity": ("dfinity", "Dfinity"),
+            "p2pflood": ("p2pflood", "P2PFlood")}
+
+
+def jax_protocol(protocol: str, n: int):
+    """The JAX package's `protocol` at size `n`."""
+    import importlib
+    mod, cls = _CLASSES[protocol]
+    return getattr(importlib.import_module(f"wittgenstein_tpu.models.{mod}"),
+                   cls)(**_params(protocol, n))
+
+
+def port_protocol(protocol: str, n: int, device="cpu"):
+    """The port's `protocol` at size `n`, on `device`."""
+    import importlib
+    mod, cls = _CLASSES[protocol]
+    return getattr(importlib.import_module(
+        f"wittgenstein_tpu_torch.models.{mod}"), cls)(
+            **_params(protocol, n), device=device)
+
+
 def _protocols(n: int, protocol: str):
     """(JAX protocol, port protocol on the CPU) for `check`."""
-    if protocol == "pingpong":
-        from wittgenstein_tpu.models.pingpong import PingPong as JPingPong
-        from wittgenstein_tpu_torch.models.pingpong import PingPong
-        return JPingPong(node_count=n), PingPong(node_count=n, device="cpu")
-    if protocol == "gsf":
-        from wittgenstein_tpu.models.gsf import GSFSignature as JGSF
-        from wittgenstein_tpu_torch.models.gsf import GSFSignature
-        return JGSF(node_count=n), GSFSignature(node_count=n, device="cpu")
-    from wittgenstein_tpu.models.handel import Handel as JHandel
-    from wittgenstein_tpu_torch.models.handel import (
-        Handel, reference_default_params)
-    params = reference_default_params(n)
-    return JHandel(**params), Handel(**params, device="cpu")
+    return jax_protocol(protocol, n), port_protocol(protocol, n)
 
 
 def check(n: int, ms: int, protocol: str = "handel", every: int = 100,
@@ -577,6 +894,18 @@ def main():
         return
     if sys.argv[1:2] == ["attack-golden"]:
         write_attack_golden()
+        return
+    if sys.argv[1:2] == ["sanfermin-golden"]:
+        write_sanfermin_golden()
+        return
+    if sys.argv[1:2] == ["cappos-golden"]:
+        write_cappos_golden()
+        return
+    if sys.argv[1:2] == ["dfinity10k-golden"]:
+        write_dfinity10k_golden()
+        return
+    if sys.argv[1:2] == ["quiet-golden"]:
+        write_quiet_goldens()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

@@ -3,9 +3,11 @@
 Both sides meet as nested dicts of numpy arrays under the JAX field
 names: ``{"time": ..., "nodes": {"x": ...}, "box_data": [plane, ...],
 ...}`` for the `NetState` and the same for the protocol state (a
-`HandelState`, a `HandelCardinalState`, a `GSFState` or a
-`PingPongState`, told apart by their leaf names; a protocol whose state is a plain dict of tensors, as the
-engine tests' probes have, converts leaf for leaf).  The JAX
+`HandelState`, a `HandelCardinalState`, a `GSFState`, a `PingPongState`,
+a `SanFerminState`, a `CapposState`, a `DfinityState` with its nested
+`Arena` as a nested dict, or a `P2PFloodState`, told apart by their leaf
+names; a protocol whose state is a plain dict of tensors, as the engine
+tests' probes have, converts leaf for leaf).  The JAX
 side builds them from its dataclasses (the tests do so with
 `jax.tree_util`); `from_reference` turns them into the port's state and
 `to_numpy` back.  uint32 leaves (bitsets) are reinterpreted, never
@@ -18,17 +20,23 @@ payload word f of sub-plane j; Handel's q_sig is a tuple of
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
+import os
 
 import numpy as np
 import torch
 
+from .core.blockchain import Arena
 from .core.state import NetState, NodeState
+from .models.dfinity import DfinityState
 from .models.gsf import GSFState
 from .models.handel import HandelState
 from .models.handel_cardinal import HandelCardinalState
+from .models.p2pflood import P2PFloodState
 from .models.pingpong import PingPongState
+from .models.sanfermin import CapposState, SanFerminState
 
 #: per protocol state class: the leaves the JAX package stores as uint32
 #: bitsets, and whether its q_sig is a tuple of `state_split` pieces
@@ -40,7 +48,14 @@ STATES = {
     GSFState: (("verified", "ver_indiv", "got_indiv", "q_sig", "pend_sig",
                 "pool"), False),
     PingPongState: ((), False),
+    SanFerminState: ((), False),
+    CapposState: ((), False),
+    DfinityState: (("recv_blk", "votes", "buffered", "maj_height",
+                    "exchanged", "q_vote", "q_bcast_blk"), False),
+    P2PFloodState: ((), False),
 }
+#: protocol state leaves that are structs of their own
+NESTED = {"arena": Arena}
 
 
 def state_class(pstate_np: dict):
@@ -59,7 +74,11 @@ def _tensor(a, device):
 
 
 def _numpy(t: torch.Tensor, u32: bool = False):
+    """A copy: a CPU tensor's `.numpy()` shares its memory, and the
+    engine updates the ring in place."""
     a = t.detach().cpu().numpy()
+    if t.device.type == "cpu":
+        a = a.copy()
     return a.view(np.uint32) if u32 else a
 
 
@@ -100,10 +119,13 @@ def from_reference(net_np: dict, pstate_np: dict, device):
         cls = state_class(pstate_np)
     except ValueError:
         return net, {k: _tensor(v, dev) for k, v in pstate_np.items()}
-    pstate = cls(**{k: tuple(_tensor(x, dev) for x in v)
-                    if STATES[cls][1] and k == "q_sig" else _tensor(v, dev)
-                    for k, v in pstate_np.items()})
-    return net, pstate
+    def leaf(k, v):
+        if k in NESTED:
+            return NESTED[k](**{f: _tensor(x, dev) for f, x in v.items()})
+        if STATES[cls][1] and k == "q_sig":
+            return tuple(_tensor(x, dev) for x in v)
+        return _tensor(v, dev)
+    return net, cls(**{k: leaf(k, v) for k, v in pstate_np.items()})
 
 
 def to_numpy(net: NetState, pstate):
@@ -136,9 +158,13 @@ def to_numpy(net: NetState, pstate):
     ps_np = {}
     for fld in dataclasses.fields(pstate):
         v = getattr(pstate, fld.name)
-        ps_np[fld.name] = ([_numpy(x, True) for x in v]
-                           if split and fld.name == "q_sig" else
-                           _numpy(v, fld.name in u32))
+        if fld.name in NESTED:
+            ps_np[fld.name] = {g.name: _numpy(getattr(v, g.name))
+                               for g in dataclasses.fields(v)}
+        elif split and fld.name == "q_sig":
+            ps_np[fld.name] = [_numpy(x, True) for x in v]
+        else:
+            ps_np[fld.name] = _numpy(v, fld.name in u32)
     return net_np, ps_np
 
 
@@ -158,26 +184,37 @@ def flatten(tree, prefix: str = "") -> dict:
 
 
 def leaf_digest(a) -> str:
-    """sha256 of a leaf's dtype, shape and bytes."""
-    a = np.array(a, order="C")
+    """sha256 of a leaf's dtype, shape and bytes (hashed in place, no
+    copy of a C-contiguous leaf)."""
+    a = np.asarray(a)
+    if not a.flags.c_contiguous:
+        a = np.array(a, order="C")
     h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
-    h.update(a.tobytes())
+    h.update(a.reshape(-1).view(np.uint8))
     return h.hexdigest()
+
+
+def _digests(leaves: dict) -> dict:
+    """`leaf_digest` of each leaf, on threads: hashlib releases the GIL,
+    and a state at scale is GBs of leaves."""
+    with concurrent.futures.ThreadPoolExecutor(
+            min(8, os.cpu_count() or 1)) as pool:
+        return dict(zip(leaves, pool.map(leaf_digest, leaves.values())))
 
 
 def state_digest(net_np: dict, pstate_np: dict) -> dict:
     """``{leaf name: sha256}`` over both states' leaves."""
-    flat = flatten({"net": net_np, "pstate": pstate_np})
-    return {k: leaf_digest(v) for k, v in flat.items()}
+    return _digests(flatten({"net": net_np, "pstate": pstate_np}))
 
 
-def seed_digests(net_np: dict, pstate_np: dict) -> list:
+def seed_digests(net_np: dict, pstate_np: dict, seeds=None) -> list:
     """Per seed of a batched state (leading R axis on every leaf), the
-    `state_digest` that seed's state alone would have."""
+    `state_digest` that seed's state alone would have; of the batch
+    positions `seeds` only, when given."""
     flat = flatten({"net": net_np, "pstate": pstate_np})
-    r = len(flat["net.time"])
-    return [{k: leaf_digest(v[i]) for k, v in flat.items()}
-            for i in range(r)]
+    if seeds is None:
+        seeds = range(len(flat["net.time"]))
+    return [_digests({k: v[i] for k, v in flat.items()}) for i in seeds]
 
 
 def first_difference(a: dict, b: dict):

@@ -89,3 +89,49 @@ def includes(a, b, axis=-1):
 def intersects(a, b, axis=-1):
     """wittgenstein_tpu/ops/bitset.py:71-72."""
     return ((a & b) != 0).any(dim=axis)
+
+
+def pack(flags):
+    """[..., n] bools -> [..., n_words(n)] words, bit i of the row set
+    where ``flags[..., i]``: the OR of their `one_bit` words.  Each word
+    is the sum of distinct powers of two, so the JAX package's forms
+    that ADD distinct one-hot words (``.at[:, word].add``) and those
+    that OR-reduce them (``lax.reduce(..., bitwise_or)``) both equal
+    it."""
+    n = flags.shape[-1]
+    w = n_words(n)
+    if w * WORD != n:
+        flags = torch.cat([flags, flags.new_zeros(
+            flags.shape[:-1] + (w * WORD - n,))], -1)
+    weights = torch.ones(WORD, dtype=torch.int64, device=flags.device) << \
+        torch.arange(WORD, dtype=torch.int64, device=flags.device)
+    words = (flags.reshape(flags.shape[:-1] + (w, WORD)).to(torch.int64) *
+             weights).sum(-1)
+    return to_i32(words)
+
+
+def bits_of(idx, mask, n: int):
+    """[N, S] indices in [0, n) -> [N, n_words(n)] words with bit
+    ``idx[i, s]`` of row i set for every ``mask[i, s]``: the JAX
+    package's ``lax.reduce(where(mask[..., None], one_bit(idx, w), 0),
+    0, bitwise_or, (1,))``, a repeated index setting its bit once.  The
+    indices are scattered into an [N, n + 1] bool row (the last column a
+    dump for the masked-off slots) and packed, never expanded to [N, S,
+    W] words."""
+    rows = idx.shape[0]
+    slot = torch.where(mask, idx, n).long()
+    flags = torch.zeros((rows, n + 1), dtype=torch.bool, device=idx.device)
+    flags = flags.scatter(1, slot, torch.ones_like(mask))
+    return pack(flags[:, :n])
+
+
+def lowest_bit(word):
+    """Position of the lowest set bit of each int32 word, 0 for the zero
+    word: the JAX package's ``31 - clz(max(low, 1).astype(int32))`` with
+    ``low = word & (~word + 1)`` on uint32 words
+    (wittgenstein_tpu/models/dfinity.py:462-463).  ``low`` is isolated in
+    int64, where the negation cannot overflow and the comparison with 1
+    is unsigned; ``low - 1`` then has exactly that many bits set."""
+    w = word.to(torch.int64) & 0xFFFFFFFF
+    low = w & (-w)
+    return popcount_words(to_i32((low - 1).clamp_min(0)))
