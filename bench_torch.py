@@ -49,6 +49,20 @@ unicast and arena drops, heads within one height, the highest at least
 one run, 6,000 ms in 500-ms chunks at the proved K (2), zero drops and
 at most 2% of the nodes stranded.
 
+``--proto casper`` is Casper IMD's reference configuration
+(``CasperIMD()``: 83 nodes, 20-ms ticks; ``--attesters`` sets the
+attesters a round), 8 seeds by default, ``--ticks`` (4,000 by default)
+in 1,000-tick chunks of `network.scan_chunk` on the seed batch at the
+proved K, checked for progress and zero unicast and arena drops, with
+the heads' height range, the blocks and the attestations reported.
+``--proto ethpow`` is `try_miner`'s batch at one hash-power point:
+``ETHPoW`` with ``--nodes`` miners (10), ``--miner`` (ETHSelfishMiner)
+at ``--pow`` (0.40) of the hash power, 1-s fixed latency and 8,192
+blocks, ``--runs`` seeds numbered from 1 (5), ``--ticks`` (3,000) in
+1,000-tick chunks at the proved K; it prints `try_miner`'s CSV header
+and row for the final state before the JSON line.  For both a tick is a
+simulated step (20 and 10 ms), and ``--ticks`` is ``--ms``.
+
     python3 bench_torch.py                      # 2048 nodes x 16 seeds, cuda
     python3 bench_torch.py --device cpu --nodes 64 --seeds 2 --ms 200
     python3 bench_torch.py --proto pingpong     # 256 nodes x 4 seeds, cuda
@@ -57,6 +71,8 @@ at most 2% of the nodes stranded.
     python3 bench_torch.py --proto dfinity --attesters 10000 --reps 1
     python3 bench_torch.py --proto p2pflood     # 256 nodes x 4 seeds
     python3 bench_torch.py --proto sanfermin --reps 1   # 32768 nodes
+    python3 bench_torch.py --proto casper --ticks 15000 --reps 1
+    python3 bench_torch.py --proto ethpow --ticks 30000 --reps 1
     python3 bench_torch.py --fast-forward       # the headline, fast-forward
     python3 bench_torch.py --mode cardinal --nodes 65536 --seeds 1
     python3 bench_torch.py --nodes 32768 --seeds 1 --emission hashed \
@@ -100,7 +116,8 @@ SUPERSTEP = 2
 DEFAULTS = {"handel": (2048, 16, 1000, 200), "pingpong": (256, 4, 1000, 200),
             "gsf": (4096, 4, 2500, 250), "dfinity": (None, 4, 1000, 200),
             "p2pflood": (256, 4, 1000, 200),
-            "sanfermin": (32768, 1, 6000, 500)}
+            "sanfermin": (32768, 1, 6000, 500),
+            "casper": (None, 8, 4000, 1000), "ethpow": (10, 5, 3000, 1000)}
 #: `--proto dfinity --attesters A`, bench_suite's line: one seed, 12,000
 #: ticks (the 120 simulated s its docstring and height check describe)
 #: in 2,000-tick chunks
@@ -294,6 +311,66 @@ def sanfermin_line(args, seeds):
     return proto, run, check, "scan", k
 
 
+def casper_line(args, seeds):
+    """Casper IMD's reference configuration (`CasperIMD()`, the
+    attesters a round from ``--attesters``), its check progress (the
+    highest head) > 0 with zero unicast and arena drops."""
+    from wittgenstein_tpu_torch.models.casper import CasperIMD
+    kw = {} if args.attesters is None else {
+        "attesters_per_round": args.attesters}
+    proto = CasperIMD(**kw, device=args.device)
+    args.nodes = proto.node_count
+    run, k = quiet_runner(proto, args)
+
+    def check(nets, ps):
+        heights = ps.arena.height.gather(-1, ps.head.long()).cpu()
+        out = {"progress": int(heights.max()),
+               "head_skew": int((heights.max(-1).values -
+                                 heights.min(-1).values).max()),
+               "blocks": int((ps.arena.n - 1).sum()),
+               "attestations": int(ps.att_n.sum()),
+               "dropped": int(nets.dropped.sum()),
+               "bc_dropped": int(nets.bc_dropped.sum()),
+               "arena_dropped": int(ps.arena.dropped.sum())}
+        if not out["progress"] > 0:
+            raise AssertionError("casper made no progress")
+        if out["dropped"] or out["arena_dropped"]:
+            raise AssertionError(f"drops: {out}")
+        return out
+    return proto, run, check, "vmapped", k
+
+
+def ethpow_line(args, seeds):
+    """`try_miner`'s batch at one point (the module docstring), its
+    check zero unicast and arena drops (a short run may mine no block);
+    the CSV row of the final state is kept in ``args.csv``."""
+    from wittgenstein_tpu_torch.models.ethpow import (CSV_HEADER, ETHPoW,
+                                                      miner_row)
+    latency = "NetworkFixedLatency(1000)"
+    proto = ETHPoW(number_of_miners=args.nodes, byz_class_name=args.miner,
+                   byz_mining_ratio=args.pow, network_latency_name=latency,
+                   capacity=8192, device=args.device)
+    args.first_seed = 1
+    run, k = quiet_runner(proto, args)
+    ticks = max(1, -(-args.ms // args.chunk)) * args.chunk
+    hours = ticks * proto.tick_ms / 3.6e6
+
+    def check(nets, ps):
+        row, line = miner_row(ps, seeds, hours, args.miner, args.pow,
+                              latency)
+        args.csv = [CSV_HEADER, line]
+        out = {"blocks": int((ps.arena.n - 1).sum()),
+               "dropped": int(nets.dropped.sum()),
+               "bc_dropped": int(nets.bc_dropped.sum()),
+               "arena_dropped": int(ps.arena.dropped.sum()),
+               "revenue_ratio": row["revenue_ratio"],
+               "uncle_rate": row["uncle_rate"], "csv_row": line}
+        if out["dropped"] or out["arena_dropped"]:
+            raise AssertionError(f"drops: {out}")
+        return out
+    return proto, run, check, "vmapped", k
+
+
 def ff_step(run, clock, chunk):
     """A fast-forward chunk as the measurement's step, its skip counts
     kept (`bench.py`'s `_ff_step_wrapper`)."""
@@ -361,9 +438,14 @@ def main(argv=None) -> int:
     ap.add_argument("--box-split", type=int, default=1)
     ap.add_argument("--seed-batch", type=int, default=16)
     ap.add_argument("--attesters", type=int, default=None)
+    ap.add_argument("--ticks", type=int, default=None, dest="ms")
+    ap.add_argument("--runs", type=int, default=None, dest="seeds")
+    ap.add_argument("--miner", default="ETHSelfishMiner")
+    ap.add_argument("--pow", type=float, default=0.40)
     args = ap.parse_args(argv)
-    if args.attesters and args.proto != "dfinity":
-        ap.error("--attesters is Dfinity's")
+    args.first_seed = 0
+    if args.attesters and args.proto not in ("dfinity", "casper"):
+        ap.error("--attesters is Dfinity's and Casper's")
     if args.fast_forward and args.proto in ("gsf", "sanfermin"):
         ap.error(f"{args.proto} has no fast-forward oracle "
                  "(next_action_time)")
@@ -373,13 +455,16 @@ def main(argv=None) -> int:
         ap.error("--mode, --emission, --pool, --state-split and "
                  "--box-split are Handel's")
     nodes, n_seeds, ms, args.chunk = DEFAULTS[args.proto]
-    if args.attesters:
+    if args.attesters and args.proto == "dfinity":
         n_seeds, ms, args.chunk = DFINITY_TRACKED
     args.nodes = nodes if args.nodes is None else args.nodes
     args.seeds = n_seeds if args.seeds is None else args.seeds
     args.ms = ms if args.ms is None else args.ms
+    if args.proto in ("casper", "ethpow"):
+        args.chunk = min(args.chunk, args.ms)
     # bench_suite's single-seed lines run one unbatched state
-    args.single = args.proto == "sanfermin" or bool(args.attesters)
+    args.single = args.proto == "sanfermin" or (
+        args.proto == "dfinity" and bool(args.attesters))
     if args.single and args.seeds != 1:
         ap.error("the SanFermin and --attesters lines run one seed")
 
@@ -391,7 +476,8 @@ def main(argv=None) -> int:
     line = {"handel": handel_line, "pingpong": pingpong_line,
             "gsf": gsf_line, "dfinity": dfinity_line,
             "p2pflood": p2pflood_line,
-            "sanfermin": sanfermin_line}[args.proto]
+            "sanfermin": sanfermin_line, "casper": casper_line,
+            "ethpow": ethpow_line}[args.proto]
     micro = args.proto == "handel" and args.seeds > args.seed_batch
     if micro and args.seeds % args.seed_batch:
         ap.error(f"--seeds {args.seeds} is not a multiple of --seed-batch "
@@ -408,7 +494,7 @@ def main(argv=None) -> int:
         clock["t"] = 0
         if args.single:
             return proto.init(first)
-        return init_batched(proto, seeds + first)
+        return init_batched(proto, seeds + first + args.first_seed)
 
     def step(nets, ps):
         # The batch's time is kept on the host: no read-back per chunk.
@@ -440,6 +526,8 @@ def main(argv=None) -> int:
            "device": (torch.cuda.get_device_name(proto.device)
                       if platform == "cuda" else platform),
            "card": card(platform), **res}
+    for row in getattr(args, "csv", ()):
+        print(row, flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -91,11 +91,13 @@ Phases (any failure exits non-zero; nothing is caught):
    a ms;
 S. SanFermin at 32,768 nodes, `tools/bench_suite.py`'s line
    (``SanFermin(node_count=32768, inbox_cap=16)``, two ring
-   sub-planes), one seed at K=2 in 500-ms chunks to 1,000 ms (the
-   bench line runs on to 6,000): equal to the JAX golden at 500 and
-   1,000 ms, zero drops and clamps, route once a window per sub-plane;
-C. `SanFerminCappos()` (2,048 nodes), one seed, 200 ms at K=2: equal
-   to its JAX golden;
+   sub-planes), one seed at K=2 in one 500-ms chunk (the bench line
+   runs on to 6,000; cut from 1,000 ms for time, PR 10): equal to the
+   JAX golden at 500 ms, zero drops and clamps, route once a window per
+   sub-plane;
+C. `SanFerminCappos()` (2,048 nodes), one seed, 100 ms at K=2 (cut
+   from 200 for time, PR 10, its golden regenerated): equal to its JAX
+   golden;
 D. Dfinity with 10,000 attesters (bench_suite's line, 10,111 nodes),
    one seed: dense to 400 ticks at K=2, equal to its JAX golden; then
    fast-forwarded from tick 0 in 400-tick chunks to 12,000 ticks (120
@@ -103,19 +105,36 @@ D. Dfinity with 10,000 attesters (bench_suite's line, 10,111 nodes),
    12,000, every chunk's skip counts the JAX engine's, zero unicast and
    arena drops, heads within 1 (the JAX run stops at height 2, short of
    bench_suite's 30: the port is held to the JAX run);
-Q. `bench.py` `bench_quiet`'s lines, 4 seeds in one batch, 1,000 ms in
-   200-ms `network.scan_chunk` chunks at K=2: Dfinity (31 nodes) dense
+Q. `bench.py` `bench_quiet`'s lines, 4 seeds in one batch, 400 ms in
+   200-ms `network.scan_chunk` chunks at K=2 (`bench_torch.py` runs
+   1,000; cut for time, PR 10, its goldens regenerated; P2PFlood's
+   flood completes by 400): Dfinity (31 nodes) dense
    and fast-forwarded (the JAX engine's skip counts chunk by chunk),
    P2PFlood (`quiet_params`, 256 nodes) dense; every seed equal to its
    golden.
 
-Each of S-Q logs its wall, its peak allocated memory and its PyTorch
-ops a simulated ms (torch.profiler, host side, over OPS_MS more ms or
-one more fast-forwarded chunk), and checks route's launches.  K1 is
-also timed against its plain version on a batch taken from S's, D's
-and Q's P2PFlood windows (`capture_route`: of all their windows, S's
-first sub-plane, the one with the most valid messages), right after
-each path.
+K. Casper IMD's reference configuration, `CasperIMD()` (83 nodes,
+   20-ms ticks, the WF byzantine producer), seeds 0-7 in one batch
+   through `run_multiple_times` in 2,000-tick chunks at the proved K
+   (2) to 4,000 ticks (80 simulated s): every seed equal to its JAX
+   golden at 2,000 and 4,000 ticks, zero unicast, broadcast and arena
+   drops, heads within 2;
+E. ETHPoW, `try_miner`'s batch at one hash-power point (10 miners, the
+   selfish miner at 0.40, 1-s latency, 8,192 blocks), seeds 1-5 in one
+   batch through `run_multiple_times` in 1,000-tick chunks at K=2 to
+   3,000 ticks: every leaf equal to the JAX golden (`thr` float for
+   float), `try_miner`'s CSV row the JAX run's, zero drops;
+   its ops a tick at 8,192 blocks equal to those at 1,024 within 1%.
+
+Each of S-E logs its wall, its peak allocated memory and its PyTorch
+ops a simulated ms or tick (torch.profiler, host side, over OPS_MS more
+ms, one more fast-forwarded chunk, or for K the slot boundary after its
+run and 10 ticks after that), and checks route's launches.  K1 is also
+timed against its plain version on a batch taken from S's, D's, Q's
+P2PFlood, K's and E's
+windows (`capture_route`: of all their windows, S's first sub-plane,
+the one with the most valid messages; K and E send only broadcasts, so
+their windows bin none), right after each path.
 
 Phase 2 holds route, merge and score at the headline's shapes too:
 route with R 16 on a K=2 window, merge and score through their vmap
@@ -203,13 +222,13 @@ ATTACK_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                              "golden_handel1024_suicide_200ms.json")
 SF_NODES = 32768
 SF_CHUNK = 500
-SF_MS = 1000            # the golden's last checkpoint (bench_torch.py runs on)
+SF_MS = 500             # the golden's first checkpoint (bench_torch runs on)
 SF_BOX_SPLIT = 2
 SF_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                          "golden_sanfermin32768_box2.json")
-CAPPOS_MS = 200
+CAPPOS_MS = 100
 CAPPOS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                             "golden_cappos2048_200ms.json")
+                             "golden_cappos2048_100ms.json")
 D_CHUNK = 200
 D_TICKS = 400
 D_FF_CHUNK = 400
@@ -218,14 +237,26 @@ D_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                         "golden_dfinity10k_400ticks.json")
 Q_SEEDS = 4
 Q_CHUNK = 200
-Q_MS = 1000
+Q_MS = 400
 QD_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                         "golden_dfinity31_r4_1000ticks.json")
+                         "golden_dfinity31_r4_400ticks.json")
 QP_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                         "golden_p2pflood256_r4_1000ms.json")
+                         "golden_p2pflood256_r4_400ms.json")
+K_SEEDS = 8
+K_CHUNK = 2000
+K_TICKS = 4000          # 80 simulated s, 10 slots (BASELINE's 5 h cut)
+K_OPS_TICKS = 10        # ticks 4,002-4,012, WF ticks after a slot boundary
+K_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                        "golden_casper83_r8_4000ticks.json")
+E_RUNS = 5
+E_CHUNK = 1000
+E_TICKS = 3000          # 30 simulated s
+E_OPS_TICKS = 4         # ticks 0-4 at 8,192 and at 1,024 blocks
+E_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                        "golden_ethpow10_r5_3000ticks.json")
 OPS_MS = 2              # simulated ms over which a path's ops are counted
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-WARMUP, ITERS = 3, 20
+WARMUP, ITERS = 2, 10   # 3 and 20 before PR 10 (cut for time)
 PLAIN_BUDGET_S = 0.25
 
 
@@ -459,7 +490,7 @@ def route_pingpong_case(dev, rng, kind, r):
     return ring, msg
 
 
-def phase_route(dev, rng, make=route_case, **shape):
+def phase_route(dev, rng, make=route_case, phases=True, **shape):
     import torch
     from wittgenstein_tpu_torch.ops.route import bin_into_ring, \
         bin_into_ring_plain
@@ -483,17 +514,26 @@ def phase_route(dev, rng, make=route_case, **shape):
 
     def plain_fn():
         bin_into_ring_plain(*work, *msg)
-    # Each phase alone, cold, by its kernel's name; then the whole call
-    # cold: every device op of the wrapper, the reset's own ops measured
-    # alone and taken off.  Warm, both phases by the prefix of their
-    # names: taking off the count copy's time there left a spread wider
-    # than the call.
-    phases = {k: device_ms(kern_fn, k, cold(reset)) * 1e3
-              for k in ("route_bucket_kernel", "route_rank_kernel")}
+    # Each phase alone, cold, by its kernel's name (where `phases`: the
+    # Handel, headline and scale windows); then the whole call cold:
+    # every device op of the wrapper, the reset's own ops measured alone
+    # and taken off.  Warm, both phases by the prefix of their names:
+    # taking off the count copy's time there left a spread wider than
+    # the call.
+    out = {}
+    if phases:
+        out["phases_us"] = {
+            k: device_ms(kern_fn, k, cold(reset)) * 1e3
+            for k in ("route_bucket_kernel", "route_rank_kernel")}
     plain_n = plain_iters(plain_fn, reset)
-    return dict(err=err, ms=device_ms(kern_fn, None, cold(reset),
-                                      by_name="route_"),
-                warm_ms=device_ms(kern_fn, "route_", reset), phases_us=phases,
+    # A batch with no valid message (Casper's and ETHPoW's windows: they
+    # only broadcast) is the two launches' floor, inside the noise of
+    # the reset's time: timed by its kernels' names at once.
+    whole = (device_ms(kern_fn, "route_", cold(reset))
+             if not bool(msg[-1].any()) else
+             device_ms(kern_fn, None, cold(reset), by_name="route_"))
+    return dict(out, err=err, ms=whole,
+                warm_ms=device_ms(kern_fn, "route_", reset),
                 plain_ms=device_ms(plain_fn, None, reset, plain_n),
                 call_ms=call_ms(kern_fn, reset),
                 plain_call_ms=call_ms(plain_fn, reset, plain_n),
@@ -663,18 +703,20 @@ def phase_score_headline(dev, rng):
 
 
 def phase_route_gsf(dev, rng):
-    return phase_route(dev, rng, hz=512, n=GSF_NODES, c=16, out_deg=22)
+    return phase_route(dev, rng, hz=512, n=GSF_NODES, c=16, out_deg=22,
+                       phases=False)
 
 
 def phase_route_pingpong(dev, rng):
     """K1 on one K=2 window of PingPong's pongs for 16 seeds."""
     return phase_route(dev, rng, route_pingpong_case, kind="window",
-                       r=PP_SEEDS)
+                       r=PP_SEEDS, phases=False)
 
 
 def phase_route_drain(dev, rng):
     """K1 on a spill drain's batch."""
-    return phase_route(dev, rng, route_pingpong_case, kind="drain", r=1)
+    return phase_route(dev, rng, route_pingpong_case, kind="drain", r=1,
+                       phases=False)
 
 
 def gsf_merge_case(dev, rng):
@@ -962,7 +1004,7 @@ def phase_score_t2(dev, rng):
 def phase_route_gsf_r4(dev, rng):
     """K1 on one ms of the GSF batch's sends: R 4, M = 4096 x 22 a seed."""
     return phase_route(dev, rng, hz=512, n=GSF_NODES, c=16, out_deg=22,
-                       r=GSF_SEEDS)
+                       r=GSF_SEEDS, phases=False)
 
 
 def phase_gsf_merge_r4(dev, rng):
@@ -1011,7 +1053,8 @@ def capture_route(name, calls):
 def phase_route_captured(name):
     """Phase-2 timing of K1 on the case captured from a path."""
     def phase(dev, rng):
-        return phase_route(dev, rng, lambda dev, rng: ROUTE_CASES.pop(name))
+        return phase_route(dev, rng, lambda dev, rng: ROUTE_CASES.pop(name),
+                           phases=False)
     return phase
 
 
@@ -1075,10 +1118,19 @@ KERNELS = [
      "wittgenstein_tpu_torch/csrc/route.cu",
      "wittgenstein_tpu/ops/pallas_route.py:154",
      phase_route_captured("route_p2pflood")),
+    ("route_casper", "route", "casper",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_casper")),
+    ("route_ethpow", "route", "ethpow",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_ethpow")),
 ]
 #: the kernel entries whose case is captured from their path's run
 #: (`capture_route`) and timed right after it, not in phase 2
-CAPTURED = ("route_sanfermin", "route_dfinity", "route_p2pflood")
+CAPTURED = ("route_sanfermin", "route_dfinity", "route_p2pflood",
+            "route_casper", "route_ethpow")
 #: the launches each path's run must make, by wrapper (others: none).
 #: The per-ms paths launch each kernel once a simulated ms; the headline
 #: bins once a K=2 window, merges every ms and scores on the
@@ -1934,8 +1986,8 @@ def sanfermin_run(dev):
     """Path S: `tools/bench_suite.py`'s SanFermin line,
     ``SanFermin(node_count=32768, inbox_cap=16)`` with two ring
     sub-planes, seed 0, one run at the proved K (2) in 500-ms
-    `network.scan_chunk` calls, counters set to 0 just before: equal to
-    the JAX golden at 500 and 1,000 ms (outside the timed wall), zero
+    `network.scan_chunk` calls to SF_MS, counters set to 0 just before:
+    equal to the JAX golden at its checkpoints (outside the timed wall), zero
     drops and clamps, route once a window per sub-plane.  A K1 case is
     captured from its windows."""
     import dataclasses
@@ -1984,8 +2036,8 @@ def sanfermin_run(dev):
 
 def cappos_run(dev):
     """Path C: `SanFerminCappos()` at its default 2,048 nodes, seed 0,
-    one 200-ms `network.scan_chunk` call at the proved K (2), counters
-    set to 0 just before: equal to the JAX golden at 200 ms."""
+    one CAPPOS_MS `network.scan_chunk` call at the proved K (2),
+    counters set to 0 just before: equal to the JAX golden there."""
     import torch
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.core.network import (pick_superstep,
@@ -2108,7 +2160,7 @@ def dfinity_run(dev):
 
 def quiet_run(dev, line, n=None, golden_path=None):
     """Path Q: `bench.py` `bench_quiet`'s lines, 4 seeds in one batch,
-    1,000 ms in 200-ms `network.scan_chunk` calls on `init_batched` at
+    Q_MS in 200-ms `network.scan_chunk` calls on `init_batched` at
     the proved K (2), counters set to 0 just before: ``dfinity``, the
     reference default (31 nodes), dense and then fast-forwarded
     (`fast_forward_chunk(seed_axis=True)`, the JAX engine's skip counts
@@ -2171,6 +2223,189 @@ def quiet_run(dev, line, n=None, golden_path=None):
             fail(f"{line} batch: drops and clamps must be 0: {res}")
         out[key] = (res, launches)
     return out
+
+
+# ------------------------------------------------------ Casper and ETHPoW
+
+def chain_counts(nets, ps, r):
+    """Run r's highest head, head skew, blocks and (Casper) attestations,
+    and its engine and arena drops."""
+    heights = ps.arena.height[r].gather(0, ps.head[r].long())
+    out = {"height_max": int(heights.max()),
+           "head_skew": int(heights.max() - heights.min()),
+           "blocks": int(ps.arena.n[r]) - 1,
+           "arena_dropped": int(ps.arena.dropped[r]),
+           **{k: int(getattr(nets, k)[r]) for k in
+              ("dropped", "clamped", "bc_dropped")}}
+    if hasattr(ps, "att_n"):
+        out["attestations"] = int(ps.att_n[r])
+    return out
+
+
+def harness_run(proto, runs, ticks, chunk, first_seed, on_chunk):
+    """`run_multiple_times(proto, runs, ...)` with no run stopping (as
+    `try_miner` runs it), counters set to 0 just before; `on_chunk(t,
+    nets, ps)` checks each chunk outside the timed wall.  Returns the
+    result, the wall, the peak allocated bytes and the launches."""
+    import torch
+    from wittgenstein_tpu_torch.core.harness import run_multiple_times
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    spent = [0.0]
+
+    def hook(t, nets, ps):
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        on_chunk(t, nets, ps)
+        spent[0] += time.perf_counter() - c0
+    t0 = time.perf_counter()
+    res = run_multiple_times(proto, runs, max_time=ticks, chunk=chunk,
+                             first_seed=first_seed,
+                             cont_if=lambda net, ps: net.time >= 0,
+                             on_chunk=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - spent[0]
+    return res, wall, torch.cuda.max_memory_allocated(), read_counters()
+
+
+def casper_run(dev):
+    """Path K: Casper IMD's reference configuration, ``CasperIMD()`` (83
+    nodes: observer, WF byzantine producer, one honest producer, 4 x 20
+    attesters; 20-ms ticks; the distance latency), seeds 0-7 in one
+    batch through `run_multiple_times` in 2,000-tick chunks at the K the
+    gate proves, counters set to 0 just before: every seed equal to its
+    JAX golden at 2,000 and 4,000 ticks, zero unicast, broadcast and
+    arena drops and heads within 2 where the JAX seeds show it; each
+    seed's highest head, skew, blocks and attestations logged.  A K1
+    case is captured from its windows."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import (pick_superstep,
+                                                     scan_chunk)
+    from wittgenstein_tpu_torch.models.casper import CasperIMD
+    with open(K_GOLDEN) as f:
+        golden = json.load(f)["ticks"]
+    proto = CasperIMD(device=dev)
+    k = pick_superstep(proto, K_CHUNK, t0=0)
+
+    def check(t, nets, ps):
+        want = golden[str(t)]
+        got = convert.seed_digests(*convert.to_numpy(nets, ps))
+        for r, (g, w) in enumerate(zip(got, want["seeds"])):
+            check_digest(f"Casper seed {r} at {t} ticks", g, w)
+        counts = [chain_counts(nets, ps, r) for r in range(K_SEEDS)]
+        for r, (c, w) in enumerate(zip(counts, want["counts"])):
+            if c["dropped"] or c["clamped"] or c["bc_dropped"] or \
+                    c["arena_dropped"] or (
+                        w["height_max"] - w["height_min"] <= 2 and
+                        c["head_skew"] > 2):
+                fail(f"Casper seed {r} at {t} ticks: {c}")
+        summary = [(c["height_max"], c["head_skew"], c["blocks"],
+                    c["attestations"]) for c in counts]
+        log(f"Casper: all {K_SEEDS} seeds match the JAX reference at {t} "
+            f"ticks, {len(got[0])} leaves each; per seed (highest head, "
+            f"skew, blocks, attestations) "
+            f"{summary}")
+    # broadcasts only: every window bins no message; keep the first
+    with capture_route("route_casper", {0}):
+        res, wall, peak, launches = harness_run(proto, K_SEEDS, K_TICKS,
+                                                K_CHUNK, 0, check)
+    nets, ps = res.nets, res.pstates
+    PATH_LAUNCHES["casper"] = {"route": K_TICKS // k}
+    out = dict(superstep=k, wall_s=wall, sim_ticks=K_TICKS,
+               agg_sim_ticks_per_s=K_SEEDS * K_TICKS / wall,
+               peak_mem_bytes=peak, **counts_of(nets, ps))
+    # the slot boundary at 4,000 (a build, reevaluations), then WF ticks
+    event = scan_chunk(proto, k, superstep=k)
+    out["aten_ops_per_tick_slot_boundary"] = ops_per_ms(
+        lambda: event(nets, ps, t=K_TICKS), k)
+    nets, ps = event(nets, ps, t=K_TICKS)
+    window = scan_chunk(proto, K_OPS_TICKS, superstep=k)
+    out["aten_ops_per_tick"] = ops_per_ms(
+        lambda: window(nets, ps, t=K_TICKS + k), K_OPS_TICKS)
+    return out, launches
+
+
+def ethpow_run(dev):
+    """Path E: `try_miner`'s batch at one point, ``ETHPoW(10 miners,
+    ETHSelfishMiner at 0.40, NetworkFixedLatency(1000), capacity
+    8192)``, seeds 1-5 in one batch through `run_multiple_times` in
+    1,000-tick chunks at the proved K, counters set to 0 just before:
+    every leaf equal to the JAX golden at 3,000 ticks (`thr`, stored raw
+    there, float for float), `try_miner`'s row equal to the golden's,
+    zero unicast and arena drops.  The ops a tick at
+    8,192 blocks equal those at 1,024 within 1% (ticks 0-20 of the same
+    seeds).  A K1 case is captured from its windows."""
+    import numpy as np
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import (pick_superstep,
+                                                     scan_chunk)
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.ethpow import ETHPoW, miner_row
+    with open(E_GOLDEN) as f:
+        golden = json.load(f)
+    if golden["ticks"] != E_TICKS or len(golden["seeds"]) != E_RUNS:
+        fail(f"{E_GOLDEN} is not {E_RUNS} runs at {E_TICKS} ticks")
+    params = dict(number_of_miners=10, byz_class_name="ETHSelfishMiner",
+                  byz_mining_ratio=0.40,
+                  network_latency_name="NetworkFixedLatency(1000)")
+    proto = ETHPoW(**params, capacity=8192, device=dev)
+    k = pick_superstep(proto, E_CHUNK, t0=0)
+
+    def check(t, nets, ps):
+        if t != E_TICKS:
+            return
+        net_np, ps_np = convert.to_numpy(nets, ps)
+        thr = ps_np.pop("thr")
+        got = convert.seed_digests(net_np, ps_np)
+        for r, (g, w) in enumerate(zip(got, golden["seeds"])):
+            check_digest(f"ETHPoW seed {r + 1} at {t} ticks", g, w)
+        want_thr = np.asarray(golden["thr"], np.float32)
+        if not np.array_equal(thr, want_thr):
+            fail(f"ETHPoW thr {thr.tolist()}, the JAX run's "
+                 f"{want_thr.tolist()}")
+        counts = [chain_counts(nets, ps, r) for r in range(E_RUNS)]
+        if any(c["dropped"] or c["clamped"] or c["arena_dropped"]
+               for c in counts):
+            fail(f"ETHPoW drops: {counts}")
+        summary = [(c["height_max"], c["head_skew"], c["blocks"])
+                   for c in counts]
+        log(f"ETHPoW: all {E_RUNS} seeds match the JAX reference at {t} "
+            f"ticks, {len(got[0])} leaves each and the {thr.size} floats of "
+            f"thr; per seed (highest head, skew, blocks) "
+            f"{summary}")
+    with capture_route("route_ethpow", {0}):
+        res, wall, peak, launches = harness_run(proto, E_RUNS, E_TICKS,
+                                                E_CHUNK, 1, check)
+    nets, ps = res.nets, res.pstates
+    hours = E_TICKS * proto.tick_ms / 3.6e6
+    row, line = miner_row(ps, E_RUNS, hours, "ETHSelfishMiner", 0.40,
+                          params["network_latency_name"])
+    want = golden["row"]
+    if {k2: row[k2] for k2 in want} != want:
+        fail(f"ETHPoW try_miner row {row}, the JAX run's {want}")
+    log(f"ETHPoW try_miner row equals the JAX run's: {line}")
+    PATH_LAUNCHES["ethpow"] = {"route": E_TICKS // k}
+    out = dict(superstep=k, wall_s=wall, sim_ticks=E_TICKS,
+               agg_sim_ticks_per_s=E_RUNS * E_TICKS / wall,
+               peak_mem_bytes=peak, csv_row=line, **counts_of(nets, ps))
+    window = scan_chunk(proto, OPS_MS, superstep=k)
+    out["aten_ops_per_tick"] = ops_per_ms(
+        lambda: window(nets, ps, t=E_TICKS), OPS_MS)
+    seeds = torch.arange(1, E_RUNS + 1)
+    for cap in (8192, 1024):
+        small = ETHPoW(**params, capacity=cap, device=dev)
+        state = init_batched(small, seeds)
+        head = scan_chunk(small, E_OPS_TICKS, superstep=k)
+        out[f"aten_ops_per_tick_{cap}"] = ops_per_ms(
+            lambda: head(*state, t=0), E_OPS_TICKS)
+    a, b = out["aten_ops_per_tick_8192"], out["aten_ops_per_tick_1024"]
+    if abs(a - b) > 0.01 * b:
+        fail(f"ETHPoW ops a tick grow with the arena: {a} at 8,192 blocks, "
+             f"{b} at 1,024")
+    return out, launches
 
 
 #: kernel names (substrings of the profiler's keys) whose device time
@@ -2527,6 +2762,21 @@ def main(argv=None) -> int:
     kernel_case("route_p2pflood")
     done("Q")
 
+    # K. Casper IMD's reference configuration, 8 seeds
+    kres, klaunches = casper_run(dev)
+    log(f"Casper IMD {K_SEEDS} seeds: {json.dumps(kres)} launches "
+        f"{klaunches}")
+    check_launches("casper", klaunches)
+    kernel_case("route_casper")
+    done("K")
+
+    # E. ETHPoW, try_miner's selfish-mining batch at one point
+    eres, elaunches = ethpow_run(dev)
+    log(f"ETHPoW {E_RUNS} runs: {json.dumps(eres)} launches {elaunches}")
+    check_launches("ethpow", elaunches)
+    kernel_case("route_ethpow")
+    done("E")
+
     memory = {}
     if args.memory_seeds:
         memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
@@ -2606,7 +2856,8 @@ def main(argv=None) -> int:
                "t3": t3res["sim_ms"], "t2": T2_MS, "attack": ATTACK_MS,
                "sanfermin": SF_MS, "cappos": CAPPOS_MS, "dfinity": D_TICKS,
                "dfinity_ff": D_FF_TICKS, "quiet_dfinity": Q_MS,
-               "quiet_dfinity_ff": Q_MS, "quiet_p2pflood": Q_MS}
+               "quiet_dfinity_ff": Q_MS, "quiet_p2pflood": Q_MS,
+               "casper": K_TICKS, "ethpow": E_TICKS}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
                      "pingpong_harness": hplaunches, "spill": slaunches,
@@ -2616,7 +2867,8 @@ def main(argv=None) -> int:
                      "t2": t2launches, "attack": alaunches,
                      "sanfermin": sflaunches, "cappos": claunches,
                      "dfinity": dlaunches, "dfinity_ff": dflaunches,
-                     **{k: v[1] for k, v in quiet.items()}}
+                     **{k: v[1] for k, v in quiet.items()},
+                     "casper": klaunches, "ethpow": elaunches}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -2653,6 +2905,7 @@ def main(argv=None) -> int:
                       "cappos_path": cres, "dfinity_path": dres,
                       "dfinity_ff_path": dfres,
                       **{f"{k}_path": v[0] for k, v in quiet.items()},
+                      "casper_path": kres, "ethpow_path": eres,
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

@@ -3,7 +3,10 @@ on the CPU at tiny sizes, each passing its check with its JSON line in
 `bench.py`'s shape: `bench_quiet`'s Dfinity (31 nodes, 2 seeds,
 fast-forwarded) and P2PFlood (32 nodes, 2 seeds), `tools/
 bench_suite.py`'s Dfinity line with 40 attesters (one run, 2,000 ticks,
-fast-forwarded) and its SanFermin line at 8 nodes (one run, 500 ms)."""
+fast-forwarded) and its SanFermin line at 8 nodes (one run, 500 ms);
+Casper IMD's line with 5 attesters a round (2 seeds, 402 ticks: the WF
+producer's first block) and `try_miner`'s ETHPoW batch with 5 miners (2
+seeds from 1, 200 ticks, its CSV row printed)."""
 
 import json
 
@@ -70,3 +73,32 @@ def test_tracked_sanfermin_line(capsys):
                  ["--proto", "p2pflood", "--attesters", "40"]):
         with pytest.raises(SystemExit):
             bench_torch.main(argv)
+
+
+def test_casper_line(capsys):
+    line = _line(capsys, ["--proto", "casper", "--attesters", "5", "--seeds",
+                          "2", "--ticks", "402"])
+    assert line["metric"] == "casper_23n_2seeds_agg_sim_ms_per_sec"
+    assert (line["engine"], line["superstep"], line["sim_ms"]) == (
+        "vmapped", 2, 402)
+    assert line["progress"] == 1 and line["blocks"] == 2
+    assert line["dropped"] == line["arena_dropped"] == 0
+
+
+def test_ethpow_line(capsys):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert bench_torch.main(["--proto", "ethpow", "--nodes", "5",
+                                 "--runs", "2", "--ticks", "200",
+                                 "--device", "cpu", "--reps", "1"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out.strip().splitlines()
+    line = json.loads(out[-1])
+    assert line["metric"] == "ethpow_5n_2seeds_agg_sim_ms_per_sec"
+    assert (line["superstep"], line["sim_ms"]) == (2, 200)
+    assert out[-3].startswith("miner, hashrate ratio")
+    assert out[-2] == line["csv_row"]
+    assert out[-2].startswith("ETHSelfishMiner/NetworkFixedLatency(1000)/")
+    assert line["dropped"] == line["arena_dropped"] == 0

@@ -180,3 +180,88 @@ def test_or_reduce_matches_jax(n):
     want = _mask_blocks(jnp.asarray(flags), n)
     got = bitset.pack(torch.tensor(flags))
     assert np.array_equal(np.asarray(want), got.numpy().view(np.uint32))
+
+
+def _jax_skipped_forest(seed=7, cap=CAP):
+    """Arenas whose blocks sit 1-4 heights above their parents (Casper's
+    slot heights), built alike in both packages, parents drawn among
+    the blocks so far (genesis included, never -1)."""
+    import jax.numpy as jnp
+    from wittgenstein_tpu.core import blockchain as jbc
+    rng = np.random.default_rng(seed)
+    ja, ta = jbc.make_arena(cap), bc.make_arena(cap)
+    for t in range(1, 8):
+        n = int(ta.n)
+        want = rng.random(12) < 0.8
+        parent = rng.integers(0, n, 12).astype(np.int32)
+        height = (ta.height.numpy()[parent] +
+                  rng.integers(1, 5, 12)).astype(np.int32)
+        ja, _ = jbc.alloc(ja, jnp.asarray(want), jnp.asarray(parent),
+                          jnp.asarray(parent), t, height=jnp.asarray(height))
+        ta, _ = bc.alloc(ta, torch.tensor(want), torch.tensor(parent),
+                         torch.tensor(parent), t, height=torch.tensor(height))
+    return ja, ta
+
+
+def _pointer_walk(arena_np, b, stop):
+    """The JAX package's walk, one lane at a time on the host: from b,
+    step to the parent while the block is not in `stop`."""
+    cur, seen = int(b), []
+    while cur >= 0 and not stop[cur]:
+        seen.append(cur)
+        cur = int(arena_np["parent"][cur])
+    return cur, seen
+
+
+def test_walks_on_skipped_heights_match_jax():
+    """The four walks on an arena with skipped heights, every pair of
+    blocks and lanes at -1, and `walk_while` against a step-by-step walk
+    on random stop sets; the height order holds and the ancestor
+    bitsets are those `ancestors_of` rebuilds from the parents."""
+    import jax.numpy as jnp
+    from wittgenstein_tpu.core import blockchain as jbc
+    import torch_parity as tp
+    ja, ta = _jax_skipped_forest()
+    arena_np = bc.to_numpy(ta)
+    tp.assert_heights_ordered(arena_np)
+    assert np.array_equal(bc.ancestors_of(arena_np["parent"]),
+                          ta.anc.numpy())
+    ids = np.arange(-1, int(ta.n), dtype=np.int32)
+    a, b = (x.ravel() for x in np.meshgrid(ids, ids))
+    h = np.random.default_rng(8).integers(-1, 20, a.shape).astype(np.int32)
+    for name, args in [("walk_to_height", (a, h)), ("is_ancestor", (a, b)),
+                       ("has_direct_link", (a, b)),
+                       ("common_ancestor", (a, b))]:
+        want = getattr(jbc, name)(ja, *map(jnp.asarray, args))
+        got = getattr(bc, name)(ta, *map(torch.tensor, args))
+        assert np.asarray(want).tolist() == got.tolist(), name
+    rng = np.random.default_rng(9)
+    stop = rng.random((len(ids), CAP)) < 0.3
+    stop[:, 0] = rng.random(len(ids)) < 0.5
+    cur, seen = bc.walk_while(ta, torch.tensor(ids), torch.tensor(stop))
+    for i, lane in enumerate(ids):
+        want_cur, want_seen = _pointer_walk(arena_np, lane, stop[i])
+        assert int(cur[i]) == want_cur
+        assert sorted(np.nonzero(seen[i].numpy())[0]) == sorted(want_seen)
+
+
+def _walk_ops(cap):
+    from torch.autograd import DeviceType
+    arena = bc.make_arena(cap)
+    lanes = torch.arange(-1, 15, dtype=torch.int32)
+    stop = torch.zeros((16, cap), dtype=torch.bool)
+    with torch.profiler.profile() as prof:
+        bc.walk_to_height(arena, lanes, lanes)
+        bc.has_direct_link(arena, lanes, lanes.flip(0))
+        bc.common_ancestor(arena, lanes, lanes.flip(0))
+        bc.walk_while(arena, lanes, stop)
+        bc.alloc(arena, lanes >= 0, lanes, lanes, 3)
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and e.cpu_parent is None and e.name.startswith("aten::"))
+
+
+def test_walk_ops_do_not_grow_with_capacity():
+    """Every walk and `alloc` issue the same top-level aten ops at 256
+    and 8,192 blocks."""
+    ops = [_walk_ops(c) for c in (256, 8192)]
+    assert ops[0] == ops[1] and ops[0] > 30, ops

@@ -204,13 +204,15 @@ def test_builder_and_full_latency(tor):
 
 
 def test_registries():
-    for name in ("RANDOM_SPEED=CONSTANT_TOR=0.33", None):
+    for name in ("RANDOM_SPEED=CONSTANT_TOR=0.33", None,
+                 "AWS_SPEED=CONSTANT_TOR=0.00",
+                 "CITIES_SPEED=CONSTANT_TOR=0.00"):
         assert tbuilders.get_by_name(name) == tbuilders.NodeBuilder(
             **vars(jbuilders.get_by_name(name)))
     assert tbuilders.registry_name("random", True, 0.1) == \
         jbuilders.registry_name("random", True, 0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuilders.get_by_name("AWS_SPEED=CONSTANT_TOR=0.00")
+        tbuilders.get_by_name("AWS_SPEED=GAUSSIAN_TOR=0.00")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlat.get_by_name("NetworkLatencyByCity")
     with pytest.raises(KeyError):

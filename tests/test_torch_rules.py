@@ -51,7 +51,10 @@ def test_default_device_refuses_without_card(monkeypatch):
     from wittgenstein_tpu_torch.models.p2pflood import P2PFlood
     from wittgenstein_tpu_torch.models.sanfermin import (SanFermin,
                                                          SanFerminCappos)
-    for proto in (Dfinity, P2PFlood, SanFermin, SanFerminCappos):
+    from wittgenstein_tpu_torch.models.casper import CasperIMD
+    from wittgenstein_tpu_torch.models.ethpow import ETHPoW, MinerAgentEnv
+    for proto in (Dfinity, P2PFlood, SanFermin, SanFerminCappos, CasperIMD,
+                  ETHPoW, lambda: MinerAgentEnv(0.4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             proto()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -104,6 +107,45 @@ def test_chip_smoke_phase_failure_exits_nonzero(monkeypatch, tmp_path):
         with pytest.raises(SystemExit) as e:
             chip_smoke.quiet_run("cpu", "p2pflood", n=32,
                                  golden_path=str(path))
+    finally:
+        torch.set_num_threads(threads)
+    assert e.value.code == 1
+
+
+@pytest.mark.parametrize("path", ["casper", "ethpow"])
+def test_chip_smoke_chain_phase_failure_exits_nonzero(monkeypatch, tmp_path,
+                                                      path):
+    """Phases K and E end the smoke with exit code 1 and no result when
+    a seed disagrees with its golden: each run on the CPU for one 2-tick
+    chunk of one seed against a golden whose digests are not the
+    run's."""
+    import json
+
+    import chip_smoke
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    golden = tmp_path / "golden.json"
+    bad = [{"net.time": "0"}]
+    if path == "casper":
+        for name, v in (("K_SEEDS", 1), ("K_TICKS", 2), ("K_CHUNK", 2),
+                        ("K_GOLDEN", str(golden))):
+            monkeypatch.setattr(chip_smoke, name, v)
+        golden.write_text(json.dumps({"ticks": {"2": {
+            "seeds": bad, "counts": [{"height_max": 0, "height_min": 0}]}}}))
+        run = chip_smoke.casper_run
+    else:
+        for name, v in (("E_RUNS", 1), ("E_TICKS", 2), ("E_CHUNK", 2),
+                        ("E_GOLDEN", str(golden))):
+            monkeypatch.setattr(chip_smoke, name, v)
+        golden.write_text(json.dumps({"ticks": 2, "seeds": bad,
+                                      "thr": [[0.0] * 10], "row": {}}))
+        run = chip_smoke.ethpow_run
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.raises(SystemExit) as e:
+            run("cpu")
     finally:
         torch.set_num_threads(threads)
     assert e.value.code == 1

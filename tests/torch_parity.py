@@ -6,9 +6,11 @@ digest, the 4096-node GSF golden digest, the per-seed digests of the
 benchmark headline's 16-seed batch, the 1000-node PingPong's digest
 and per-seed harness digests, the per-seed digests of a 4-seed batch of
 the 4096-node GSF, the JAX fast-forward engine's skip counts on two
-PingPong runs, and Handel at scale: the tier-3 cardinal line at 65,536
+PingPong runs, Handel at scale: the tier-3 cardinal line at 65,536
 nodes, the tier-2 exact line at 32,768 nodes and a 1,024-node run under
-the byzantineSuicide attack).
+the byzantineSuicide attack; SanFermin, Cappos, Dfinity and the quiet
+lines; and Casper IMD's reference configuration and `try_miner`'s
+ETHPoW batch, ``... casper-golden`` and ``... ethpow-golden``).
 
 Regenerate the first three with ``JAX_PLATFORMS=cpu python
 tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
@@ -101,6 +103,16 @@ def assert_states_equal(ref, got, what=""):
     assert diff is None, (f"{what}: first difference at leaf {diff[0]} "
                           f"index {diff[1]}: reference {diff[2]!r}, port "
                           f"{diff[3]!r}")
+
+
+def assert_heights_ordered(arena_np):
+    """Every allocated block of one run's arena lies above its parent:
+    the order the port's walks by set rely on."""
+    n = int(arena_np["n"])
+    par = np.asarray(arena_np["parent"])[1:n]
+    height = np.asarray(arena_np["height"])
+    has = par >= 0
+    assert np.all(height[1:n][has] > height[par[has]]), "height order"
 
 
 def seed_state(tree, r):
@@ -583,16 +595,16 @@ def write_attack_golden(n=ATTACK_N, ms=ATTACK_MS):
 SANFERMIN_N, SANFERMIN_MS, SANFERMIN_BOX_SPLIT = 32768, (500, 1000), 2
 SANFERMIN_GOLDEN_FILE = os.path.join(PORT_DATA,
                                      "golden_sanfermin32768_box2.json")
-CAPPOS_MS = 200
-CAPPOS_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_cappos2048_200ms.json")
+CAPPOS_MS = 100
+CAPPOS_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_cappos2048_100ms.json")
 DFINITY10K_TICKS, DFINITY10K_FF_TICKS = 400, 12000
 DFINITY10K_GOLDEN_FILE = os.path.join(PORT_DATA,
                                       "golden_dfinity10k_400ticks.json")
-QUIET_SEEDS, QUIET_MS, QUIET_CHUNK = 4, 1000, 200
+QUIET_SEEDS, QUIET_MS, QUIET_CHUNK = 4, 400, 200
 DFINITY_QUIET_FILE = os.path.join(PORT_DATA,
-                                  "golden_dfinity31_r4_1000ticks.json")
+                                  "golden_dfinity31_r4_400ticks.json")
 P2PFLOOD_QUIET_FILE = os.path.join(PORT_DATA,
-                                   "golden_p2pflood256_r4_1000ms.json")
+                                   "golden_p2pflood256_r4_400ms.json")
 
 
 def _chain_counts(net, ps):
@@ -795,6 +807,130 @@ def write_quiet_goldens():
                   f"{quiet_params()}, seeds 0-3", False)
 
 
+CASPER_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                  "golden_casper83_r8_4000ticks.json")
+CASPER_SEEDS, CASPER_TICKS, CASPER_CHUNK = 8, 4000, 2000
+ETHPOW_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                  "golden_ethpow10_r5_3000ticks.json")
+ETHPOW_RUNS, ETHPOW_TICKS = 5, 3000
+
+
+def ethpow_line_params(capacity=8192):
+    """`try_miner`'s configuration at one hash-power point: 10 miners,
+    the selfish miner at 40%, 1-s fixed latency."""
+    return dict(number_of_miners=10, byz_class_name="ETHSelfishMiner",
+                byz_mining_ratio=0.40,
+                network_latency_name="NetworkFixedLatency(1000)",
+                capacity=capacity)
+
+
+def blockchain_counts(net, ps, r):
+    """Run r's engine drops and clamps, its arena's blocks and drops,
+    its heads' height range and, for Casper, its attestations."""
+    def pick(x):
+        return np.asarray(x)[r]
+    heights = pick(ps.arena.height)[pick(ps.head)]
+    out = {k: int(pick(getattr(net, k)))
+           for k in ("dropped", "clamped", "bc_dropped")}
+    out.update(blocks=int(pick(ps.arena.n)) - 1,
+               arena_dropped=int(pick(ps.arena.dropped)),
+               height_max=int(heights.max()), height_min=int(heights.min()))
+    if hasattr(ps, "att_n"):
+        out["att_n"] = int(pick(ps.att_n))
+    return out
+
+
+def without_thr(state):
+    """(net_np, pstate_np) with ETHPoW's float leaf `thr` set apart:
+    returns the state without it and thr itself."""
+    net_np, ps_np = state
+    ps_np = dict(ps_np)
+    return (net_np, ps_np), ps_np.pop("thr")
+
+
+def write_casper_golden(seeds=CASPER_SEEDS, ticks=CASPER_TICKS,
+                        chunk=CASPER_CHUNK):
+    """Per-seed leaf sha256s of the JAX package's ``CasperIMD()`` at its
+    defaults (83 nodes, 20-ms ticks), seeds 0..seeds-1 in one batch,
+    after each ``jax.vmap(scan_chunk(proto, chunk))`` call to `ticks`
+    (K=1; the harness's `run_multiple_times` runs the same vmapped chunk
+    when no run stops).  About 4 minutes on an 8-core host beside other
+    jobs, 0.7 GB."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.casper import CasperIMD
+
+    t0 = time.monotonic()
+    proto = CasperIMD()
+    run = jax.jit(jax.vmap(scan_chunk(proto, chunk)))
+    nets, ps = jax.vmap(proto.init)(jnp.arange(seeds, dtype=jnp.int32))
+    at = {}
+    for t in range(chunk, ticks + 1, chunk):
+        nets, ps = run(nets, ps)
+        at[str(t)] = {"seeds": convert.seed_digests(*jax_state(nets, ps)),
+                      "counts": [blockchain_counts(nets, ps, r)
+                                 for r in range(seeds)]}
+    _write_golden(CASPER_GOLDEN_FILE, {
+        "config": f"CasperIMD() defaults, {proto.node_count} nodes, tick "
+                  f"{proto.tick_ms} ms, seeds 0-{seeds - 1}",
+        "call": f"jax.jit(jax.vmap(wittgenstein_tpu.core.network."
+                f"scan_chunk(proto, {chunk}))) called from jax.vmap("
+                f"proto.init)(jnp.arange({seeds}))",
+        "ticks": at}, t0)
+
+
+def write_ethpow_golden(runs=ETHPOW_RUNS, ticks=ETHPOW_TICKS):
+    """Per-seed leaf sha256s (all leaves but `thr`, which is stored raw)
+    of the JAX package's `try_miner` batch at one point
+    (`ethpow_line_params`), seeds 1..runs as `try_miner` numbers them,
+    after ``jax.vmap(scan_chunk(proto, ticks))`` (K=1), with each run's
+    counters and the CSV row `try_miner` prints for this state.  About
+    30 s on an 8-core host, 0.8 GB."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models import ethpow
+
+    t0 = time.monotonic()
+    proto = ethpow.ETHPoW(**ethpow_line_params())
+    nets, ps = jax.vmap(proto.init)(jnp.arange(1, runs + 1,
+                                               dtype=jnp.int32))
+    nets, ps = jax.jit(jax.vmap(scan_chunk(proto, ticks)))(nets, ps)
+    net_np, ps_np = jax_state(nets, ps)
+    (net_np, ps_np), thr = without_thr((net_np, ps_np))
+    rew1 = tot = ur = diff = 0.0
+    for r in range(runs):
+        one = jax.tree.map(lambda x, r=r: x[r], ps)
+        base = int(np.asarray(one.head)[0])
+        lim = ethpow.GENESIS_HEIGHT
+        rw = ethpow.rewards_by_miner(one, base, until_height=lim)
+        rew1 += rw.get(1, 0.0)
+        tot += sum(rw.values())
+        ur += ethpow.uncle_rate(one, base, until_height=lim)
+        diff += ethpow.avg_difficulty(one, base, until_height=lim)
+    _write_golden(ETHPOW_GOLDEN_FILE, {
+        "config": f"ETHPoW(**ethpow_line_params()) = "
+                  f"{ethpow_line_params()}, seeds 1-{runs}",
+        "call": f"jax.jit(jax.vmap(wittgenstein_tpu.core.network."
+                f"scan_chunk(proto, {ticks}))) called from jax.vmap("
+                f"proto.init)(jnp.arange(1, {runs + 1}))",
+        "ticks": ticks,
+        "seeds": convert.seed_digests(net_np, ps_np),
+        "thr": [[float(x) for x in row] for row in thr],
+        "counts": [blockchain_counts(nets, ps, r) for r in range(runs)],
+        "row": dict(revenue_ratio=rew1 / max(tot, 1e-9),
+                    revenue=rew1 / runs, uncle_rate=ur / runs,
+                    total_revenue=tot / runs, avg_difficulty=diff / runs)},
+        t0)
+
+
 def _params(protocol: str, n: int) -> dict:
     """Constructor arguments of `protocol` at size `n` (for Dfinity, n
     attesters, committees of up to 10)."""
@@ -906,6 +1042,12 @@ def main():
         return
     if sys.argv[1:2] == ["quiet-golden"]:
         write_quiet_goldens()
+        return
+    if sys.argv[1:2] == ["casper-golden"]:
+        write_casper_golden()
+        return
+    if sys.argv[1:2] == ["ethpow-golden"]:
+        write_ethpow_golden()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

@@ -4,18 +4,18 @@ Both sides meet as nested dicts of numpy arrays under the JAX field
 names: ``{"time": ..., "nodes": {"x": ...}, "box_data": [plane, ...],
 ...}`` for the `NetState` and the same for the protocol state (a
 `HandelState`, a `HandelCardinalState`, a `GSFState`, a `PingPongState`,
-a `SanFerminState`, a `CapposState`, a `DfinityState` with its nested
-`Arena` as a nested dict, or a `P2PFloodState`, told apart by their leaf
-names; a protocol whose state is a plain dict of tensors, as the engine
-tests' probes have, converts leaf for leaf).  The JAX
-side builds them from its dataclasses (the tests do so with
-`jax.tree_util`); `from_reference` turns them into the port's state and
-`to_numpy` back.  uint32 leaves (bitsets) are reinterpreted, never
-converted: the port keeps the same bits in int32.  A ring split into
-``box_split`` sub-planes is a tuple of sub-plane tensors per leaf here
-and F*P (payload) or P flat planes there, plane ``f*P + j`` holding
-payload word f of sub-plane j; Handel's q_sig is a tuple of
-`state_split` pieces on both sides.
+a `SanFerminState`, a `CapposState`, a `DfinityState`, `CasperState` or
+`PoWState` with its nested `Arena` as a nested dict (the port's ancestor
+leaf rebuilt from ``parent``), or a `P2PFloodState`, told apart by their
+leaf names; a protocol whose state is a plain dict of tensors, as the
+engine tests' probes have, converts leaf for leaf). The JAX side builds
+them from its dataclasses (the tests do so with `jax.tree_util`);
+`from_reference` turns them into the port's state and `to_numpy` back.
+uint32 leaves (bitsets) are reinterpreted, never converted: the port
+keeps the same bits in int32. A ring split into ``box_split`` sub-planes
+is a tuple of sub-plane tensors per leaf here and F*P (payload) or P
+flat planes there, plane ``f*P + j`` holding payload word f of sub-plane
+j; Handel's q_sig is a tuple of `state_split` pieces on both sides.
 """
 
 from __future__ import annotations
@@ -28,9 +28,11 @@ import os
 import numpy as np
 import torch
 
-from .core.blockchain import Arena
+from .core.blockchain import JAX_LEAVES, Arena, ancestors_of
 from .core.state import NetState, NodeState
+from .models.casper import CasperState
 from .models.dfinity import DfinityState
+from .models.ethpow import PoWState
 from .models.gsf import GSFState
 from .models.handel import HandelState
 from .models.handel_cardinal import HandelCardinalState
@@ -53,9 +55,22 @@ STATES = {
     DfinityState: (("recv_blk", "votes", "buffered", "maj_height",
                     "exchanged", "q_vote", "q_bcast_blk"), False),
     P2PFloodState: ((), False),
+    CasperState: (("included", "att_anc", "recv_blk", "recv_att",
+                   "reeval"), False),
+    PoWState: (("received", "mined_unsent", "release"), False),
 }
-#: protocol state leaves that are structs of their own
+#: protocol state leaves that are structs of their own, and the leaves
+#: of each that the JAX package has (the port's Arena adds ``anc``,
+#: rebuilt from ``parent``)
 NESTED = {"arena": Arena}
+NESTED_LEAVES = {Arena: JAX_LEAVES}
+
+
+def _nested(cls, v: dict, device):
+    leaves = {f: _tensor(x, device) for f, x in v.items()}
+    if cls is Arena:
+        leaves["anc"] = _tensor(ancestors_of(v["parent"]), device)
+    return cls(**leaves)
 
 
 def state_class(pstate_np: dict):
@@ -121,7 +136,7 @@ def from_reference(net_np: dict, pstate_np: dict, device):
         return net, {k: _tensor(v, dev) for k, v in pstate_np.items()}
     def leaf(k, v):
         if k in NESTED:
-            return NESTED[k](**{f: _tensor(x, dev) for f, x in v.items()})
+            return _nested(NESTED[k], v, dev)
         if STATES[cls][1] and k == "q_sig":
             return tuple(_tensor(x, dev) for x in v)
         return _tensor(v, dev)
@@ -159,8 +174,8 @@ def to_numpy(net: NetState, pstate):
     for fld in dataclasses.fields(pstate):
         v = getattr(pstate, fld.name)
         if fld.name in NESTED:
-            ps_np[fld.name] = {g.name: _numpy(getattr(v, g.name))
-                               for g in dataclasses.fields(v)}
+            ps_np[fld.name] = {g: _numpy(getattr(v, g))
+                               for g in NESTED_LEAVES[NESTED[fld.name]]}
         elif split and fld.name == "q_sig":
             ps_np[fld.name] = [_numpy(x, True) for x in v]
         else:

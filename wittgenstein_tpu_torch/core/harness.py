@@ -138,13 +138,15 @@ class MultiRunResult:
 
 def run_multiple_times(protocol, run_count, max_time=0, chunk=10,
                        cont_if=None, stats_getters=(), final_check=None,
-                       first_seed=0, fail_on_drop=True, max_wall_s=None):
+                       first_seed=0, fail_on_drop=True, max_wall_s=None,
+                       on_chunk=None):
     """RunMultipleTimes.run on a seed batch (wittgenstein_tpu/core/
     harness.py:278-318).  Seeds are first_seed..first_seed+run_count-1.
     max_time=0 means no time limit: the loop runs until every run's
     predicate stops it, under a wall-clock bound (`max_wall_s`, 1800 s
-    by default when max_time=0).  Returns averaged stats across runs
-    plus per-run values."""
+    by default when max_time=0).  `on_chunk(t, nets, pstates)`, when
+    given, sees the batch after each chunk (`t` the batch's time).
+    Returns averaged stats across runs plus per-run values."""
     drv = _BatchDriver(protocol, run_count, chunk, cont_if, first_seed,
                        fail_on_drop, f"run_multiple_times({protocol})")
     steps = 10**9 if max_time == 0 else -(-max_time // chunk)
@@ -152,7 +154,10 @@ def run_multiple_times(protocol, run_count, max_time=0, chunk=10,
         max_wall_s = 1800.0
     deadline = None if max_wall_s is None else time.monotonic() + max_wall_s
     for _ in range(steps):
-        if drv.advance():
+        all_stopped = drv.advance()
+        if on_chunk is not None:
+            on_chunk(drv.t, drv.nets, drv.ps)
+        if all_stopped:
             break
         if deadline is not None and time.monotonic() > deadline:
             raise RuntimeError(

@@ -341,6 +341,21 @@ def _route_unicast(cfg: EngineConfig, model, net: NetState, out: Outbox,
     return net, (t + 1 + total, dest_c, src, size, payload, valid)
 
 
+def _no_unicast(cfg: EngineConfig, model, net: NetState, out: Outbox,
+                t: int):
+    """`_route_unicast` for a protocol that never addresses a unicast
+    (``sends_unicast = False``: its outbox dest is always -1, as Casper's
+    and ETHPoW's are): no sender counter moves and no latency is drawn,
+    and the batch the ring bins has the same shapes with no message
+    valid, so the binning launches as it does for any protocol."""
+    n, k = cfg.n, out.dest.shape[1]
+    dest = out.dest.reshape(n * k)
+    src = torch.arange(n, dtype=I32, device=dest.device).repeat_interleave(k)
+    return net, (dest.clamp_min(0) + t + 1, dest.clamp(0, n - 1), src,
+                 out.size.reshape(n * k),
+                 out.payload.reshape(n * k, cfg.payload_words), dest >= 0)
+
+
 def enqueue_broadcast(cfg: EngineConfig, net: NetState, out: Outbox,
                       t: int):
     """Allocate broadcast-table records for this step's sendAll requests
@@ -355,8 +370,7 @@ def enqueue_broadcast(cfg: EngineConfig, net: NetState, out: Outbox,
     sbytes = nodes.bytes_sent + torch.where(req, out.bcast_size * n, 0)
     slot_w, ok = _alloc_free_slots(~net.bc_active, req)
     node_idx = torch.arange(n, dtype=I32, device=req.device)
-    bseed = prng.hash3(prng.hash2(net.seed, prng.TAG_BCAST),
-                       torch.full((n,), t, dtype=I32, device=req.device),
+    bseed = prng.hash3(prng.hash2(net.seed, prng.TAG_BCAST), t,
                        node_idx).to(I32)
     return net.replace(
         nodes=nodes.replace(msg_sent=sent, bytes_sent=sbytes),
@@ -369,12 +383,31 @@ def enqueue_broadcast(cfg: EngineConfig, net: NetState, out: Outbox,
         bc_dropped=net.bc_dropped + (req & ~ok).sum(dtype=I32))
 
 
-def protocol_step(protocol, pstate, nodes, inbox, t: int, hints=None):
+def protocol_step(protocol, pstate, nodes, inbox, t: int, hints=None,
+                  step_hint=None):
     """``protocol.step``, with the phase hints only when there are any
-    (protocols without a static schedule take none)."""
-    if hints is None:
-        return protocol.step(pstate, nodes, inbox, t)
-    return protocol.step(pstate, nodes, inbox, t, hints=hints)
+    (protocols without a static schedule take none) and the step hint
+    only for a protocol that has one (`step_hint`)."""
+    kw = {}
+    if hints is not None:
+        kw["hints"] = hints
+    if step_hint is not None:
+        kw["step_hint"] = step_hint
+    return protocol.step(pstate, nodes, inbox, t, **kw)
+
+
+def step_hint(protocol, pstate, inbox: Inbox, t: int):
+    """The protocol's `step_hint(pstate, inbox, t)`, where it has one:
+    host-side facts about this ms, for one run or every run of a batch
+    (seed axis in front), that let its step leave out work which is the
+    identity on every node (ETHPoW walks only as many inbox slots as a
+    node holds messages and starts no mining where no miner can need
+    to; Casper runs the WF producer's build only where it can be due).
+    It runs outside the vmapped step and reads the device once: the
+    host waits for the card here, once a ms.  None for other
+    protocols."""
+    fn = getattr(protocol, "step_hint", None)
+    return None if fn is None else fn(pstate, inbox, t)
 
 
 def _check_step(protocol):
@@ -453,7 +486,8 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
                 _with_broadcasts, cfg, model, t=t + i))(net, inbox)
         pstate, nodes, out = per_run(functools.partial(
             protocol_step, protocol, t=t + i,
-            hints=None if hints_k is None else hints_k[i]))(
+            hints=None if hints_k is None else hints_k[i],
+            step_hint=step_hint(protocol, pstate, inbox, t + i)))(
                 pstate, net.nodes, inbox)
         net = net.replace(nodes=nodes)
         outs.append(out)
@@ -469,8 +503,10 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
         else:
             rows.copy_(torch.where(frozen[:, None, None], rows, 0))
     batches = []
+    route = (_route_unicast if getattr(protocol, "sends_unicast", True)
+             else _no_unicast)
     for i, out in enumerate(outs):
-        net, b = per_run(functools.partial(_route_unicast, cfg, model,
+        net, b = per_run(functools.partial(route, cfg, model,
                                            t=t + i))(net, out)
         batches.append(b)
     msgs = [torch.cat(col, lead) if k > 1 else col[0].contiguous()
