@@ -33,7 +33,8 @@ runs `core/batched.fast_forward_chunk_batched` (K=2, no phase hints:
 the two do not compose) and PingPong `network.fast_forward_chunk` on the
 seed batch; the line then carries ``fast_forward``, ``skipped_ms``,
 ``jump_count`` and ``skip_rate`` of one repetition (bench.py:81-96).
-GSF and SanFermin have no fast-forward oracle and refuse it.
+GSF, SanFermin and OptimisticP2PSignature have no fast-forward oracle
+and refuse it.
 
 ``--proto dfinity`` and ``--proto p2pflood`` are `bench_quiet`'s other
 two lines (4 seeds, 1,000 ms in 200-ms chunks of `network.scan_chunk`
@@ -63,6 +64,19 @@ blocks, ``--runs`` seeds numbered from 1 (5), ``--ticks`` (3,000) in
 and row for the final state before the JSON line.  For both a tick is a
 simulated step (20 and 10 ms), and ``--ticks`` is ``--ms``.
 
+``--proto handeleth2``, ``p2phandel`` and ``optimistic`` are
+`chip_smoke.py` phase P's configurations, 4 seeds each in chunks of
+`network.scan_chunk` on the seed batch at the proved K (2), or
+fast-forwarded with ``--fast-forward`` (HandelEth2, P2PHandel):
+``HandelEth2(64)`` with the distance latency to 6,100 ms (past the
+second aggregation's start) in 100-ms chunks, its check every live
+node's running aggregation complete; ``P2PHandel`` with ``--nodes``
+signers (100) and a fifth of that relaying, the P2PHandelParameters
+defaults and the distance latency, to 6,000 ms in 500-ms chunks;
+``OptimisticP2PSignature`` at its `main` configuration (1,000 nodes,
+threshold 501) to 400 ms in 100-ms chunks.  Each checks progress and
+zero drops and clamps.
+
     python3 bench_torch.py                      # 2048 nodes x 16 seeds, cuda
     python3 bench_torch.py --device cpu --nodes 64 --seeds 2 --ms 200
     python3 bench_torch.py --proto pingpong     # 256 nodes x 4 seeds, cuda
@@ -73,6 +87,9 @@ simulated step (20 and 10 ms), and ``--ticks`` is ``--ms``.
     python3 bench_torch.py --proto sanfermin --reps 1   # 32768 nodes
     python3 bench_torch.py --proto casper --ticks 15000 --reps 1
     python3 bench_torch.py --proto ethpow --ticks 30000 --reps 1
+    python3 bench_torch.py --proto handeleth2 --fast-forward --reps 1
+    python3 bench_torch.py --proto p2phandel --fast-forward --reps 1
+    python3 bench_torch.py --proto optimistic   # 1000 nodes x 4 seeds
     python3 bench_torch.py --fast-forward       # the headline, fast-forward
     python3 bench_torch.py --mode cardinal --nodes 65536 --seeds 1
     python3 bench_torch.py --nodes 32768 --seeds 1 --emission hashed \
@@ -117,7 +134,9 @@ DEFAULTS = {"handel": (2048, 16, 1000, 200), "pingpong": (256, 4, 1000, 200),
             "gsf": (4096, 4, 2500, 250), "dfinity": (None, 4, 1000, 200),
             "p2pflood": (256, 4, 1000, 200),
             "sanfermin": (32768, 1, 6000, 500),
-            "casper": (None, 8, 4000, 1000), "ethpow": (10, 5, 3000, 1000)}
+            "casper": (None, 8, 4000, 1000), "ethpow": (10, 5, 3000, 1000),
+            "handeleth2": (64, 4, 6100, 100), "p2phandel": (100, 4, 6000, 500),
+            "optimistic": (1000, 4, 400, 100)}
 #: `--proto dfinity --attesters A`, bench_suite's line: one seed, 12,000
 #: ticks (the 120 simulated s its docstring and height check describe)
 #: in 2,000-tick chunks
@@ -371,6 +390,86 @@ def ethpow_line(args, seeds):
     return proto, run, check, "vmapped", k
 
 
+def handeleth2_line(args, seeds):
+    """``HandelEth2(node_count=nodes)`` with the distance latency
+    (`chip_smoke.py` phase P's configuration), its check zero drops and
+    clamps and, from 1,000 ms on, the first aggregation (height 1,001,
+    which completes in its first second) holding the whole live
+    committee at every live node."""
+    from wittgenstein_tpu_torch.models.handeleth2 import R, HandelEth2
+    from wittgenstein_tpu_torch.ops import bitset
+    proto = HandelEth2(node_count=args.nodes,
+                       network_latency_name="NetworkLatencyByDistanceWJitter",
+                       device=args.device)
+    run, k = quiet_runner(proto, args)
+    ticks = max(1, -(-args.ms // args.chunk)) * args.chunk
+
+    def check(nets, ps):
+        live = ~nets.nodes.down
+        card = bitset.popcount(ps.inc[:, :, 1001 % R]).sum(-1)
+        out = {"progress": int(card[live].min()),
+               "heights": sorted(set(ps.height.flatten().tolist())),
+               "dropped": int(nets.dropped.sum()),
+               "clamped": int(nets.clamped.sum())}
+        if out["dropped"] or out["clamped"]:
+            raise AssertionError(f"drops or clamps: {out}")
+        if 1000 <= ticks < 18000 and \
+                out["progress"] < int(live.sum(1).min()):
+            raise AssertionError(f"aggregation incomplete: {out}")
+        return out
+    return proto, run, check, "vmapped", k
+
+
+def p2phandel_line(args, seeds):
+    """``P2PHandel(**scenario_params(nodes, nodes // 5))`` (phase P's
+    configuration at 100 signers and 20 relays), its check progress
+    (nodes holding more than their own signature) > 0 with zero drops
+    and clamps; the node count in the metric is signers and relays."""
+    from wittgenstein_tpu_torch.models.p2phandel import (P2PHandel,
+                                                         scenario_params)
+    from wittgenstein_tpu_torch.ops import bitset
+    proto = P2PHandel(**scenario_params(args.nodes, args.nodes // 5),
+                      device=args.device)
+    args.nodes = proto.node_count
+    run, k = quiet_runner(proto, args)
+
+    def check(nets, ps):
+        out = {"progress": int((bitset.popcount(ps.verified) > 1).sum()),
+               "done": int((nets.nodes.done_at > 0).sum()),
+               "dropped": int(nets.dropped.sum()),
+               "clamped": int(nets.clamped.sum())}
+        if not out["progress"] > 0:
+            raise AssertionError("p2phandel made no progress")
+        if out["dropped"] or out["clamped"]:
+            raise AssertionError(f"drops or clamps: {out}")
+        return out
+    return proto, run, check, "vmapped", k
+
+
+def optimistic_line(args, seeds):
+    """``OptimisticP2PSignature(**main_params(node_count=nodes,
+    threshold=nodes // 2 + 1))`` (phase P's configuration at 1,000
+    nodes), its check progress (nodes done) > 0 with zero drops and
+    clamps."""
+    from wittgenstein_tpu_torch.models.optimistic import (
+        OptimisticP2PSignature, main_params)
+    proto = OptimisticP2PSignature(**main_params(
+        node_count=args.nodes, threshold=args.nodes // 2 + 1),
+        device=args.device)
+    run, k = quiet_runner(proto, args)
+
+    def check(nets, ps):
+        out = {"progress": int(ps.done.sum()),
+               "dropped": int(nets.dropped.sum()),
+               "clamped": int(nets.clamped.sum())}
+        if not out["progress"] > 0:
+            raise AssertionError("optimistic made no progress")
+        if out["dropped"] or out["clamped"]:
+            raise AssertionError(f"drops or clamps: {out}")
+        return out
+    return proto, run, check, "vmapped", k
+
+
 def ff_step(run, clock, chunk):
     """A fast-forward chunk as the measurement's step, its skip counts
     kept (`bench.py`'s `_ff_step_wrapper`)."""
@@ -446,7 +545,8 @@ def main(argv=None) -> int:
     args.first_seed = 0
     if args.attesters and args.proto not in ("dfinity", "casper"):
         ap.error("--attesters is Dfinity's and Casper's")
-    if args.fast_forward and args.proto in ("gsf", "sanfermin"):
+    if args.fast_forward and args.proto in ("gsf", "sanfermin",
+                                            "optimistic"):
         ap.error(f"{args.proto} has no fast-forward oracle "
                  "(next_action_time)")
     scale = (args.mode != "exact" or args.emission or args.pool is not None
@@ -460,7 +560,8 @@ def main(argv=None) -> int:
     args.nodes = nodes if args.nodes is None else args.nodes
     args.seeds = n_seeds if args.seeds is None else args.seeds
     args.ms = ms if args.ms is None else args.ms
-    if args.proto in ("casper", "ethpow"):
+    if args.proto in ("casper", "ethpow", "handeleth2", "p2phandel",
+                      "optimistic"):
         args.chunk = min(args.chunk, args.ms)
     # bench_suite's single-seed lines run one unbatched state
     args.single = args.proto == "sanfermin" or (
@@ -477,7 +578,9 @@ def main(argv=None) -> int:
             "gsf": gsf_line, "dfinity": dfinity_line,
             "p2pflood": p2pflood_line,
             "sanfermin": sanfermin_line, "casper": casper_line,
-            "ethpow": ethpow_line}[args.proto]
+            "ethpow": ethpow_line, "handeleth2": handeleth2_line,
+            "p2phandel": p2phandel_line,
+            "optimistic": optimistic_line}[args.proto]
     micro = args.proto == "handel" and args.seeds > args.seed_batch
     if micro and args.seeds % args.seed_batch:
         ap.error(f"--seeds {args.seeds} is not a multiple of --seed-batch "

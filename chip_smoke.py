@@ -126,17 +126,39 @@ E. ETHPoW, `try_miner`'s batch at one hash-power point (10 miners, the
    float), `try_miner`'s CSV row the JAX run's, zero drops;
    its ops a tick at 8,192 blocks equal to those at 1,024 within 1%.
 
-Each of S-E logs its wall, its peak allocated memory and its PyTorch
+B. one point of Handel's Byzantine-fraction sweep through its driver,
+   ``handel_scenarios.byz_suicide_sweep(ratios=(0.25,), nodes=4096,
+   seeds=4)`` (1,024 attackers, threshold 0.99 x live, stored emission
+   lists; its 4 seeds in one batch through `run_multiple_times`, chunk
+   250, each ms's phase hints from its time): the CSV text, the stop
+   times and every seed's leaves there equal the JAX run's, zero drops
+   and clamps, every honest node's blacklist non-empty; route once a
+   K=2 window, merge every ms, score on the verification ms;
+P. the P2P signature protocols, seeds 0-3 in one batch each:
+   ``HandelEth2()`` (64 nodes) with the distance latency dense to 600
+   ms at K=2, then fast-forwarded to 1,600 (6,100, past the second
+   aggregation's start, cut for time), equal to its JAX goldens at both
+   and the JAX engine's skip counts; ``P2PHandel(**scenario_params(100,
+   20))``
+   fast-forwarded in 500-ms calls until every seed is done (6,000 ms),
+   equal to the JAX run there with its skip counts; and
+   ``OptimisticP2PSignature(**main_params())`` (1,000 nodes) dense at
+   K=2 until every seed is done (400 ms), equal to the JAX run there,
+   every node done with at least 501 signatures, zero drops.
+
+Each of S-P logs its wall, its peak allocated memory and its PyTorch
 ops a simulated ms or tick (torch.profiler, host side, over OPS_MS more
 ms, one more fast-forwarded chunk, or for K the slot boundary after its
 run and 10 ticks after that), and checks route's launches.  K1 is also
 timed against its plain version on a batch taken from S's, D's, Q's
 P2PFlood, K's and E's
-windows (`capture_route`: of all their windows, S's first sub-plane,
+windows, and on B's and Optimistic's (`capture_route`: of all their
+windows, S's first sub-plane,
 the one with the most valid messages; K and E send only broadcasts, so
 their windows bin none), right after each path.
 
-Phase 2 holds route, merge and score at the headline's shapes too:
+Phase 2 holds merge and score at B's shapes (4 x 4,096 rows through
+their vmap rules), and route, merge and score at the headline's too:
 route with R 16 on a K=2 window, merge and score through their vmap
 rules at 32,768 rows; and route on PingPong's batches: one K=2 window
 of pongs at R 16 (H 1024, N 1000, C 32, F 1, 2 x 1000 messages a seed,
@@ -254,6 +276,24 @@ E_TICKS = 3000          # 30 simulated s
 E_OPS_TICKS = 4         # ticks 0-4 at 8,192 and at 1,024 blocks
 E_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                         "golden_ethpow10_r5_3000ticks.json")
+BYZ_NODES = 4096
+BYZ_SEEDS = 4
+BYZ_RATIO = 0.25
+BYZ_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                          "golden_handel4096_byz_suicide_r4.json")
+P_SEEDS = 4
+ETH2_CHUNK = 200
+ETH2_MS = 600
+ETH2_FF_CHUNK = 500
+ETH2_FF_MS = 1600       # 6,100 (past the second start) cut for time
+ETH2_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                           "golden_handeleth2_64_r4.json")
+P2PH_CHUNK = 500
+P2PH_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                           "golden_p2phandel120_r4.json")
+OPT_CHUNK = 100
+OPT_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                          "golden_optimistic1000_r4.json")
 OPS_MS = 2              # simulated ms over which a path's ops are counted
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 2, 10   # 3 and 20 before PR 10 (cut for time)
@@ -404,10 +444,14 @@ def cold(reset=None):
 
 
 def max_abs_err(plain, kern):
+    """The largest absolute difference over the output pairs, computed
+    where the outputs are (on the card, not on a host copy of GB-sized
+    rings)."""
     err = 0
     for a, b in zip(plain, kern):
-        d = (a.to("cpu").long() - b.to("cpu").long()).abs()
-        err = max(err, int(d.max()) if d.numel() else 0)
+        if a.numel():
+            d = (a.long() - b.to(a.device).long()).abs().max()
+            err = max(err, int(d))
     return err
 
 
@@ -541,13 +585,13 @@ def phase_route(dev, rng, make=route_case, phases=True, **shape):
                 drops=int(dk.sum()))
 
 
-def merge_case(dev, rng):
-    """Main-path shapes: M 2048, Q 16, S 12, W 64; a queue 70% full,
-    60% of inbox slots valid, planted (sender, level) duplicates within
-    the inbox and against the queue."""
+def merge_case(dev, rng, m=N_NODES):
+    """Main-path shapes: M 2048, Q 16, S 12, W 64 (or M `m`, W m / 32);
+    a queue 70% full, 60% of inbox slots valid, planted (sender, level)
+    duplicates within the inbox and against the queue."""
     import numpy as np
     import torch
-    m, q, s, w = N_NODES, 16, 12, N_NODES // 32
+    q, s, w = 16, 12, m // 32
     q_from = np.where(rng.random((m, q)) < 0.7,
                       rng.integers(0, m, (m, q)), -1)
     q_lvl = rng.integers(0, 12, (m, q))
@@ -606,7 +650,7 @@ def phase_merge(dev, rng, seeds=None, make=merge_case):
             return merge_queue(*args)
     else:
         args = [torch.stack(a) for a in
-                zip(*(merge_case(dev, rng) for _ in range(seeds)))]
+                zip(*(make(dev, rng) for _ in range(seeds)))]
         flat = [fold_seeds(a, 0, seeds) for a in args]
 
         def kern_fn():
@@ -633,17 +677,17 @@ def phase_merge(dev, rng, seeds=None, make=merge_case):
                 evicted=int(kern[5].sum()))
 
 
-def phase_score(dev, rng, seeds=None, args=None):
-    """K3 at the Handel path's shapes (or on `args`, one call's); with
-    `seeds`, a batch through `score_queue`'s vmap rule (the node ids
-    unbatched, as in the step), against the plain version on the folded
-    rows."""
+def phase_score(dev, rng, seeds=None, args=None, m=N_NODES):
+    """K3 at the Handel path's shapes (M `m` rows; or on `args`, one
+    call's); with `seeds`, a batch through `score_queue`'s vmap rule (the
+    node ids unbatched, as in the step), against the plain version on
+    the folded rows."""
     import numpy as np
     import torch
     from wittgenstein_tpu_torch.ops.merge import fold_seeds
     from wittgenstein_tpu_torch.ops.score import score_queue, \
         score_queue_plain
-    m, q, w = N_NODES, 16, N_NODES // 32
+    q, w = 16, m // 32
     lead = () if seeds is None else (seeds,)
 
     def bits(*shape):
@@ -700,6 +744,18 @@ def phase_merge_headline(dev, rng):
 
 def phase_score_headline(dev, rng):
     return phase_score(dev, rng, seeds=HEADLINE_SEEDS)
+
+
+def phase_merge_byz(dev, rng):
+    """K2 at phase B's shapes: 4 seeds x 4,096 rows (W 128) through the
+    vmap rule."""
+    return phase_merge(dev, rng, seeds=BYZ_SEEDS,
+                       make=lambda dev, rng: merge_case(dev, rng,
+                                                        m=BYZ_NODES))
+
+
+def phase_score_byz(dev, rng):
+    return phase_score(dev, rng, seeds=BYZ_SEEDS, m=BYZ_NODES)
 
 
 def phase_route_gsf(dev, rng):
@@ -1126,11 +1182,23 @@ KERNELS = [
      "wittgenstein_tpu_torch/csrc/route.cu",
      "wittgenstein_tpu/ops/pallas_route.py:154",
      phase_route_captured("route_ethpow")),
+    ("route_byz", "route", "byz", "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_byz")),
+    ("merge_byz", "merge", "byz", "wittgenstein_tpu_torch/csrc/merge.cu",
+     "wittgenstein_tpu/ops/pallas_merge.py:55", phase_merge_byz),
+    ("score_byz", "score", "byz", "wittgenstein_tpu_torch/csrc/score.cu",
+     "wittgenstein_tpu/ops/pallas_score.py:46", phase_score_byz),
+    ("route_optimistic", "route", "optimistic",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_optimistic")),
 ]
 #: the kernel entries whose case is captured from their path's run
 #: (`capture_route`) and timed right after it, not in phase 2
 CAPTURED = ("route_sanfermin", "route_dfinity", "route_p2pflood",
-            "route_casper", "route_ethpow")
+            "route_casper", "route_ethpow", "route_byz",
+            "route_optimistic")
 #: the launches each path's run must make, by wrapper (others: none).
 #: The per-ms paths launch each kernel once a simulated ms; the headline
 #: bins once a K=2 window, merges every ms and scores on the
@@ -2408,6 +2476,306 @@ def ethpow_run(dev):
     return out, launches
 
 
+# ------------------------- the scenario drivers and the P2P signatures
+
+
+def byz_counts(nets, ps):
+    """Per seed of a Handel batch: drops, clamps, evictions, the live
+    done fraction and the honest nodes with a non-empty blacklist."""
+    live = ~nets.nodes.down
+    frac = ((nets.nodes.done_at > 0) & live).sum(1) / live.sum(1)
+    caught = ((ps.blacklist != 0).any(-1) & live).sum(1)
+    return [{"dropped": int(nets.dropped[r]), "clamped": int(nets.clamped[r]),
+             "evicted": int(ps.evicted[r]), "frac_done": float(frac[r]),
+             "honest_blacklisted": int(caught[r])}
+            for r in range(nets.time.shape[0])]
+
+
+def byz_run(dev, n=BYZ_NODES, golden_path=BYZ_GOLDEN):
+    """Path B: one point of Handel's Byzantine-fraction sweep through
+    the entry point a user calls, ``handel_scenarios.byz_suicide_sweep(
+    ratios=(0.25,), nodes=4096, seeds=4, device=dev)``: the sweep's 4
+    seeds in one batch through `run_multiple_times` (chunk 250, max_time
+    8,000, stored emission lists), counters set to 0 just before.  Its
+    CSV text, every seed's stop time, leaf digests there and counters
+    equal the JAX run's (the sweep's `run_multiple_times` result is
+    captured); zero drops and clamps, honest blacklists non-empty.  A
+    K1 case is captured from its windows at 100, 150, 200 and 250 ms
+    (each capture clones the 1.2 GB ring)."""
+    import tempfile
+
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    from wittgenstein_tpu_torch.scenarios import handel_scenarios as hs
+    with open(golden_path) as f:
+        golden = json.load(f)
+    got = {}
+    orig = hs.run_multiple_times
+
+    def capture(*a, **kw):
+        got["res"] = orig(*a, **kw)
+        return got["res"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    hs.run_multiple_times = capture
+    try:
+        with capture_route("route_byz", {50, 75, 100, 125}), \
+                tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            csv = hs.byz_suicide_sweep(ratios=(BYZ_RATIO,), nodes=n,
+                                       seeds=BYZ_SEEDS, out_dir=d,
+                                       device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        hs.run_multiple_times = orig
+    launches = read_counters()
+    res = got["res"]
+    nets, ps = res.nets, res.pstates
+    c0 = time.perf_counter()
+    if str(csv) != golden["csv"]:
+        fail(f"byz_suicide_sweep CSV {str(csv)!r}, the JAX run's "
+             f"{golden['csv']!r}")
+    stopped = [int(x) for x in res.stopped_at]
+    if stopped != golden["stopped_at"]:
+        fail(f"byz_suicide_sweep stops at {stopped}, the JAX run at "
+             f"{golden['stopped_at']}")
+    digests = convert.seed_digests(*convert.to_numpy(nets, ps))
+    for r, (g, w) in enumerate(zip(digests, golden["seeds"])):
+        check_digest(f"byz_suicide_sweep seed {r} at {stopped[r]} ms", g, w)
+    counts = byz_counts(nets, ps)
+    if counts != golden["counts"] or any(
+            c["dropped"] or c["clamped"] or not c["honest_blacklisted"]
+            for c in counts):
+        fail(f"byz_suicide_sweep counts {counts}, the JAX run's "
+             f"{golden['counts']} (want zero drops and clamps and "
+             "non-empty honest blacklists)")
+    log(f"byz_suicide_sweep at {n} nodes: the CSV row, the stop times and "
+        f"all {BYZ_SEEDS} seeds' {len(digests[0])} leaves match the JAX "
+        f"reference: {str(csv).splitlines()[1]} (checked in "
+        f"{time.perf_counter() - c0:.1f} s)")
+    sim = max(stopped)
+    proto = hs.Handel(**hs.default_params(nodes=n, dead_ratio=BYZ_RATIO,
+                                          byzantine_suicide=True),
+                      device=dev)
+    verify = sum(proto.phase_hints(t % proto.schedule_lcm)["verify"]
+                 for t in range(sim))
+    PATH_LAUNCHES["byz"] = {"route": sim // 2, "merge": sim, "score": verify}
+    out = dict(superstep=2, wall_s=wall, sim_ms=sim,
+               agg_sim_ms_per_s=BYZ_SEEDS * sim / wall,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               csv_row=str(csv).splitlines()[1],
+               **counts_of(nets), honest_blacklisted=sum(
+                   c["honest_blacklisted"] for c in counts))
+    # a whole pairing period of ms (one verification ms in four)
+    c0 = time.perf_counter()
+    window = scan_chunk(proto, 4, superstep=2, timed_hints=True)
+    out["aten_ops_per_ms"] = ops_per_ms(lambda: window(nets, ps, t=sim), 4)
+    out["ops_window_s"] = time.perf_counter() - c0
+    return out, launches
+
+
+def eth2_run(dev, golden_path=ETH2_GOLDEN):
+    """Path P, HandelEth2: ``HandelEth2()`` (64 nodes, pairing 3, level
+    wait 100, period 50, 4 hash values) with the distance latency, seeds
+    0-3 in one batch: dense to ETH2_MS in ETH2_CHUNK-ms
+    `network.scan_chunk` calls at the proved K (2), then
+    fast-forwarded (`fast_forward_chunk(seed_axis=True, superstep=2)`)
+    in ETH2_FF_CHUNK-ms calls to ETH2_FF_MS (1,600 ms; 6,100, past the
+    second aggregation's start, took 50-56 s on the card and was cut
+    for time: the CPU tests cover the start); every seed equal to its
+    JAX golden at both times, every call's skip counts the JAX
+    engine's, every node at the golden's height.  Counters set to 0
+    before each run."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch.core.network import (
+        fast_forward_chunk, pick_superstep, scan_chunk)
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.handeleth2 import HandelEth2
+    with open(golden_path) as f:
+        golden = json.load(f)
+    proto = HandelEth2(network_latency_name="NetworkLatencyByDistanceWJitter",
+                       device=dev)
+    k = pick_superstep(proto, ETH2_CHUNK, t0=0)
+    if k != 2:
+        fail(f"HandelEth2: the gate proves K={k}, want 2 (as JAX)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_batched(proto, torch.arange(P_SEEDS))
+    reset_counters()
+    (nets, ps), wall, _ = chunked(scan_chunk(proto, ETH2_CHUNK, superstep=k),
+                                  state, 0, ETH2_MS, ETH2_CHUNK)
+    launches = read_counters()
+    check_seed_goldens(f"HandelEth2 x {P_SEEDS} seeds (dense)", nets, ps,
+                       dict(golden["dense"]))
+    PATH_LAUNCHES["eth2"] = {"route": ETH2_MS // k}
+    dense = dict(superstep=k, wall_s=wall,
+                 agg_sim_ms_per_s=P_SEEDS * ETH2_MS / wall,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 **counts_of(nets))
+    # on a copy: the window updates the ring in place
+    window = scan_chunk(proto, OPS_MS, superstep=k)
+    copy = pytree.tree_map(torch.clone, (nets, ps))
+    dense["aten_ops_per_ms"] = ops_per_ms(
+        lambda: window(*copy, t=ETH2_MS), OPS_MS)
+    del copy
+
+    reset_counters()
+    run = fast_forward_chunk(proto, ETH2_FF_CHUNK, seed_axis=True,
+                             superstep=k)
+    (nets, ps), ff_wall, stats = chunked(run, (nets, ps), ETH2_MS,
+                                         ETH2_FF_MS, ETH2_FF_CHUNK, ff=True)
+    ff_launches = read_counters()
+    want = golden["fast_forward"]
+    if stats != want["chunks"]:
+        fail(f"fast-forwarded HandelEth2 skips {stats}, the JAX engine "
+             f"{want['chunks']}")
+    check_seed_goldens(f"HandelEth2 x {P_SEEDS} seeds (fast-forwarded)",
+                       nets, ps, dict(want))
+    skipped = sum(s["skipped_ms"] for s in stats)
+    span = ETH2_FF_MS - ETH2_MS
+    PATH_LAUNCHES["eth2_ff"] = {"route": (span - skipped) // k}
+    ff = dict(superstep=k, wall_s=ff_wall, sim_ms=span,
+              agg_sim_ms_per_s=P_SEEDS * span / ff_wall, skipped_ms=skipped,
+              skip_rate=skipped / span,
+              jump_count=sum(s["jump_count"] for s in stats),
+              heights=sorted(set(ps.height.flatten().tolist())),
+              peak_mem_bytes=torch.cuda.max_memory_allocated(),
+              **counts_of(nets))
+    heights = sorted({h for c in want["counts"] for h in c["heights"]})
+    if dense["dropped"] or dense["clamped"] or ff["dropped"] or \
+            ff["clamped"] or ff["heights"] != heights:
+        fail(f"HandelEth2: want zero drops and clamps and every node at "
+             f"height {heights}: {dense} {ff}")
+    return {"eth2": (dense, launches), "eth2_ff": (ff, ff_launches)}
+
+
+def until_stopped(run, state, chunk, cont, limit):
+    """`run` (a chunk function) from t=0 in calls until `cont` holds for
+    no seed of the batch; the host waits for the card after each.
+    Returns the state, the stop time, the wall and each call's skip
+    counts (fast-forwarded chunks)."""
+    import torch
+    t, wall, stats = 0, 0.0, []
+    while True:
+        c0 = time.perf_counter()
+        if not bool(torch.func.vmap(cont)(*state).any()):
+            wall += time.perf_counter() - c0
+            return state, t, wall, stats
+        if t >= limit:
+            fail(f"the batch is still running at {t} ms")
+        state = run(*state, t=t)
+        if len(state) == 3:
+            *state, st = state
+            stats.append(st)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - c0
+        t += chunk
+
+
+def p2phandel_run(dev, golden_path=P2PH_GOLDEN):
+    """Path P, P2PHandel: ``P2PHandel(**scenario_params(100, 20))`` (the
+    P2PHandelParameters defaults of `p2phandel_scenarios.default_params(
+    100, 20)`, the distance latency in place of the city one), seeds 0-3
+    in one batch, fast-forwarded in P2PH_CHUNK-ms calls
+    (`fast_forward_chunk(seed_axis=True, superstep=2)`) until
+    `cont_if_p2phandel` stops every seed: the stop time, every call's
+    skip counts and every seed's leaves the JAX run's there, zero drops
+    and clamps.  Counters set to 0 just before; a K1 case captured."""
+    import torch
+    from wittgenstein_tpu_torch.core.network import fast_forward_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.p2phandel import (P2PHandel,
+                                                         cont_if_p2phandel,
+                                                         scenario_params)
+    with open(golden_path) as f:
+        golden = json.load(f)
+    proto = P2PHandel(**scenario_params(), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_batched(proto, torch.arange(P_SEEDS))
+    reset_counters()
+    run = fast_forward_chunk(proto, P2PH_CHUNK, seed_axis=True, superstep=2)
+    (nets, ps), sim, wall, stats = until_stopped(
+        run, state, P2PH_CHUNK, cont_if_p2phandel, golden["ms"])
+    launches = read_counters()
+    if sim != golden["ms"] or stats != golden["chunks"]:
+        fail(f"P2PHandel stops at {sim} ms skipping {stats}; the JAX run "
+             f"at {golden['ms']} skipping {golden['chunks']}")
+    check_seed_goldens(f"P2PHandel x {P_SEEDS} seeds (fast-forwarded)",
+                       nets, ps, golden)
+    skipped = sum(s["skipped_ms"] for s in stats)
+    PATH_LAUNCHES["p2phandel"] = {"route": (sim - skipped) // 2}
+    out = dict(superstep=2, wall_s=wall, sim_ms=sim,
+               agg_sim_ms_per_s=P_SEEDS * sim / wall, skipped_ms=skipped,
+               skip_rate=skipped / sim,
+               jump_count=sum(s["jump_count"] for s in stats),
+               done_max=int(nets.nodes.done_at.max()),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               **counts_of(nets))
+    if out["dropped"] or out["clamped"]:
+        fail(f"P2PHandel drops and clamps must be 0: {out}")
+    return out, launches
+
+
+def optimistic_run(dev, golden_path=OPT_GOLDEN):
+    """Path P, OptimisticP2PSignature: its `main` configuration
+    (`main_params()`: 1,000 nodes, threshold 501, 13 peers, pairing 3)
+    with the distance latency, seeds 0-3 in one batch, dense in
+    OPT_CHUNK-ms `network.scan_chunk` calls at the proved K (2) until
+    `cont_if_optimistic` stops every seed: the stop time and every
+    seed's leaves the JAX run's there, and `test_optimistic_run`'s
+    checks: every node done, cardinality at least 501, zero drops and
+    clamps.  Counters set to 0 just before; a K1 case captured from its
+    windows at 60, 100, 140 and 180 ms (the ring is 1.2 GB)."""
+    import torch
+    from wittgenstein_tpu_torch.core.network import (pick_superstep,
+                                                     scan_chunk)
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.optimistic import (
+        OptimisticP2PSignature, cont_if_optimistic, main_params)
+    from wittgenstein_tpu_torch.ops import bitset
+    with open(golden_path) as f:
+        golden = json.load(f)
+    proto = OptimisticP2PSignature(**main_params(), device=dev)
+    k = pick_superstep(proto, OPT_CHUNK, t0=0)
+    if k != 2:
+        fail(f"OptimisticP2PSignature: the gate proves K={k}, want 2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_batched(proto, torch.arange(P_SEEDS))
+    reset_counters()
+    with capture_route("route_optimistic", {30, 50, 70, 90}):
+        (nets, ps), sim, wall, _ = until_stopped(
+            scan_chunk(proto, OPT_CHUNK, superstep=k), state, OPT_CHUNK,
+            cont_if_optimistic, golden["ms"])
+    launches = read_counters()
+    if sim != golden["ms"]:
+        fail(f"OptimisticP2PSignature stops at {sim} ms, the JAX run at "
+             f"{golden['ms']}")
+    check_seed_goldens(f"OptimisticP2PSignature x {P_SEEDS} seeds", nets,
+                       ps, golden)
+    PATH_LAUNCHES["optimistic"] = {"route": sim // k}
+    card = bitset.popcount(ps.received)
+    out = dict(superstep=k, wall_s=wall, sim_ms=sim,
+               agg_sim_ms_per_s=P_SEEDS * sim / wall,
+               min_cardinality=int(card.min()),
+               all_done=bool((nets.nodes.done_at > 0).all() and ps.done.all()),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               **counts_of(nets))
+    window = scan_chunk(proto, OPS_MS, superstep=k)
+    out["aten_ops_per_ms"] = ops_per_ms(lambda: window(nets, ps, t=sim),
+                                        OPS_MS)
+    if not out["all_done"] or out["min_cardinality"] < proto.threshold or \
+            out["dropped"] or out["clamped"]:
+        fail(f"OptimisticP2PSignature: want every node done with at least "
+             f"{proto.threshold} signatures and zero drops: {out}")
+    return out, launches
+
+
 #: kernel names (substrings of the profiler's keys) whose device time
 #: a simulated ms `--profile` reports for each path
 PROFILE_KERNELS = {
@@ -2777,6 +3145,27 @@ def main(argv=None) -> int:
     kernel_case("route_ethpow")
     done("E")
 
+    # B. one point of Handel's Byzantine-fraction sweep at 4,096 nodes
+    t0 = time.perf_counter()
+    bres, blaunches = byz_run(dev)
+    log(f"byz_suicide_sweep {BYZ_NODES} x {BYZ_SEEDS} seeds: "
+        f"{json.dumps(bres)} launches {blaunches}")
+    check_launches("byz", blaunches)
+    kernel_case("route_byz")
+    done("B")
+
+    # P. HandelEth2, P2PHandel and OptimisticP2PSignature, 4 seeds each
+    protos = eth2_run(dev)
+    protos["p2phandel"] = p2phandel_run(dev)
+    protos["optimistic"] = optimistic_run(dev)
+    for key, (pres_, plaunches_) in protos.items():
+        log(f"{key}: {json.dumps(pres_)} launches {plaunches_}")
+        check_launches(key, plaunches_)
+    kernel_case("route_optimistic")
+    bp_wall = time.perf_counter() - t0
+    log(f"phases B and P: {bp_wall:.1f} s")
+    done("P")
+
     memory = {}
     if args.memory_seeds:
         memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
@@ -2857,7 +3246,11 @@ def main(argv=None) -> int:
                "sanfermin": SF_MS, "cappos": CAPPOS_MS, "dfinity": D_TICKS,
                "dfinity_ff": D_FF_TICKS, "quiet_dfinity": Q_MS,
                "quiet_dfinity_ff": Q_MS, "quiet_p2pflood": Q_MS,
-               "casper": K_TICKS, "ethpow": E_TICKS}
+               "casper": K_TICKS, "ethpow": E_TICKS,
+               "byz": bres["sim_ms"], "eth2": ETH2_MS,
+               "eth2_ff": ETH2_FF_MS - ETH2_MS,
+               **{k: v[0]["sim_ms"] for k, v in protos.items()
+                  if k in ("p2phandel", "optimistic")}}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
                      "pingpong_harness": hplaunches, "spill": slaunches,
@@ -2868,7 +3261,9 @@ def main(argv=None) -> int:
                      "sanfermin": sflaunches, "cappos": claunches,
                      "dfinity": dlaunches, "dfinity_ff": dflaunches,
                      **{k: v[1] for k, v in quiet.items()},
-                     "casper": klaunches, "ethpow": elaunches}
+                     "casper": klaunches, "ethpow": elaunches,
+                     "byz": blaunches,
+                     **{k: v[1] for k, v in protos.items()}}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -2906,6 +3301,9 @@ def main(argv=None) -> int:
                       "dfinity_ff_path": dfres,
                       **{f"{k}_path": v[0] for k, v in quiet.items()},
                       "casper_path": kres, "ethpow_path": eres,
+                      "byz_path": bres,
+                      **{f"{k}_path": v[0] for k, v in protos.items()},
+                      "phases_bp_wall_s": bp_wall,
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

@@ -6,7 +6,10 @@ bench_suite.py`'s Dfinity line with 40 attesters (one run, 2,000 ticks,
 fast-forwarded) and its SanFermin line at 8 nodes (one run, 500 ms);
 Casper IMD's line with 5 attesters a round (2 seeds, 402 ticks: the WF
 producer's first block) and `try_miner`'s ETHPoW batch with 5 miners (2
-seeds from 1, 200 ticks, its CSV row printed)."""
+seeds from 1, 200 ticks, its CSV row printed); and phase P's HandelEth2
+(16 nodes, fast-forwarded to 1,000 ms), P2PHandel (40 signers and 8
+relays, 500 ms) and OptimisticP2PSignature (64 nodes, 200 ms), 2 seeds
+each."""
 
 import json
 
@@ -102,3 +105,40 @@ def test_ethpow_line(capsys):
     assert out[-2] == line["csv_row"]
     assert out[-2].startswith("ETHSelfishMiner/NetworkFixedLatency(1000)/")
     assert line["dropped"] == line["arena_dropped"] == 0
+
+
+def test_handeleth2_line(capsys):
+    """Phase P's HandelEth2 at 16 nodes, 2 seeds, fast-forwarded to 1,000
+    ms: the first aggregation complete at every node, no drops."""
+    line = _line(capsys, ["--proto", "handeleth2", "--nodes", "16",
+                          "--seeds", "2", "--ms", "1000", "--fast-forward"])
+    assert line["metric"] == "handeleth2_16n_2seeds_agg_sim_ms_per_sec_ff"
+    assert (line["engine"], line["superstep"], line["chunk"]) == (
+        "fast_forward", 2, 100)
+    assert 0 < line["skipped_ms"] < line["sim_ms"] == 1000
+    assert line["progress"] == 16 and line["heights"] == [1001]
+    assert line["dropped"] == line["clamped"] == 0
+
+
+def test_p2phandel_line(capsys):
+    """Phase P's P2PHandel at 40 signers and 8 relays, 2 seeds, 500 ms
+    dense: verifications landed, no drops."""
+    line = _line(capsys, ["--proto", "p2phandel", "--nodes", "40",
+                          "--seeds", "2", "--ms", "500"])
+    assert line["metric"] == "p2phandel_48n_2seeds_agg_sim_ms_per_sec"
+    assert (line["engine"], line["superstep"], line["chunk"]) == (
+        "vmapped", 2, 500)
+    assert line["progress"] > 0 and line["dropped"] == line["clamped"] == 0
+
+
+def test_optimistic_line(capsys):
+    """Phase P's OptimisticP2PSignature at 64 nodes (threshold 33), 2
+    seeds, 200 ms: every node done, no drops; it has no fast-forward
+    oracle and refuses the flag."""
+    line = _line(capsys, ["--proto", "optimistic", "--nodes", "64",
+                          "--seeds", "2", "--ms", "200"])
+    assert line["metric"] == "optimistic_64n_2seeds_agg_sim_ms_per_sec"
+    assert (line["engine"], line["superstep"]) == ("vmapped", 2)
+    assert line["progress"] == 128 and line["dropped"] == 0
+    with pytest.raises(SystemExit):
+        bench_torch.main(["--proto", "optimistic", "--fast-forward"])

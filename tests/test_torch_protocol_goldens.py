@@ -1,9 +1,10 @@
 """The golden digests that `chip_smoke.py` holds the port's SanFermin,
-Cappos, Dfinity and P2PFlood paths against (phases S, C, D and Q): each
-file's schema and call, its leaf names those of the port's state of the
-same configuration, and its counters; marked slow, the quiet lines'
-digests recomputed from the JAX package and the port's CPU runs of them
-against the files."""
+Cappos, Dfinity and P2PFlood paths against (phases S, C, D and Q), and
+its Byzantine sweep point and P2P signature batches (phases B and P):
+each file's schema and call, its leaf names those of the port's state
+of the same configuration, and its counters; marked slow, the quiet
+lines' digests recomputed from the JAX package and the port's CPU runs
+of them against the files."""
 
 import dataclasses
 import json
@@ -117,3 +118,81 @@ def test_quiet_goldens_match_jax_and_port(tmp_path, monkeypatch):
                 golden["seeds"]
             if ff:
                 assert stats == golden["fast_forward"]["chunks"]
+
+
+#: the goldens of `chip_smoke.py` phases B and P: name -> file
+SCENARIO_FILES = {"byz": tp.BYZ_GOLDEN_FILE, "eth2": tp.ETH2_GOLDEN_FILE,
+                  "p2phandel": tp.P2PHANDEL_GOLDEN_FILE,
+                  "optimistic": tp.OPTIMISTIC_GOLDEN_FILE}
+
+
+def _scenario_leaves(name):
+    """Leaf names of the port's state of each golden's configuration, at
+    a size with the same leaves."""
+    if name == "byz":
+        from wittgenstein_tpu_torch.models.handel import Handel
+        from wittgenstein_tpu_torch.scenarios.handel_scenarios import \
+            default_params
+        proto = Handel(**default_params(nodes=32, dead_ratio=0.25,
+                                        byzantine_suicide=True), device="cpu")
+    elif name == "eth2":
+        from wittgenstein_tpu_torch.models.handeleth2 import HandelEth2
+        proto = HandelEth2(node_count=16, device="cpu")
+    elif name == "p2phandel":
+        from wittgenstein_tpu_torch.models.p2phandel import (P2PHandel,
+                                                             scenario_params)
+        proto = P2PHandel(**scenario_params(40, 8), device="cpu")
+    else:
+        from wittgenstein_tpu_torch.models.optimistic import (
+            OptimisticP2PSignature, main_params)
+        proto = OptimisticP2PSignature(**main_params(node_count=64,
+                                                     threshold=33),
+                                       device="cpu")
+    return sorted(convert.state_digest(*convert.to_numpy(*proto.init(0))))
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIO_FILES))
+def test_scenario_golden_schema(name):
+    """Each phase B or P golden: its call, 4 seeds with the leaf names of
+    the port's state of the same configuration and distinct digests,
+    zero drops and clamps, and the generator's wall and memory."""
+    golden = _load(SCENARIO_FILES[name])
+    assert {"wall_s", "peak_rss_gb"} <= set(golden["generator"])
+    names = _scenario_leaves(name)
+    parts = ([golden["dense"], golden["fast_forward"]] if name == "eth2"
+             else [golden])
+    for part in parts:
+        assert len(part["seeds"]) == len(part["counts"]) == tp.P_SEEDS
+        assert all(sorted(d) == names for d in part["seeds"])
+        assert len({json.dumps(d, sort_keys=True)
+                    for d in part["seeds"]}) == tp.P_SEEDS
+        assert all(c["dropped"] == c["clamped"] == 0 for c in part["counts"])
+    if name == "byz":
+        assert golden["call"].startswith(
+            "wittgenstein_tpu.scenarios.handel_scenarios.byz_suicide_sweep("
+            f"ratios=({tp.BYZ_RATIO},), nodes={tp.BYZ_N}, seeds=4)")
+        header, row = golden["csv"].splitlines()
+        assert header == "byz_ratio,avg_done_ms,max_done_ms,frac_done"
+        assert row.startswith("0.25,") and row.endswith(",1.0")
+        assert len(set(golden["stopped_at"])) == 1
+        assert all(c["honest_blacklisted"] == tp.BYZ_N * 3 // 4 and
+                   c["evicted"] == 0 for c in golden["counts"])
+    elif name == "eth2":
+        assert golden["dense"]["ms"] == tp.ETH2_DENSE_MS
+        ff = golden["fast_forward"]
+        assert ff["ms"] == tp.ETH2_FF_MS
+        assert len(ff["chunks"]) == \
+            (tp.ETH2_FF_MS - tp.ETH2_DENSE_MS) // tp.ETH2_FF_CHUNK
+        assert ff["skipped_ms"] == sum(c["skipped_ms"] for c in ff["chunks"])
+        assert all(c["heights"] == [1001] for c in ff["counts"])
+    elif name == "p2phandel":
+        assert golden["ms"] == tp.P2PHANDEL_CHUNK * len(golden["chunks"])
+        assert golden["skipped_ms"] == sum(c["skipped_ms"]
+                                           for c in golden["chunks"])
+        assert all(0 < c["done_max"] <= golden["ms"]
+                   for c in golden["counts"])
+    else:
+        assert golden["ms"] % tp.OPTIMISTIC_CHUNK == 0
+        assert all(c["min_cardinality"] >= 501 and
+                   0 < c["done_max"] <= golden["ms"]
+                   for c in golden["counts"])

@@ -53,8 +53,17 @@ def test_default_device_refuses_without_card(monkeypatch):
                                                          SanFerminCappos)
     from wittgenstein_tpu_torch.models.casper import CasperIMD
     from wittgenstein_tpu_torch.models.ethpow import ETHPoW, MinerAgentEnv
+    from wittgenstein_tpu_torch.models.handeleth2 import HandelEth2
+    from wittgenstein_tpu_torch.models.optimistic import \
+        OptimisticP2PSignature
+    from wittgenstein_tpu_torch.models.p2phandel import P2PHandel
+    from wittgenstein_tpu_torch.scenarios import (gsf_scenarios,
+                                                  handel_scenarios)
     for proto in (Dfinity, P2PFlood, SanFermin, SanFerminCappos, CasperIMD,
-                  ETHPoW, lambda: MinerAgentEnv(0.4)):
+                  ETHPoW, lambda: MinerAgentEnv(0.4), HandelEth2, P2PHandel,
+                  OptimisticP2PSignature,
+                  lambda: handel_scenarios.desync_sweep(nodes=32),
+                  lambda: gsf_scenarios.sigs_per_time(nodes=32)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             proto()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -173,3 +182,37 @@ def test_bench_torch_fails_without_card():
                          timeout=120)
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr and not out.stdout
+
+
+def test_chip_smoke_scenario_phase_failure_exits_nonzero(monkeypatch,
+                                                         tmp_path):
+    """Phases B and P end the smoke with exit code 1 and no result when a
+    run disagrees with its golden: B's sweep at 32 nodes on the CPU, and
+    P's HandelEth2 batch for one 2-ms chunk, each against a golden that
+    is not the run's."""
+    import json
+
+    import chip_smoke
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    byz = tmp_path / "byz.json"
+    byz.write_text(json.dumps({"csv": "byz_ratio\n", "stopped_at": [0],
+                               "seeds": [], "counts": []}))
+    eth2 = tmp_path / "eth2.json"
+    eth2.write_text(json.dumps({"dense": {"ms": 2, "seeds": [
+        {"net.time": "0"}] * 4}}))
+    monkeypatch.setattr(chip_smoke, "ETH2_MS", 2)
+    monkeypatch.setattr(chip_smoke, "ETH2_CHUNK", 2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for run in (lambda: chip_smoke.byz_run("cpu", n=32,
+                                               golden_path=str(byz)),
+                    lambda: chip_smoke.eth2_run("cpu",
+                                                golden_path=str(eth2))):
+            with pytest.raises(SystemExit) as e:
+                run()
+            assert e.value.code == 1
+    finally:
+        torch.set_num_threads(threads)

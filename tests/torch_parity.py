@@ -166,6 +166,67 @@ def jax_ff_batch(jproto, seeds, ms, chunk, superstep):
     return jax_state(*state), stats
 
 
+def jax_batch_run(jproto, seeds, ms, chunk, ff_ms=0, ff_chunk=None):
+    """The JAX package on a seed batch: ``jax.jit(jax.vmap(scan_chunk(
+    jproto, chunk)))`` calls from ``jax.vmap(jproto.init)(seeds)`` to
+    `ms`, then ``jax.jit(fast_forward_chunk(jproto, ff_chunk,
+    seed_axis=True, superstep=2))`` calls on to ``ms + ff_ms``.  Returns
+    ``{t: (net_np, pstate_np)}`` after every call and the fast-forwarded
+    calls' skip counts."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import fast_forward_chunk, scan_chunk
+
+    state = jax.vmap(jproto.init)(jnp.asarray(seeds, jnp.int32))
+    run = jax.jit(jax.vmap(scan_chunk(jproto, chunk)))
+    out, stats = {}, []
+    for t in range(chunk, ms + 1, chunk):
+        state = run(*state)
+        out[t] = jax_state(*state)
+    if ff_ms:
+        ff = jax.jit(fast_forward_chunk(jproto, ff_chunk, seed_axis=True,
+                                        superstep=2))
+        for t in range(ms + ff_chunk, ms + ff_ms + 1, ff_chunk):
+            *state, st = ff(*state)
+            stats.append({k: int(v) for k, v in st.items()})
+            out[t] = jax_state(*state)
+    return out, stats
+
+
+def port_batch_run(proto, seeds, ms, chunk, ff_ms=0, ff_chunk=None):
+    """The port's counterpart of `jax_batch_run`: `network.scan_chunk` at
+    K=2 on `init_batched`, then `fast_forward_chunk(seed_axis=True,
+    superstep=2)`, with vmap's per-seed fallback an error."""
+    from test_torch_batched import no_vmap_fallback
+    from wittgenstein_tpu_torch.core import network
+    from wittgenstein_tpu_torch.core.state import init_batched
+
+    state = init_batched(proto, seeds)
+    out, stats = {}, []
+    with no_vmap_fallback():
+        run = network.scan_chunk(proto, chunk, superstep=2)
+        for t in range(chunk, ms + 1, chunk):
+            state = run(*state, t=t - chunk)
+            out[t] = convert.to_numpy(*state)
+        if ff_ms:
+            ff = network.fast_forward_chunk(proto, ff_chunk, seed_axis=True,
+                                            superstep=2)
+            for t in range(ms + ff_chunk, ms + ff_ms + 1, ff_chunk):
+                *state, st = ff(*state, t=t - ff_chunk)
+                stats.append(st)
+                out[t] = convert.to_numpy(*state)
+    return out, stats
+
+
+def assert_batches_equal(ref, got, what=""):
+    """Every seed of two batched states equal, leaf for leaf."""
+    for r in range(len(ref[0]["time"])):
+        assert_states_equal([seed_state(x, r) for x in ref],
+                            [seed_state(x, r) for x in got],
+                            f"{what} seed {r}")
+
+
 def port_chunks(proto, state, ms, chunk, superstep=1, fast_forward=False):
     """The port's `network.scan_chunk` (or `fast_forward_chunk`, on the
     state's own layout) in `chunk`-ms calls from `state` at time 0 to
@@ -931,6 +992,232 @@ def write_ethpow_golden(runs=ETHPOW_RUNS, ticks=ETHPOW_TICKS):
         t0)
 
 
+BYZ_N, BYZ_SEEDS, BYZ_RATIO = 4096, 4, 0.25
+BYZ_GOLDEN_FILE = os.path.join(PORT_DATA,
+                               "golden_handel4096_byz_suicide_r4.json")
+P_SEEDS = 4
+ETH2_DENSE_MS, ETH2_FF_MS, ETH2_CHUNK, ETH2_FF_CHUNK = 600, 1600, 200, 500
+ETH2_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_handeleth2_64_r4.json")
+P2PHANDEL_CHUNK, P2PHANDEL_MAX_MS = 500, 60_000
+P2PHANDEL_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                     "golden_p2phandel120_r4.json")
+OPTIMISTIC_CHUNK, OPTIMISTIC_MAX_MS = 100, 5_000
+OPTIMISTIC_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                      "golden_optimistic1000_r4.json")
+
+
+def byz_counts(net_np, ps_np):
+    """Per seed of a batched Handel state: drops, clamps, evictions,
+    live done fraction and the honest nodes with a non-empty
+    blacklist."""
+    out = []
+    for r in range(len(net_np["time"])):
+        live = ~net_np["nodes"]["down"][r]
+        bl = np.asarray(ps_np["blacklist"][r])
+        out.append({"dropped": int(net_np["dropped"][r]),
+                    "clamped": int(net_np["clamped"][r]),
+                    "evicted": int(ps_np["evicted"][r]),
+                    "frac_done": float(
+                        (net_np["nodes"]["done_at"][r][live] > 0).mean()),
+                    "honest_blacklisted": int(
+                        (bl[live] != 0).any(-1).sum())})
+    return out
+
+
+def write_byz_golden(n=BYZ_N, seeds=BYZ_SEEDS, ratio=BYZ_RATIO):
+    """The JAX package's ``handel_scenarios.byz_suicide_sweep(ratios=
+    (ratio,), nodes=n, seeds=seeds)``: its CSV text, and per seed the
+    stop time, the leaf sha256s of the run's state there and its
+    counters (the sweep's one `run_multiple_times` call, captured).  At
+    4,096 nodes on an 8-core CPU host the run's own wall and peak RSS
+    are in the file, under "generator"."""
+    import tempfile
+    import time
+
+    from wittgenstein_tpu.scenarios import handel_scenarios as hs
+
+    t0 = time.monotonic()
+    got = {}
+    orig = hs.run_multiple_times
+
+    def capture(*a, **kw):
+        got["res"] = orig(*a, **kw)
+        return got["res"]
+    hs.run_multiple_times = capture
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            csv = hs.byz_suicide_sweep(ratios=(ratio,), nodes=n,
+                                       seeds=seeds, out_dir=d)
+    finally:
+        hs.run_multiple_times = orig
+    res = got["res"]
+    state = jax_state(res.nets, res.pstates)
+    _write_golden(BYZ_GOLDEN_FILE, {
+        "config": f"handel_scenarios.default_params(nodes={n}, "
+                  f"dead_ratio={ratio}, byzantine_suicide=True), seeds "
+                  f"0-{seeds - 1}",
+        "call": f"wittgenstein_tpu.scenarios.handel_scenarios."
+                f"byz_suicide_sweep(ratios=({ratio},), nodes={n}, "
+                f"seeds={seeds}): run_multiple_times(proto, {seeds}, "
+                "max_time=8000, chunk=250, cont_if=cont_if_handel)",
+        "csv": str(csv),
+        "stopped_at": [int(x) for x in np.asarray(res.stopped_at)],
+        "counts": byz_counts(*state),
+        "seeds": convert.seed_digests(*state)}, t0)
+
+
+def _batched(jproto, seeds):
+    import jax
+    import jax.numpy as jnp
+    return jax.vmap(jproto.init)(jnp.arange(seeds, dtype=jnp.int32))
+
+
+def write_eth2_golden(seeds=P_SEEDS):
+    """``HandelEth2()`` (64 nodes, pairing 3, level wait 100, period
+    50, 4 hash values) with `NetworkLatencyByDistanceWJitter`, seeds
+    0-3 in one batch: dense through ``jax.vmap(scan_chunk(proto,
+    ETH2_CHUNK))`` to ETH2_DENSE_MS, then on through ``fast_forward_
+    chunk(proto, ETH2_FF_CHUNK, seed_axis=True, superstep=2)`` to
+    ETH2_FF_MS (1,600 ms: the card's phase P was cut from 6,100, past
+    the second aggregation's start, for time): the per-seed leaf
+    sha256s at both times and each fast-forwarded call's skip
+    counts."""
+    import time
+
+    import jax
+
+    from wittgenstein_tpu.core.network import fast_forward_chunk, scan_chunk
+    from wittgenstein_tpu.models.handeleth2 import HandelEth2
+
+    t0 = time.monotonic()
+    proto = HandelEth2(network_latency_name="NetworkLatencyByDistanceWJitter")
+    nets, ps = _batched(proto, seeds)
+    run = jax.jit(jax.vmap(scan_chunk(proto, ETH2_CHUNK)))
+    for _ in range(ETH2_DENSE_MS // ETH2_CHUNK):
+        nets, ps = run(nets, ps)
+    dense = jax_state(nets, ps)
+    ff = jax.jit(fast_forward_chunk(proto, ETH2_FF_CHUNK, seed_axis=True,
+                                    superstep=2))
+    chunks = []
+    for _ in range((ETH2_FF_MS - ETH2_DENSE_MS) // ETH2_FF_CHUNK):
+        nets, ps, st = ff(nets, ps)
+        chunks.append({k: int(v) for k, v in st.items()})
+    final = jax_state(nets, ps)
+
+    def counts(state):
+        net_np, ps_np = state
+        return [{"dropped": int(net_np["dropped"][r]),
+                 "clamped": int(net_np["clamped"][r]),
+                 "agg_done_min": int(ps_np["agg_done"][r].min()),
+                 "heights": sorted({int(x) for x in ps_np["height"][r]})}
+                for r in range(seeds)]
+    _write_golden(ETH2_GOLDEN_FILE, {
+        "config": "HandelEth2(network_latency_name="
+                  "'NetworkLatencyByDistanceWJitter'), 64 nodes, seeds "
+                  f"0-{seeds - 1}",
+        "call": f"jax.jit(jax.vmap(scan_chunk(proto, {ETH2_CHUNK}))) to "
+                f"{ETH2_DENSE_MS} ms from jax.vmap(proto.init), then "
+                f"jax.jit(fast_forward_chunk(proto, {ETH2_FF_CHUNK}, "
+                f"seed_axis=True, superstep=2)) to {ETH2_FF_MS} ms",
+        "dense": {"ms": ETH2_DENSE_MS, "counts": counts(dense),
+                  "seeds": convert.seed_digests(*dense)},
+        "fast_forward": {"ms": ETH2_FF_MS, "chunks": chunks,
+                         **{k: sum(c[k] for c in chunks)
+                            for k in chunks[0]},
+                         "counts": counts(final),
+                         "seeds": convert.seed_digests(*final)}}, t0)
+
+
+def write_p2phandel_golden(seeds=P_SEEDS):
+    """``P2PHandel(**scenario_params(100, 20))`` (120 nodes, the
+    P2PHandelParameters defaults, the distance latency), seeds 0-3 in
+    one batch through ``fast_forward_chunk(proto, P2PHANDEL_CHUNK,
+    seed_axis=True, superstep=2)`` calls until `cont_if_p2phandel` is
+    false for every seed: the stop time, each call's skip counts and
+    the per-seed leaf sha256s there."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import fast_forward_chunk
+    from wittgenstein_tpu.models.p2phandel import (P2PHandel,
+                                                   cont_if_p2phandel)
+    from wittgenstein_tpu_torch.models.p2phandel import scenario_params
+
+    t0 = time.monotonic()
+    proto = P2PHandel(**scenario_params())
+    nets, ps = _batched(proto, seeds)
+    ff = jax.jit(fast_forward_chunk(proto, P2PHANDEL_CHUNK, seed_axis=True,
+                                    superstep=2))
+    cont = jax.jit(jax.vmap(cont_if_p2phandel))
+    chunks, t = [], 0
+    while bool(jnp.any(cont(nets, ps))):
+        if t >= P2PHANDEL_MAX_MS:
+            raise RuntimeError(f"P2PHandel did not finish by {t} ms")
+        nets, ps, st = ff(nets, ps)
+        chunks.append({k: int(v) for k, v in st.items()})
+        t += P2PHANDEL_CHUNK
+    final = jax_state(nets, ps)
+    _write_golden(P2PHANDEL_GOLDEN_FILE, {
+        "config": f"P2PHandel(**scenario_params(100, 20)) = "
+                  f"{scenario_params()}, seeds 0-{seeds - 1}",
+        "call": f"jax.jit(fast_forward_chunk(proto, {P2PHANDEL_CHUNK}, "
+                "seed_axis=True, superstep=2)) from jax.vmap(proto.init) "
+                "until no seed's cont_if_p2phandel holds",
+        "ms": t, "chunks": chunks,
+        **{k: sum(c[k] for c in chunks) for k in chunks[0]},
+        "counts": [{"dropped": int(final[0]["dropped"][r]),
+                    "clamped": int(final[0]["clamped"][r]),
+                    "done_max": int(final[0]["nodes"]["done_at"][r].max())}
+                   for r in range(seeds)],
+        "seeds": convert.seed_digests(*final)}, t0)
+
+
+def write_optimistic_golden(seeds=P_SEEDS):
+    """``OptimisticP2PSignature(**main_params())`` (1,000 nodes,
+    threshold 501, 13 peers, pairing 3, the distance latency), seeds 0-3
+    in one batch through ``jax.vmap(scan_chunk(proto,
+    OPTIMISTIC_CHUNK))`` calls until `cont_if_optimistic` is false for
+    every seed: the stop time and the per-seed leaf sha256s there."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.optimistic import (OptimisticP2PSignature,
+                                                    cont_if_optimistic)
+    from wittgenstein_tpu_torch.models.optimistic import main_params
+
+    t0 = time.monotonic()
+    proto = OptimisticP2PSignature(**main_params())
+    nets, ps = _batched(proto, seeds)
+    run = jax.jit(jax.vmap(scan_chunk(proto, OPTIMISTIC_CHUNK)))
+    cont = jax.jit(jax.vmap(cont_if_optimistic))
+    t = 0
+    while bool(jnp.any(cont(nets, ps))):
+        if t >= OPTIMISTIC_MAX_MS:
+            raise RuntimeError(f"Optimistic did not finish by {t} ms")
+        nets, ps = run(nets, ps)
+        t += OPTIMISTIC_CHUNK
+    final = jax_state(nets, ps)
+    card = [int(np.unpackbits(final[1]["received"][r].view(np.uint8),
+                              axis=-1).sum(-1).min()) for r in range(seeds)]
+    _write_golden(OPTIMISTIC_GOLDEN_FILE, {
+        "config": f"OptimisticP2PSignature(**main_params()) = "
+                  f"{main_params()}, seeds 0-{seeds - 1}",
+        "call": f"jax.jit(jax.vmap(scan_chunk(proto, {OPTIMISTIC_CHUNK})))"
+                " from jax.vmap(proto.init) until no seed's "
+                "cont_if_optimistic holds",
+        "ms": t,
+        "counts": [{"dropped": int(final[0]["dropped"][r]),
+                    "clamped": int(final[0]["clamped"][r]),
+                    "done_max": int(final[0]["nodes"]["done_at"][r].max()),
+                    "min_cardinality": card[r]} for r in range(seeds)],
+        "seeds": convert.seed_digests(*final)}, t0)
+
+
 def _params(protocol: str, n: int) -> dict:
     """Constructor arguments of `protocol` at size `n` (for Dfinity, n
     attesters, committees of up to 10)."""
@@ -1048,6 +1335,18 @@ def main():
         return
     if sys.argv[1:2] == ["ethpow-golden"]:
         write_ethpow_golden()
+        return
+    if sys.argv[1:2] == ["byz-golden"]:
+        write_byz_golden()
+        return
+    if sys.argv[1:2] == ["eth2-golden"]:
+        write_eth2_golden()
+        return
+    if sys.argv[1:2] == ["p2phandel-golden"]:
+        write_p2phandel_golden()
+        return
+    if sys.argv[1:2] == ["optimistic-golden"]:
+        write_optimistic_golden()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

@@ -11,8 +11,8 @@ Entry points (`models.handel.Handel(..., device=...)`,
 `models.gsf.GSFSignature(..., device=...)`,
 `models.pingpong.PingPong(..., device=...)`, their `init`,
 `core.network.Runner`, the seed-folded `core.batched.scan_chunk_batched`
-and `core.harness.run_multiple_times`) run on ``cuda`` unless the caller
-passes ``device="cpu"``; with no card the default raises instead of
-falling back to the CPU.  On CPU tensors every kernel wrapper runs its
+and `core.harness.run_multiple_times`, the drivers of `scenarios/`) run
+on ``cuda`` unless the caller passes ``device="cpu"``; with no card the
+default raises instead of falling back to the CPU.  On CPU tensors every kernel wrapper runs its
 plain PyTorch version.
 """

@@ -6,7 +6,8 @@ names: ``{"time": ..., "nodes": {"x": ...}, "box_data": [plane, ...],
 `HandelState`, a `HandelCardinalState`, a `GSFState`, a `PingPongState`,
 a `SanFerminState`, a `CapposState`, a `DfinityState`, `CasperState` or
 `PoWState` with its nested `Arena` as a nested dict (the port's ancestor
-leaf rebuilt from ``parent``), or a `P2PFloodState`, told apart by their
+leaf rebuilt from ``parent``), a `P2PFloodState`, a `HandelEth2State`, a
+`P2PHandelState` or an `OptSigState`, told apart by their
 leaf names; a protocol whose state is a plain dict of tensors, as the
 engine tests' probes have, converts leaf for leaf). The JAX side builds
 them from its dataclasses (the tests do so with `jax.tree_util`);
@@ -36,6 +37,9 @@ from .models.ethpow import PoWState
 from .models.gsf import GSFState
 from .models.handel import HandelState
 from .models.handel_cardinal import HandelCardinalState
+from .models.handeleth2 import HandelEth2State
+from .models.optimistic import OptSigState
+from .models.p2phandel import P2PHandelState
 from .models.p2pflood import P2PFloodState
 from .models.pingpong import PingPongState
 from .models.sanfermin import CapposState, SanFerminState
@@ -58,6 +62,11 @@ STATES = {
     CasperState: (("included", "att_anc", "recv_blk", "recv_att",
                    "reeval"), False),
     PoWState: (("received", "mined_unsent", "release"), False),
+    HandelEth2State: (("inc", "ind", "finished", "demoted", "q_sig",
+                       "pend_sig"), False),
+    P2PHandelState: (("verified", "peer_state", "acc", "q_sig",
+                      "pend_sig"), False),
+    OptSigState: (("received", "pending"), False),
 }
 #: protocol state leaves that are structs of their own, and the leaves
 #: of each that the JAX package has (the port's Arena adds ``anc``,

@@ -48,7 +48,11 @@ def _freeze_chunk(protocol, chunk, cont, t0=0):
     dropped)`` with `t` the batch's time at entry.
 
     When `chunk` is a multiple of the schedule lcm every chunk enters at
-    phase ``t0 % lcm`` and is phase-specialized; the superstep is the
+    phase ``t0 % lcm`` and is phase-specialized; any other chunk of a
+    protocol with a static schedule takes each ms's hints from its
+    absolute time (`scan_chunk(timed_hints=True)`, exact as the
+    specialized chunk is; the JAX harness runs such chunks without
+    hints, which is the same state at a higher cost); the superstep is the
     largest K `pick_superstep` proves for the chunk and entry time (1
     for a spill protocol or an unaligned entry).  The ring is updated in
     place, so stopped runs are kept out of its clear and its binning,
@@ -60,7 +64,8 @@ def _freeze_chunk(protocol, chunk, cont, t0=0):
                         lcm=lcm if use_spec else None)
     one_chunk = scan_chunk(protocol, chunk,
                            t0_mod=(t0 % lcm) if use_spec else None,
-                           superstep=ss)
+                           superstep=ss, timed_hints=bool(lcm) and
+                           not use_spec)
 
     def chunk_all(nets, ps, stopped, stopped_at, t):
         nets2, ps2 = one_chunk(nets, ps, t=t, frozen=stopped)

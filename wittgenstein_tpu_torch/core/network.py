@@ -292,38 +292,54 @@ def _drain_spill(cfg: EngineConfig, net: NetState, ring: dict, t: int,
                        dropped=net.dropped + n_drop)
 
 
-def _route_unicast(cfg: EngineConfig, model, net: NetState, out: Outbox,
-                   t: int):
-    """One run's unicast sends of ms t
-    (wittgenstein_tpu/core/network.py:334-414): sender counters,
-    latency draws and validity; with ``spill_cap > 0`` the sends past
-    the ring park in the spill buffer (delivered exactly on time when
-    the ring reaches them), else they are clamped to the ring's edge
-    and counted in `clamped`.  Returns ``(net', (arrival, dest, src,
-    size, payload, valid))``, the batch the ring bins."""
-    nodes = net.nodes
-    n, k = cfg.n, out.dest.shape[1]
-    m = n * k
-    dev = out.dest.device
-    src = torch.arange(n, dtype=I32, device=dev).repeat_interleave(k)
-    dest = out.dest.reshape(m)
-    payload = out.payload.reshape(m, cfg.payload_words)
-    size = out.size.reshape(m)
-    delay = out.delay.reshape(m)
+def _window_sends(cfg: EngineConfig, outs, t: int):
+    """The window's K outboxes (ms t, t+1, ...) as one message list, in
+    the order the ring bins them (by ms, then sender, then column):
+    ``(src, dest, payload, size, delay, slot id, send ms, per-outbox
+    message counts)``.  The slot id is the column's in the full-width
+    outbox (`Outbox.slot0`), which keys its latency draw."""
+    n, f = cfg.n, cfg.payload_words
+    dev = outs[0].dest.device
+    cols = []
+    for i, out in enumerate(outs):
+        k = out.dest.shape[1]
+        src = torch.arange(n, dtype=I32, device=dev).repeat_interleave(k)
+        col = torch.arange(k, dtype=I32, device=dev).repeat(n)
+        cols.append((src, out.dest.reshape(n * k),
+                     out.payload.reshape(n * k, f), out.size.reshape(n * k),
+                     out.delay.reshape(n * k),
+                     src * cfg.out_deg + out.slot0 + col,
+                     torch.full((n * k,), t + i, dtype=I32, device=dev)))
+    parts = [c[0] if len(outs) == 1 else torch.cat(c) for c in zip(*cols)]
+    return (*parts, [c[0].shape[0] for c in cols])
 
+
+def _route_unicast(cfg: EngineConfig, model, net: NetState, outs, t: int):
+    """One run's unicast sends of a window's ms t, t+1, ... (`outs`, one
+    outbox each; wittgenstein_tpu/core/network.py:334-414): sender
+    counters, latency draws and validity, for the whole window at once
+    (each message keyed by its own send ms, as the per-ms routing keys
+    it); with ``spill_cap > 0`` (K = 1) the sends past the ring park in
+    the spill buffer (delivered exactly on time when the ring reaches
+    them), else they are clamped to the ring's edge and counted in
+    `clamped`.  Returns ``(net', (arrival, dest, src, size, payload,
+    valid))``, the batch the ring bins."""
+    nodes = net.nodes
+    n = cfg.n
+    src, dest, payload, size, delay, midx, tm, counts = _window_sends(
+        cfg, outs, t)
     want = (dest >= 0) & (~nodes.down[src])
     dest_c = dest.clamp(0, n - 1)
     # Attempted sends count whether or not the destination is reachable.
-    sent = nodes.msg_sent + want.reshape(n, k).sum(1, dtype=I32)
-    sbytes = nodes.bytes_sent + torch.where(want, size, 0).reshape(
-        n, k).sum(1, dtype=I32)
-    net = net.replace(nodes=nodes.replace(msg_sent=sent, bytes_sent=sbytes))
+    sent = torch.stack([w.reshape(n, -1).sum(1, dtype=I32)
+                        for w in want.split(counts)]).sum(0, dtype=I32)
+    sbytes = torch.stack([w.reshape(n, -1).sum(1, dtype=I32) for w in
+                          torch.where(want, size, 0).split(counts)]).sum(
+        0, dtype=I32)
+    net = net.replace(nodes=nodes.replace(msg_sent=nodes.msg_sent + sent,
+                                          bytes_sent=nodes.bytes_sent + sbytes))
 
-    seed_t = prng.hash3(net.seed, prng.TAG_LATENCY, t)
-    # The stable full-width slot id: a narrow outbox (Outbox.slot0) draws
-    # the latencies its columns would draw in the full-width one.
-    midx = src * cfg.out_deg + out.slot0 + \
-        torch.arange(m, dtype=I32, device=dev) % k
+    seed_t = prng.hash3(net.seed, prng.TAG_LATENCY, tm)
     delta = prng.uniform_delta(seed_t, midx)
     lat = full_latency(model, nodes, src, dest_c, delta)
     not_discarded = lat < cfg.msg_discard_time
@@ -333,27 +349,24 @@ def _route_unicast(cfg: EngineConfig, model, net: NetState, out: Outbox,
         nodes.partition[src] == nodes.partition[dest_c])
     far = valid & (raw_total > cfg.horizon - 2)
     if cfg.spill_cap > 0:
-        net = _park_in_spill(cfg, net, src, dest_c, t + 1 + raw_total,
+        net = _park_in_spill(cfg, net, src, dest_c, tm + 1 + raw_total,
                              payload, size, far)
         valid = valid & ~far
     else:
         net = net.replace(clamped=net.clamped + far.sum(dtype=I32))
-    return net, (t + 1 + total, dest_c, src, size, payload, valid)
+    return net, (tm + 1 + total, dest_c, src, size, payload, valid)
 
 
-def _no_unicast(cfg: EngineConfig, model, net: NetState, out: Outbox,
-                t: int):
+def _no_unicast(cfg: EngineConfig, model, net: NetState, outs, t: int):
     """`_route_unicast` for a protocol that never addresses a unicast
     (``sends_unicast = False``: its outbox dest is always -1, as Casper's
     and ETHPoW's are): no sender counter moves and no latency is drawn,
     and the batch the ring bins has the same shapes with no message
     valid, so the binning launches as it does for any protocol."""
-    n, k = cfg.n, out.dest.shape[1]
-    dest = out.dest.reshape(n * k)
-    src = torch.arange(n, dtype=I32, device=dest.device).repeat_interleave(k)
-    return net, (dest.clamp_min(0) + t + 1, dest.clamp(0, n - 1), src,
-                 out.size.reshape(n * k),
-                 out.payload.reshape(n * k, cfg.payload_words), dest >= 0)
+    n = cfg.n
+    src, dest, payload, size, _, _, tm, _ = _window_sends(cfg, outs, t)
+    return net, (dest.clamp_min(0) + tm + 1, dest.clamp(0, n - 1), src,
+                 size, payload, dest >= 0)
 
 
 def enqueue_broadcast(cfg: EngineConfig, net: NetState, out: Outbox,
@@ -408,6 +421,18 @@ def step_hint(protocol, pstate, inbox: Inbox, t: int):
     protocols."""
     fn = getattr(protocol, "step_hint", None)
     return None if fn is None else fn(pstate, inbox, t)
+
+
+def _broadcasts(protocol) -> bool:
+    """Whether the engine runs its broadcast half for `protocol`: it has
+    a broadcast table and may broadcast.  A protocol whose outbox never
+    sets `Outbox.bcast` declares ``sends_broadcast = False``: its table
+    stays empty, so retiring records, the arrivals (no record is active)
+    and enqueueing (no request) are the identity on every leaf and are
+    left out, and its inbox has no broadcast columns (they would hold no
+    valid message)."""
+    return bool(protocol.cfg.bcast_slots) and \
+        getattr(protocol, "sends_broadcast", True)
 
 
 def _check_step(protocol):
@@ -465,7 +490,8 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
     if t is None:
         t = int(net.time.reshape(-1)[0])
     net, ring = _split_ring(net)
-    if cfg.bcast_slots:
+    bcast = _broadcasts(protocol)
+    if bcast:
         net = _retire_broadcasts(cfg, net, t)
     if cfg.spill_cap:
         net = _drain_spill(cfg, net, ring, t, frozen)
@@ -479,7 +505,7 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
     for i in range(k):
         inbox = Inbox(data=data.select(lead, i), src=src.select(lead, i),
                       valid=valid.select(lead, i))
-        if cfg.bcast_slots:
+        if bcast:
             if i:
                 net = _retire_broadcasts(cfg, net, t + i)
             net, inbox = per_run(functools.partial(
@@ -491,7 +517,7 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
                 pstate, net.nodes, inbox)
         net = net.replace(nodes=nodes)
         outs.append(out)
-        if cfg.bcast_slots:
+        if bcast:
             net = per_run(functools.partial(enqueue_broadcast, cfg,
                                             t=t + i))(net, out)
 
@@ -502,15 +528,10 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
             rows.zero_()
         else:
             rows.copy_(torch.where(frozen[:, None, None], rows, 0))
-    batches = []
     route = (_route_unicast if getattr(protocol, "sends_unicast", True)
              else _no_unicast)
-    for i, out in enumerate(outs):
-        net, b = per_run(functools.partial(route, cfg, model,
-                                           t=t + i))(net, out)
-        batches.append(b)
-    msgs = [torch.cat(col, lead) if k > 1 else col[0].contiguous()
-            for col in zip(*batches)]
+    net, msgs = per_run(functools.partial(route, cfg, model, t=t))(net, outs)
+    msgs = [x.contiguous() for x in msgs]
     if frozen is not None:
         msgs[5] = msgs[5] & ~frozen[:, None]
     n_dropped = _bin_into_ring(ring, *msgs)
@@ -731,9 +752,11 @@ def next_work(protocol, net: NetState, pstate, t: int):
         return torch.full_like(net.time.reshape(-1)[0], t)
     net, _ = _split_ring(net)
 
+    bcast = _broadcasts(protocol)
+
     def per_run(net, pstate):
         out = nat(pstate, net.nodes, t)
-        if cfg.bcast_slots:
+        if bcast:
             arrival, ok, _ = broadcast_arrivals(cfg, model, net, net.nodes)
             out = torch.minimum(out, torch.where(
                 ok & (arrival >= t), arrival, FAR_FUTURE).min())
@@ -804,7 +827,7 @@ def fast_forward_chunk(protocol, ms: int, seed_axis: bool = False,
 
 
 def scan_chunk(protocol, ms: int, t0_mod=None, superstep: int = 1,
-               fast_forward: bool = False):
+               fast_forward: bool = False, timed_hints: bool = False):
     """Returns ``run(net, pstate, t=None, frozen=None) -> (net,
     pstate)`` advancing `ms` milliseconds
     (wittgenstein_tpu/core/network.py:1062-1174), a Python loop over the
@@ -818,7 +841,12 @@ def scan_chunk(protocol, ms: int, t0_mod=None, superstep: int = 1,
     (bit-identical).  ``superstep=K`` advances in fused K-ms windows
     (`step_kms`) when `check_chunk_config` proves them.
     ``fast_forward=True`` runs `fast_forward_chunk` instead, on the
-    state's own layout, and drops its skip counts."""
+    state's own layout, and drops its skip counts.  ``timed_hints=True``
+    gives each ms the `phase_hints` of its own absolute time, for a
+    protocol with a static schedule, whatever the chunk's length and
+    entry phase (the JAX package unrolls one schedule period of hints
+    into the compiled chunk, so it specializes only chunks that are
+    multiples of the period; the hints are exact either way)."""
     check_chunk_config(protocol, ms, t0_mod=t0_mod, superstep=superstep,
                        fast_forward=fast_forward)
     k = superstep
@@ -830,6 +858,19 @@ def scan_chunk(protocol, ms: int, t0_mod=None, superstep: int = 1,
             return ff(net, pstate, t, frozen)[:2]
 
         return run_ff
+    sched = getattr(protocol, "schedule_lcm", None) if timed_hints else None
+    if sched:
+        def run_timed(net, pstate, t=None, frozen=None):
+            t = int(net.time.reshape(-1)[0]) if t is None else t
+            for _ in range(ms // k):
+                hints_k = [protocol.phase_hints((t + i) % sched)
+                           for i in range(k)]
+                net, pstate = step_kms(protocol, net, pstate, k,
+                                       hints_k=hints_k, t=t, frozen=frozen)
+                t += k
+            return net, pstate
+
+        return run_timed
     hints = chunk_hints(protocol, ms, t0_mod, k) or [None] * k
 
     def run(net, pstate, t=None, frozen=None):

@@ -155,19 +155,23 @@ def shuffled_order(seed, t, n: int, d: int):
 
 
 def flood_fanout(cfg, peers, forward, exclude_src, payload, seed, t,
-                 local_delay=0, delay_between=0, size=1):
+                 local_delay=0, delay_between=0, size=1, order=None):
     """Outbox fields for `FloodMessage.action`-style forwarding
     (wittgenstein_tpu/core/p2p.py:190-208): each node with `forward[i]`
     sends `payload[i]` to all its peers but `exclude_src[i]`, in a
     shuffled order, the k-th sent after ``local_delay + k *
     delay_between`` ms.  Requires ``cfg.out_deg == peers.shape[1]``.
-    Returns (dest, payload, size, delay) shaped for `Outbox`."""
+    `order` is ``shuffled_order(seed, t, n, d)`` where the caller has it
+    already (several fan-outs of one ms share it).  Returns (dest,
+    payload, size, delay) shaped for `Outbox`."""
     n, d = peers.shape
     assert cfg.out_deg == d, (cfg.out_deg, d)
     ok = forward[:, None] & (peers >= 0) & (peers != exclude_src[:, None])
     dest = torch.where(ok, peers, -1)
     # Rank among the sent slots only, in the shuffled order.
-    order = shuffled_order(seed, t, n, d).long()
+    if order is None:
+        order = shuffled_order(seed, t, n, d)
+    order = order.long()
     sent_sorted = torch.gather(ok, 1, order)
     pos_sorted = sent_sorted.to(I32).cumsum(1, dtype=I32) - 1
     pos = torch.zeros((n, d), dtype=I32, device=peers.device).scatter(

@@ -104,6 +104,22 @@ def keyed_level_peer(seed, tag, ids, level, pos):
                                     (level - 1).clamp_min(0))
 
 
+def _level_columns(proto, group):
+    """(half, offset, level) of every column of a block of levels laid
+    side by side: level l's half sibling range, [N, 2^(l-1)] columns, in
+    the order of `group`; made once per protocol and block."""
+    cache = proto.__dict__.setdefault("_byz_columns", {})
+    if group not in cache:
+        halves = [1 << (lv - 1) for lv in group]
+        dev = proto._ids.device
+        cache[group] = tuple(torch.tensor(np.concatenate(x).astype(np.int32),
+                                          device=dev) for x in (
+            [np.full(h, h) for h in halves],
+            [np.arange(h) for h in halves],
+            [np.full(h, lv) for lv, h in zip(group, halves)]))
+    return cache[group]
+
+
 def byz_candidates(proto, p, nodes, excl_bits, demoted=None,
                    min_rank=None):
     """Per (node, level) lowest-reception-rank byzantine (down) peer not
@@ -113,29 +129,40 @@ def byz_candidates(proto, p, nodes, excl_bits, demoted=None,
     wittgenstein_tpu/models/handel.py:315-340 (ranks raised by N for the
     senders set in `demoted`) and handel_cardinal.py:193-220 (only ranks
     above the [N, L] floor `min_rank` qualify).  Returns ([N, L] rank,
-    BIG for none; [N, L] id, -1 for none).  A loop over the levels, each
-    an [N, half] block: O(N^2) work, run only under an attack flag."""
+    BIG for none; [N, L] id, -1 for none).  O(N^2) work, run only under
+    an attack flag: the levels below the top one are scanned as one
+    block of N/2 - 1 columns and the top level as another, so the ranks
+    are hashed twice, not once a level, and no block is wider than the
+    top level's N/2; each level's lowest rank is then the first minimum
+    of its columns, as the JAX package's per-level argmin finds it."""
     n, levels, ids = proto.node_count, proto.levels, proto._ids
     far = 1 << 30
     br = [torch.full((n,), far, dtype=I32, device=ids.device)]
     bi = [torch.full((n,), -1, dtype=I32, device=ids.device)]
-    for lv in range(1, levels):
-        half = 1 << (lv - 1)
-        cand = sibling_base(ids, half)[:, None] + torch.arange(
-            half, dtype=I32, device=ids.device)[None, :]
+    top = levels - 1
+    for group in (tuple(range(1, top)), (top,)):
+        if not group or group[0] < 1:
+            continue
+        half, off, lvl = _level_columns(proto, group)
+        cand = sibling_base(ids[:, None], half[None, :]) + off[None, :]
         rank = proto._rank(p.seed, ids[:, None], cand)
         if demoted is not None:
             rank = rank + torch.where(get_bit_rows(demoted, cand), n,
                                       0).to(I32)
         ok = nodes.down[cand.long()] & ~get_bit_rows(excl_bits, cand)
         if min_rank is not None:
-            ok = ok & (rank > min_rank[:, lv][:, None])
+            ok = ok & (rank > torch.index_select(min_rank, 1, lvl))
         rank = torch.where(ok, rank, far)
-        pos = rank.argmin(1, keepdim=True)
-        best = torch.gather(rank, 1, pos)[:, 0]
-        br.append(best)
-        bi.append(torch.where(best < far, torch.gather(cand, 1, pos)[:, 0],
-                              -1))
+        start = 0
+        for lv in group:
+            h = 1 << (lv - 1)
+            r, c = rank[:, start:start + h], cand[:, start:start + h]
+            pos = r.argmin(1, keepdim=True)
+            best = torch.gather(r, 1, pos)[:, 0]
+            br.append(best)
+            bi.append(torch.where(best < far, torch.gather(c, 1, pos)[:, 0],
+                                  -1))
+            start += h
     return torch.stack(br, 1), torch.stack(bi, 1)
 
 
