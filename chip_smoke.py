@@ -115,15 +115,16 @@ Q. `bench.py` `bench_quiet`'s lines, 4 seeds in one batch, 400 ms in
 
 K. Casper IMD's reference configuration, `CasperIMD()` (83 nodes,
    20-ms ticks, the WF byzantine producer), seeds 0-7 in one batch
-   through `run_multiple_times` in 2,000-tick chunks at the proved K
-   (2) to 4,000 ticks (80 simulated s): every seed equal to its JAX
-   golden at 2,000 and 4,000 ticks, zero unicast, broadcast and arena
-   drops, heads within 2;
+   through `run_multiple_times` in 1,000-tick chunks at the proved K
+   (2) to 2,000 ticks (40 simulated s; cut from 4,000 for time): every
+   seed equal to its JAX golden at 1,000 and 2,000 ticks,
+   zero unicast, broadcast and arena drops, heads within 2;
 E. ETHPoW, `try_miner`'s batch at one hash-power point (10 miners, the
    selfish miner at 0.40, 1-s latency, 8,192 blocks), seeds 1-5 in one
-   batch through `run_multiple_times` in 1,000-tick chunks at K=2 to
-   3,000 ticks: every leaf equal to the JAX golden (`thr` float for
-   float), `try_miner`'s CSV row the JAX run's, zero drops;
+   batch through `run_multiple_times` in one 1,500-tick chunk at K=2
+   (cut from 3,000 ticks to 2,000, then 1,500, for time): every leaf
+   equal to the JAX golden (`thr` float for float), `try_miner`'s CSV
+   row the JAX run's, zero drops;
    its ops a tick at 8,192 blocks equal to those at 1,024 within 1%.
 
 B. one point of Handel's Byzantine-fraction sweep through its driver,
@@ -136,7 +137,7 @@ B. one point of Handel's Byzantine-fraction sweep through its driver,
    K=2 window, merge every ms, score on the verification ms;
 P. the P2P signature protocols, seeds 0-3 in one batch each:
    ``HandelEth2()`` (64 nodes) with the distance latency dense to 600
-   ms at K=2, then fast-forwarded to 1,600 (6,100, past the second
+   ms at K=2, then fast-forwarded to 1,100 (6,100, past the second
    aggregation's start, cut for time), equal to its JAX goldens at both
    and the JAX engine's skip counts; ``P2PHandel(**scenario_params(100,
    20))``
@@ -146,14 +147,41 @@ P. the P2P signature protocols, seeds 0-3 in one batch each:
    K=2 until every seed is done (400 ms), equal to the JAX run there,
    every node done with at least 501 signatures, zero drops.
 
-Each of S-P logs its wall, its peak allocated memory and its PyTorch
+L. the two scenario drivers that run on the measured city latency with
+   its jitter, at the JAX package's own configurations: (a)
+   ``p2phandel_scenarios.basic_stats(P2PHandel(**default_params(100,
+   20)), seeds=4)`` (120 nodes placed by city; seeds 0-3 in one
+   `run_multiple_times` batch, chunk 500, K=2, until every seed is
+   done): the stats dict, the stop times and every seed's leaves equal
+   the JAX run's; (b) ``optimistic_scenarios.node_scaling(seeds=2)``:
+   at ``counts=(1024,)``, its ladder's largest point, the JAX run
+   overflows its inboxes and its harness refuses (as at every point of
+   the ladder), and the port must refuse with the same count of dropped
+   and clamped messages; at ``counts=(64,)``, which completes, the CSV
+   text, the stop times and every seed's leaves equal the JAX run's,
+   every node done with at least `threshold` signatures; zero drops and
+   clamps in both completed runs, route
+   launched once a K=2 window.  K1 is timed on a batch captured from
+   every tenth of (a)'s windows in its first 3,000 ms (the busiest);
+A. the last three protocols, four seeds in one batch each:
+   ``ENRGossiping()`` (50 nodes, 8 joiner slots) dense at K=1 to 250 ms
+   (cut for time), and tests/test_enr.py's churn configuration (40
+   nodes, a joiner every 500 ms), seeds 22-25 to 750 ms, where the step
+   hint must report the join and the capability change that the JAX
+   batch's state schedules, ``Slush()`` and ``Snowflake()`` (100 nodes)
+   fast-forwarded at K=1 in 250-ms calls until every node has decided
+   (the stop time and every call's skip counts the JAX engine's), and
+   ``Paxos()`` (3 + 3) dense at K=1 until `cont_if` stops every seed;
+   each equal to its JAX golden, zero drops.
+
+Each of S-A logs its wall, its peak allocated memory and its PyTorch
 ops a simulated ms or tick (torch.profiler, host side, over OPS_MS more
 ms, one more fast-forwarded chunk, or for K the slot boundary after its
 run and 10 ticks after that), and checks route's launches.  K1 is also
 timed against its plain version on a batch taken from S's, D's, Q's
 P2PFlood, K's and E's
-windows, and on B's and Optimistic's (`capture_route`: of all their
-windows, S's first sub-plane,
+windows, and on B's, Optimistic's and L(a)'s (`capture_route`: of all
+their windows, S's first sub-plane,
 the one with the most valid messages; K and E send only broadcasts, so
 their windows bin none), right after each path.
 
@@ -265,17 +293,17 @@ QD_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
 QP_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                          "golden_p2pflood256_r4_400ms.json")
 K_SEEDS = 8
-K_CHUNK = 2000
-K_TICKS = 4000          # 80 simulated s, 10 slots (BASELINE's 5 h cut)
-K_OPS_TICKS = 10        # ticks 4,002-4,012, WF ticks after a slot boundary
+K_CHUNK = 1000
+K_TICKS = 2000          # 40 simulated s, 5 slots (BASELINE's 5 h cut)
+K_OPS_TICKS = 10        # ticks 2,002-2,012, WF ticks after a slot boundary
 K_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                        "golden_casper83_r8_4000ticks.json")
+                        "golden_casper83_r8_2000ticks.json")
 E_RUNS = 5
-E_CHUNK = 1000
-E_TICKS = 3000          # 30 simulated s
+E_CHUNK = 1500
+E_TICKS = 1500          # 15 simulated s
 E_OPS_TICKS = 4         # ticks 0-4 at 8,192 and at 1,024 blocks
 E_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                        "golden_ethpow10_r5_3000ticks.json")
+                        "golden_ethpow10_r5_1500ticks.json")
 BYZ_NODES = 4096
 BYZ_SEEDS = 4
 BYZ_RATIO = 0.25
@@ -285,7 +313,7 @@ P_SEEDS = 4
 ETH2_CHUNK = 200
 ETH2_MS = 600
 ETH2_FF_CHUNK = 500
-ETH2_FF_MS = 1600       # 6,100 (past the second start) cut for time
+ETH2_FF_MS = 1100       # 6,100 (past the second start) cut for time
 ETH2_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                            "golden_handeleth2_64_r4.json")
 P2PH_CHUNK = 500
@@ -294,6 +322,26 @@ P2PH_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
 OPT_CHUNK = 100
 OPT_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                           "golden_optimistic1000_r4.json")
+CITY_P2PH_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                                "golden_p2phandel_city120_r4.json")
+CITY_OPT_NODES = 64     # completes; every ladder point (128-1,024) refuses
+CITY_OPT_REFUSED = 1024
+CITY_OPT_SEEDS = 2
+CITY_OPT_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                               "golden_optimistic_city_r2.json")
+A_SEEDS = 4
+ENR_CHUNK = 250
+ENR_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                          "golden_enr58_r4.json")
+ENR_CHURN_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                                "golden_enr48_churn_r4.json")
+AV_CHUNK = 250
+AV_GOLDEN = {name: os.path.join("wittgenstein_tpu_torch", "data",
+                                f"golden_{name.lower()}100_r4.json")
+             for name in ("Slush", "Snowflake")}
+PAXOS_CHUNK = 250
+PAXOS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                            "golden_paxos6_r4.json")
 OPS_MS = 2              # simulated ms over which a path's ops are counted
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 2, 10   # 3 and 20 before PR 10 (cut for time)
@@ -322,13 +370,14 @@ def smi_line() -> str:
 # ---------------------------------------------------------------- timing
 
 
-def call_ms(fn, reset=None, iters=ITERS):
+def call_ms(fn, reset=None, iters=None):
     """Mean ms of one call of fn() over `iters` calls after the warm-up
     (WARMUP calls, one for a shortened count), with CUDA events around
-    each call: the device's view of a call, host launch overhead
-    included where the device waits for it.  `reset` (untimed) restores
-    inputs that fn updates in place."""
+    each call (ITERS unless given): the device's view of a call, host
+    launch overhead included where the device waits for it.  `reset`
+    (untimed) restores inputs that fn updates in place."""
     import torch
+    iters = iters or ITERS
     for _ in range(WARMUP if iters == ITERS else 1):
         if reset:
             reset()
@@ -356,16 +405,20 @@ def kernel_device_us(events, match=None):
                (match is None or match in e.key))
 
 
-def device_ms(fn, match=None, reset=None, iters=ITERS, by_name=None):
+def device_ms(fn, match=None, reset=None, iters=None, by_name=None):
     """Mean device ms per call of fn() from `torch.profiler`: the time of
     the CUDA kernels named like `match` (all of fn's kernels if None),
     over `iters` calls after the warm-up (as `call_ms`); the time of
     `reset`'s own kernels is measured the same way and taken off.  A
     call of a few µs can stay at or below the noise of the reset's time:
     then, with `by_name`, the call is timed by its kernels named like
-    it, and the fallback is logged."""
+    it, and the fallback is logged.  Only the device's activity is
+    recorded: recording the host's ops too leaves the kernels' times as
+    they are and costs seconds a case where a plain version issues
+    thousands of small ops (`kernel_ab.py --host-events`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
+    iters = iters or ITERS
 
     def run(with_fn):
         for _ in range(WARMUP if iters == ITERS else 1):
@@ -373,8 +426,7 @@ def device_ms(fn, match=None, reset=None, iters=ITERS, by_name=None):
                 reset()
             fn()
         torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if reset:
                     reset()
@@ -466,16 +518,23 @@ def route_case(dev, rng, hz=256, n=N_NODES, c=12, out_deg=21, r=1,
     part-full cells and `full_rows` rows of full ones, a share `hot` of
     the messages sent to four hot cells that overflow, invalid messages
     interleaved.  At R 1 the draws are those of a one-seed case with 1-D
-    message vectors."""
+    message vectors.  The ring's planes are drawn on the device, from a
+    generator seeded by `rng`: at R 16 or at the GSF batch's shapes they
+    hold 0.5-0.7 G values, seconds of draws on the host."""
     import torch
     f = 3
     m = n * out_deg
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 62)))
 
     def i32(a):
         return torch.tensor(a, dtype=torch.int32, device=dev)
-    data = i32(rng.integers(0, 1 << 20, (r, f, hz, n, c)))
-    src = i32(rng.integers(0, n, (r, hz, n, c)))
-    size = i32(rng.integers(0, 300, (r, hz, n, c)))
+
+    def plane(high, shape):
+        return torch.randint(0, high, shape, generator=gen,
+                             dtype=torch.int32, device=dev)
+    data = plane(1 << 20, (r, f, hz, n, c))
+    src = plane(n, (r, hz, n, c))
+    size = plane(300, (r, hz, n, c))
     count = rng.integers(0, 4, (r, hz, n))
     count[:, :full_rows] = c
     count = i32(count)
@@ -1193,12 +1252,16 @@ KERNELS = [
      "wittgenstein_tpu_torch/csrc/route.cu",
      "wittgenstein_tpu/ops/pallas_route.py:154",
      phase_route_captured("route_optimistic")),
+    ("route_p2phandel_city", "route", "p2phandel_city",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_p2phandel_city")),
 ]
 #: the kernel entries whose case is captured from their path's run
 #: (`capture_route`) and timed right after it, not in phase 2
 CAPTURED = ("route_sanfermin", "route_dfinity", "route_p2pflood",
             "route_casper", "route_ethpow", "route_byz",
-            "route_optimistic")
+            "route_optimistic", "route_p2phandel_city")
 #: the launches each path's run must make, by wrapper (others: none).
 #: The per-ms paths launch each kernel once a simulated ms; the headline
 #: bins once a K=2 window, merges every ms and scores on the
@@ -2017,6 +2080,17 @@ def ops_per_ms(window, ms):
                and e.name.startswith("aten::")) / ms
 
 
+def ops_at(proto, k, nets, ps, t):
+    """`ops_per_ms` of OPS_MS more simulated ms at K=`k` from time `t`,
+    run on a copy of the state (the engine writes the ring in place)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    window = scan_chunk(proto, OPS_MS, superstep=k)
+    copy = pytree.tree_map(torch.clone, (nets, ps))
+    return ops_per_ms(lambda: window(*copy, t=t), OPS_MS)
+
+
 def counts_of(net, ps=None):
     """A state's drop and clamp counters (summed over a batch), and for
     a Dfinity state its arena's drops and its head heights' range."""
@@ -2341,9 +2415,9 @@ def casper_run(dev):
     """Path K: Casper IMD's reference configuration, ``CasperIMD()`` (83
     nodes: observer, WF byzantine producer, one honest producer, 4 x 20
     attesters; 20-ms ticks; the distance latency), seeds 0-7 in one
-    batch through `run_multiple_times` in 2,000-tick chunks at the K the
+    batch through `run_multiple_times` in 1,000-tick chunks at the K the
     gate proves, counters set to 0 just before: every seed equal to its
-    JAX golden at 2,000 and 4,000 ticks, zero unicast, broadcast and
+    JAX golden at 1,000 and 2,000 ticks, zero unicast, broadcast and
     arena drops and heads within 2 where the JAX seeds show it; each
     seed's highest head, skew, blocks and attestations logged.  A K1
     case is captured from its windows."""
@@ -2384,7 +2458,7 @@ def casper_run(dev):
     out = dict(superstep=k, wall_s=wall, sim_ticks=K_TICKS,
                agg_sim_ticks_per_s=K_SEEDS * K_TICKS / wall,
                peak_mem_bytes=peak, **counts_of(nets, ps))
-    # the slot boundary at 4,000 (a build, reevaluations), then WF ticks
+    # the slot boundary at 2,000 (a build, reevaluations), then WF ticks
     event = scan_chunk(proto, k, superstep=k)
     out["aten_ops_per_tick_slot_boundary"] = ops_per_ms(
         lambda: event(nets, ps, t=K_TICKS), k)
@@ -2399,8 +2473,8 @@ def ethpow_run(dev):
     """Path E: `try_miner`'s batch at one point, ``ETHPoW(10 miners,
     ETHSelfishMiner at 0.40, NetworkFixedLatency(1000), capacity
     8192)``, seeds 1-5 in one batch through `run_multiple_times` in
-    1,000-tick chunks at the proved K, counters set to 0 just before:
-    every leaf equal to the JAX golden at 3,000 ticks (`thr`, stored raw
+    one 1,500-tick chunk at the proved K, counters set to 0 just before:
+    every leaf equal to the JAX golden at 1,500 ticks (`thr`, stored raw
     there, float for float), `try_miner`'s row equal to the golden's,
     zero unicast and arena drops.  The ops a tick at
     8,192 blocks equal those at 1,024 within 1% (ticks 0-20 of the same
@@ -2479,6 +2553,23 @@ def ethpow_run(dev):
 # ------------------------- the scenario drivers and the P2P signatures
 
 
+def _captured_harness(module, call):
+    """``call()`` with `module`'s `run_multiple_times` captured: its
+    return value and the last `run_multiple_times` result."""
+    got = {}
+    orig = module.run_multiple_times
+
+    def capture(*a, **kw):
+        got["res"] = orig(*a, **kw)
+        return got["res"]
+    module.run_multiple_times = capture
+    try:
+        out = call()
+    finally:
+        module.run_multiple_times = orig
+    return out, got["res"]
+
+
 def byz_counts(nets, ps):
     """Per seed of a Handel batch: drops, clamps, evictions, the live
     done fraction and the honest nodes with a non-empty blacklist."""
@@ -2510,29 +2601,18 @@ def byz_run(dev, n=BYZ_NODES, golden_path=BYZ_GOLDEN):
     from wittgenstein_tpu_torch.scenarios import handel_scenarios as hs
     with open(golden_path) as f:
         golden = json.load(f)
-    got = {}
-    orig = hs.run_multiple_times
-
-    def capture(*a, **kw):
-        got["res"] = orig(*a, **kw)
-        return got["res"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    hs.run_multiple_times = capture
-    try:
-        with capture_route("route_byz", {50, 75, 100, 125}), \
-                tempfile.TemporaryDirectory() as d:
-            t0 = time.perf_counter()
-            csv = hs.byz_suicide_sweep(ratios=(BYZ_RATIO,), nodes=n,
-                                       seeds=BYZ_SEEDS, out_dir=d,
-                                       device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        hs.run_multiple_times = orig
+    with capture_route("route_byz", {50, 75, 100, 125}), \
+            tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        csv, res = _captured_harness(hs, lambda: hs.byz_suicide_sweep(
+            ratios=(BYZ_RATIO,), nodes=n, seeds=BYZ_SEEDS, out_dir=d,
+            device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = read_counters()
-    res = got["res"]
     nets, ps = res.nets, res.pstates
     c0 = time.perf_counter()
     if str(csv) != golden["csv"]:
@@ -2583,9 +2663,9 @@ def eth2_run(dev, golden_path=ETH2_GOLDEN):
     0-3 in one batch: dense to ETH2_MS in ETH2_CHUNK-ms
     `network.scan_chunk` calls at the proved K (2), then
     fast-forwarded (`fast_forward_chunk(seed_axis=True, superstep=2)`)
-    in ETH2_FF_CHUNK-ms calls to ETH2_FF_MS (1,600 ms; 6,100, past the
+    in ETH2_FF_CHUNK-ms calls to ETH2_FF_MS (1,100 ms; 6,100, past the
     second aggregation's start, took 50-56 s on the card and was cut
-    for time: the CPU tests cover the start); every seed equal to its
+    for time, to 1,600 and then 1,100: the CPU tests cover the start); every seed equal to its
     JAX golden at both times, every call's skip counts the JAX
     engine's, every node at the golden's height.  Counters set to 0
     before each run."""
@@ -2774,6 +2854,312 @@ def optimistic_run(dev, golden_path=OPT_GOLDEN):
         fail(f"OptimisticP2PSignature: want every node done with at least "
              f"{proto.threshold} signatures and zero drops: {out}")
     return out, launches
+
+
+# ------------------------------------------- L: the city-latency scenarios
+
+
+def _seed_counts(nets):
+    """Per seed of a batch: drops, clamps and the latest doneAt."""
+    return [{"dropped": int(nets.dropped[r]), "clamped": int(nets.clamped[r]),
+             "done_max": int(nets.nodes.done_at[r].max())}
+            for r in range(nets.time.shape[0])]
+
+
+def _check_harness_golden(what, res, golden, counts):
+    """The stop times, every seed's leaves and counts of a
+    `run_multiple_times` result equal to the JAX run's."""
+    from wittgenstein_tpu_torch import convert
+    stopped = [int(x) for x in res.stopped_at]
+    if stopped != golden["stopped_at"]:
+        fail(f"{what} stops at {stopped}, the JAX run at "
+             f"{golden['stopped_at']}")
+    digests = convert.seed_digests(*convert.to_numpy(res.nets, res.pstates))
+    if len(digests) != len(golden["seeds"]):
+        fail(f"{what}: {len(digests)} seeds, the golden has "
+             f"{len(golden['seeds'])}")
+    for r, (g, w) in enumerate(zip(digests, golden["seeds"])):
+        check_digest(f"{what} seed {r} at {stopped[r]} ms", g, w)
+    if counts != golden["counts"]:
+        fail(f"{what} counts {counts}, the JAX run's {golden['counts']}")
+    log(f"{what}: the stop times and all {len(digests)} seeds' "
+        f"{len(digests[0])} leaves match the JAX reference")
+    return max(stopped)
+
+
+def city_p2phandel_run(dev, golden_path=CITY_P2PH_GOLDEN):
+    """Path L(a): the JAX package's P2PHandel scenario as a researcher
+    runs it, ``p2phandel_scenarios.basic_stats(P2PHandel(
+    **default_params(100, 20)), seeds=4)``: 120 nodes placed by city,
+    the city latency with its jitter, the P2PHandelParameters defaults;
+    seeds 0-3 in one `run_multiple_times` batch (chunk 500, the proved
+    K) until `cont_if_p2phandel` stops every seed, counters set to 0
+    just before.  The stats dict, the stop times and every seed's leaves
+    there equal the JAX run's; zero drops and clamps.  A K1 case is
+    captured from every tenth window of its first 3,000 ms (the
+    busiest; each capture reads the card)."""
+    import torch
+    from wittgenstein_tpu_torch.core.network import pick_superstep
+    from wittgenstein_tpu_torch.scenarios import p2phandel_scenarios as psc
+    with open(golden_path) as f:
+        golden = json.load(f)
+    proto = psc.P2PHandel(**psc.default_params(100, 20), device=dev)
+    k = pick_superstep(proto, 500, t0=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    with capture_route("route_p2phandel_city", set(range(0, 3000 // k, 10))):
+        t0 = time.perf_counter()
+        stats, res = _captured_harness(
+            psc, lambda: psc.basic_stats(proto, len(golden["seeds"])))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counters()
+    if stats != golden["stats"]:
+        fail(f"P2PHandel (cities) stats {stats}, the JAX run's "
+             f"{golden['stats']}")
+    nets, ps = res.nets, res.pstates
+    counts = _seed_counts(nets)
+    sim = _check_harness_golden("P2PHandel (cities) basic_stats", res,
+                                golden, counts)
+    PATH_LAUNCHES["p2phandel_city"] = {"route": sim // k}
+    out = dict(superstep=k, wall_s=wall, sim_ms=sim,
+               agg_sim_ms_per_s=len(counts) * sim / wall, stats=stats,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               **counts_of(nets))
+    if out["dropped"] or out["clamped"]:
+        fail(f"P2PHandel (cities) drops and clamps must be 0: {out}")
+    out["aten_ops_per_ms"] = ops_at(proto, k, nets, ps, sim)
+    return out, launches
+
+
+def city_optimistic_run(dev, n=CITY_OPT_NODES, seeds=CITY_OPT_SEEDS,
+                        refused=CITY_OPT_REFUSED,
+                        golden_path=CITY_OPT_GOLDEN):
+    """Path L(b): ``optimistic_scenarios.node_scaling`` (cities, the
+    city jitter, threshold 99%, 4 connections, pairing 3), 2 seeds in
+    one `run_multiple_times` batch.  At its ladder's largest point,
+    ``counts=(1024,)``, the JAX package's own run overflows the 192-slot
+    inboxes and its harness refuses (as at every point of the ladder,
+    128-1,024 nodes): the port must refuse with the same count of
+    dropped and clamped messages.  At ``counts=(64,)``, which completes,
+    counters set to 0 just before: the CSV text, the stop times and
+    every seed's leaves equal the JAX run's; every node done with at
+    least `threshold` signatures, zero drops and clamps."""
+    import tempfile
+
+    import torch
+    from wittgenstein_tpu_torch.core.network import pick_superstep
+    from wittgenstein_tpu_torch.ops import bitset
+    from wittgenstein_tpu_torch.scenarios import optimistic_scenarios as osc
+    with open(golden_path) as f:
+        golden = json.load(f)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        if refused:
+            c0 = time.perf_counter()
+            count = None
+            try:
+                osc.node_scaling(counts=(refused,), seeds=seeds, out_dir=d,
+                                 device=dev)
+            except RuntimeError as e:
+                head = str(e).split(" messages dropped/clamped", 1)[0]
+                count = int(head) if head.isdigit() else str(e)
+            want = golden["refused"]["dropped_or_clamped"]
+            if count != want:
+                fail(f"optimistic node_scaling({refused}): the port gives "
+                     f"{count!r}, the JAX run refuses with {want} messages "
+                     "dropped or clamped")
+            log(f"optimistic node_scaling({refused}) refuses as the JAX run "
+                f"does: {count} messages dropped or clamped")
+            out["refused"] = {"nodes": refused, "dropped_or_clamped": count,
+                              "wall_s": time.perf_counter() - c0}
+        proto = osc.OptimisticP2PSignature(**osc.default_params(n),
+                                           device=dev)
+        k = pick_superstep(proto, 500, t0=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        csv, res = _captured_harness(osc, lambda: osc.node_scaling(
+            counts=(n,), seeds=seeds, out_dir=d, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counters()
+    if str(csv) != golden["csv"]:
+        fail(f"optimistic_scenarios.node_scaling CSV {str(csv)!r}, the JAX "
+             f"run's {golden['csv']!r}")
+    nets, ps = res.nets, res.pstates
+    counts = _seed_counts(nets)
+    card = bitset.popcount(ps.received).min(-1).values
+    for r, c in enumerate(counts):
+        c["min_cardinality"] = int(card[r])
+        c["all_done"] = bool(ps.done[r].all())
+    sim = _check_harness_golden(f"Optimistic {n} (cities) node_scaling",
+                                res, golden, counts)
+    PATH_LAUNCHES["optimistic_city"] = {"route": sim // k}
+    out.update(superstep=k, wall_s=wall, sim_ms=sim,
+               agg_sim_ms_per_s=seeds * sim / wall,
+               csv_row=str(csv).splitlines()[1],
+               min_cardinality=int(card.min()),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               **counts_of(nets))
+    if not all(c["all_done"] for c in counts) or \
+            out["min_cardinality"] < proto.threshold or out["dropped"] or \
+            out["clamped"]:
+        fail(f"Optimistic (cities): want every node done with at least "
+             f"{proto.threshold} signatures and zero drops: {out}")
+    out["aten_ops_per_ms"] = ops_at(proto, k, nets, ps, sim)
+    return out, launches
+
+
+# --------------------------------------- A: ENR, Slush, Snowflake, Paxos
+
+
+def _a_result(what, proto, nets, ps, sim, wall, k, golden, stats=()):
+    """A phase-A path's record after its goldens held: wall, memory,
+    ops a simulated ms (one more window of OPS_MS, on a copy), counts."""
+    import torch
+    out = dict(superstep=k, wall_s=wall, sim_ms=sim,
+               agg_sim_ms_per_s=nets.time.shape[0] * sim / wall,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               **counts_of(nets))
+    if stats:
+        skipped = sum(s["skipped_ms"] for s in stats)
+        out.update(skipped_ms=skipped, skip_rate=skipped / sim,
+                   jump_count=sum(s["jump_count"] for s in stats))
+    if out["dropped"] or out["clamped"]:
+        fail(f"{what}: drops and clamps must be 0: {out}")
+    out["aten_ops_per_ms"] = ops_at(proto, k, nets, ps, sim)
+    return out
+
+
+def enr_run(dev, key="enr", golden_path=ENR_GOLDEN):
+    """Path A, ENR: ``ENRGossiping(**params)`` with the golden's params,
+    its four seeds in one batch, dense in ENR_CHUNK-ms `network.scan_chunk`
+    calls to the golden's ms, counters set to 0 just before: every seed
+    equal to its JAX golden, zero drops, and the step hint reporting a
+    joiner or a capability change at the golden's ms and no other.
+    ENR_GOLDEN is ``ENRGossiping()`` (50 nodes, 8 joiner slots, the
+    distance latency) to 250 ms (cut for time from 1,000: the first
+    records gossip; no joiner comes up and no change falls due there);
+    ENR_CHURN_GOLDEN is tests/test_enr.py's churn configuration (40
+    nodes, a joiner every 500 ms, quick exits), seeds 22-25 to 750 ms,
+    which hold a join, a capability change and an exit, so that the
+    joiners' links, `p2p.disconnect` and the capability draw run on
+    the card.  Churn
+    changes liveness in the step, so K=1."""
+    import torch
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.enr import ENRGossiping
+    with open(golden_path) as f:
+        golden = json.load(f)
+    proto = ENRGossiping(**golden["params"], device=dev)
+    hinted = {"join_ms": [], "change_ms": []}
+
+    def step_hint(p, inbox, t):
+        hint = ENRGossiping.step_hint(proto, p, inbox, t)
+        for name, on in zip(("join_ms", "change_ms"), hint[1:]):
+            if on:
+                hinted[name].append(t)
+        return hint
+    proto.step_hint = step_hint
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = golden["first_seed"]
+    state = init_batched(proto, torch.arange(first,
+                                             first + len(golden["seeds"])))
+    reset_counters()
+    (nets, ps), wall, _ = chunked(scan_chunk(proto, ENR_CHUNK), state, 0,
+                                  golden["ms"], ENR_CHUNK)
+    launches = read_counters()
+    del proto.step_hint             # the ops window below is not the run
+    what = f"{proto!r} x {len(golden['seeds'])} seeds"
+    check_seed_goldens(what, nets, ps, golden)
+    if hinted != golden["hint"]:
+        fail(f"{what}: the step hint reports {hinted}, the JAX batch's "
+             f"state {golden['hint']}")
+    if golden["params"] and not all(hinted.values()):
+        fail(f"{what}: the churn batch must see a joiner and a capability "
+             f"change: {hinted}")
+    log(f"{what}: the step hint reports joiners at {hinted['join_ms']} and "
+        f"capability changes at {hinted['change_ms']} ms, as the JAX "
+        "batch's state has them")
+    PATH_LAUNCHES[key] = {"route": golden["ms"]}
+    out = _a_result(what, proto, nets, ps, golden["ms"], wall, 1, golden)
+    out.update(hinted, live=[int(x) for x in (~nets.nodes.down).sum(1)])
+    return out, launches
+
+
+def avalanche_run(dev, name):
+    """Path A, Slush or Snowflake: ``Slush()`` / ``Snowflake()`` (100
+    nodes, K 7, the distance latency), seeds 0-3 in one batch,
+    fast-forwarded (`fast_forward_chunk(seed_axis=True)`, K=1 as the
+    JAX engine runs it) in AV_CHUNK-ms calls until every node of every
+    seed has decided, counters set to 0 just before: the stop time,
+    every call's skip counts and every seed's leaves the JAX run's
+    there, zero drops."""
+    import torch
+    from wittgenstein_tpu_torch.core.network import fast_forward_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models import avalanche
+    with open(AV_GOLDEN[name]) as f:
+        golden = json.load(f)
+    proto = getattr(avalanche, name)(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_batched(proto, torch.arange(len(golden["seeds"])))
+    reset_counters()
+    run = fast_forward_chunk(proto, AV_CHUNK, seed_axis=True)
+    (nets, ps), sim, wall, stats = until_stopped(
+        run, state, AV_CHUNK, lambda net, p: ~p.decided.all(), golden["ms"])
+    launches = read_counters()
+    if sim != golden["ms"] or stats != golden["chunks"]:
+        fail(f"{name} stops at {sim} ms skipping {stats}; the JAX run at "
+             f"{golden['ms']} skipping {golden['chunks']}")
+    check_seed_goldens(f"{name} x {len(golden['seeds'])} seeds "
+                       "(fast-forwarded)", nets, ps, golden)
+    PATH_LAUNCHES[name.lower()] = {
+        "route": sim - sum(s["skipped_ms"] for s in stats)}
+    return _a_result(name, proto, nets, ps, sim, wall, 1, golden,
+                     stats), launches
+
+
+def paxos_run(dev, golden_path=PAXOS_GOLDEN):
+    """Path A, Paxos: ``Paxos()`` (3 acceptors, 3 proposers, timeout
+    1,000, the distance latency), seeds 0-3 in one batch, dense in
+    PAXOS_CHUNK-ms `network.scan_chunk` calls (K=1, the step hint
+    walking only the inbox slots that hold a message) until `cont_if`
+    stops every seed, counters set to 0 just before: the stop time and
+    every seed's leaves the JAX run's there, one agreed value a seed,
+    zero drops."""
+    import torch
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.paxos import Paxos
+    with open(golden_path) as f:
+        golden = json.load(f)
+    proto = Paxos(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_batched(proto, torch.arange(len(golden["seeds"])))
+    reset_counters()
+    (nets, ps), sim, wall, _ = until_stopped(
+        scan_chunk(proto, PAXOS_CHUNK), state, PAXOS_CHUNK, proto.cont_if(),
+        golden["ms"])
+    launches = read_counters()
+    if sim != golden["ms"]:
+        fail(f"Paxos stops at {sim} ms, the JAX run at {golden['ms']}")
+    check_seed_goldens(f"Paxos x {len(golden['seeds'])} seeds", nets, ps,
+                       golden)
+    va = ps.value_accepted[:, proto.a:]
+    if not bool((va == va[:, :1]).all() & (va >= 0).all()):
+        fail(f"Paxos: every proposer of a seed must accept one value: {va}")
+    PATH_LAUNCHES["paxos"] = {"route": sim}
+    return _a_result("Paxos", proto, nets, ps, sim, wall, 1,
+                     golden), launches
+
 
 
 #: kernel names (substrings of the profiler's keys) whose device time
@@ -3166,6 +3552,29 @@ def main(argv=None) -> int:
     log(f"phases B and P: {bp_wall:.1f} s")
     done("P")
 
+    # L. the P2PHandel and Optimistic scenarios on the city latency
+    t0 = time.perf_counter()
+    lat = {"p2phandel_city": city_p2phandel_run(dev),
+           "optimistic_city": city_optimistic_run(dev)}
+    for key, (lres_, llaunches_) in lat.items():
+        log(f"{key}: {json.dumps(lres_)} launches {llaunches_}")
+        check_launches(key, llaunches_)
+    kernel_case("route_p2phandel_city")
+    done("L")
+
+    # A. ENR, Slush, Snowflake and Paxos, 4 seeds each
+    committee = {"enr": enr_run(dev),
+                 "enr_churn": enr_run(dev, "enr_churn", ENR_CHURN_GOLDEN),
+                 **{name.lower(): avalanche_run(dev, name)
+                    for name in ("Slush", "Snowflake")},
+                 "paxos": paxos_run(dev)}
+    for key, (cres_, claunches_) in committee.items():
+        log(f"{key}: {json.dumps(cres_)} launches {claunches_}")
+        check_launches(key, claunches_)
+    la_wall = time.perf_counter() - t0
+    log(f"phases L and A: {la_wall:.1f} s")
+    done("A")
+
     memory = {}
     if args.memory_seeds:
         memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
@@ -3250,7 +3659,9 @@ def main(argv=None) -> int:
                "byz": bres["sim_ms"], "eth2": ETH2_MS,
                "eth2_ff": ETH2_FF_MS - ETH2_MS,
                **{k: v[0]["sim_ms"] for k, v in protos.items()
-                  if k in ("p2phandel", "optimistic")}}
+                  if k in ("p2phandel", "optimistic")},
+               **{k: v[0]["sim_ms"] for k, v in lat.items()},
+               **{k: v[0]["sim_ms"] for k, v in committee.items()}}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
                      "pingpong_harness": hplaunches, "spill": slaunches,
@@ -3263,7 +3674,9 @@ def main(argv=None) -> int:
                      **{k: v[1] for k, v in quiet.items()},
                      "casper": klaunches, "ethpow": elaunches,
                      "byz": blaunches,
-                     **{k: v[1] for k, v in protos.items()}}
+                     **{k: v[1] for k, v in protos.items()},
+                     **{k: v[1] for k, v in lat.items()},
+                     **{k: v[1] for k, v in committee.items()}}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -3304,6 +3717,9 @@ def main(argv=None) -> int:
                       "byz_path": bres,
                       **{f"{k}_path": v[0] for k, v in protos.items()},
                       "phases_bp_wall_s": bp_wall,
+                      **{f"{k}_path": v[0] for k, v in lat.items()},
+                      **{f"{k}_path": v[0] for k, v in committee.items()},
+                      "phases_la_wall_s": la_wall,
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

@@ -26,6 +26,19 @@ with ``--at`` (600 by default, as `chip_smoke.py --profile`), and
 reports for each window the merge and score kernels' device us a
 simulated ms and where the merge's output rows came from.  ``--dirty`` times "cold" after a flush
 that only writes, so the kernel pays for evicting dirty L2 lines.
+``--host-events`` records the host's ops beside the device's in every
+timing window (`chip_smoke.device_ms` records the device's alone): the
+kernels' times stay, and a case's wall grows where its plain version
+issues many ops.
+``phase2`` names every kernel that `chip_smoke.py`'s phase 2 times, in
+its order; ``--iters N`` times each over N calls instead of
+`chip_smoke.ITERS`, and each kernel's wall (case, check and timing) is
+reported beside the total, so that one call can set phase 2's wall at
+two counts side by side::
+
+    for n in 5 10 10 5; do
+        python3 kernel_ab.py --tag $n --iters $n phase2
+    done
 """
 
 import argparse
@@ -33,6 +46,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 _DIRTY = []
 
@@ -46,6 +60,19 @@ def dirty_flush():
         _DIRTY.append(torch.empty(96 << 20, dtype=torch.uint8,
                                   device="cuda"))
     _DIRTY[0].fill_(1)
+
+
+def host_events():
+    """Make every `torch.profiler.profile` window record the host's ops
+    beside the device's."""
+    import torch.profiler as tp
+    device_only = tp.profile
+
+    def both(*args, activities=None, **kw):
+        return device_only(*args, activities=[tp.ProfilerActivity.CPU,
+                                              tp.ProfilerActivity.CUDA],
+                           **kw)
+    tp.profile = both
 
 
 def merge_rows(args, out):
@@ -136,6 +163,8 @@ def main(argv=None) -> int:
     ap.add_argument("--path", type=int, default=0, metavar="MS")
     ap.add_argument("--at", type=int, nargs="+", default=[600])
     ap.add_argument("--dirty", action="store_true")
+    ap.add_argument("--iters", type=int, default=0, metavar="N")
+    ap.add_argument("--host-events", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import numpy as np
@@ -146,10 +175,19 @@ def main(argv=None) -> int:
     import chip_smoke
     if args.dirty:
         chip_smoke.l2_flush = dirty_flush
+    if args.iters:
+        chip_smoke.ITERS = args.iters
+    if args.host_events:
+        host_events()
     phases = {k[0]: k[-1] for k in chip_smoke.KERNELS}
+    names = [n for arg in args.kernels for n in (
+        [k[0] for k in chip_smoke.KERNELS if k[0] not in chip_smoke.CAPTURED]
+        if arg == "phase2" else [arg])]
     dev = torch.device("cuda")
     out = {}
-    for name in args.kernels:
+    start = time.perf_counter()
+    for name in names:
+        t0 = time.perf_counter()
         kind, _, spec = name.partition(":")
         shape = {k: float(v) if k == "hot" else int(v) for k, v in
                  (kv.split("=") for kv in spec.split(",") if kv)}
@@ -161,14 +199,18 @@ def main(argv=None) -> int:
         out[name] = {"cold_us": r["ms"] * 1e3, "warm_us": r["warm_ms"] * 1e3,
                      "bound_us": r["nbytes"] /
                      chip_smoke.HBM_BYTES_PER_S * 1e6,
-                     "max_abs_err": r["err"]}
+                     "max_abs_err": r["err"],
+                     "wall_s": time.perf_counter() - t0}
         if "phases_us" in r:
             out[name].update(phases_us=r["phases_us"], drops=r["drops"])
+    wall = time.perf_counter() - start
     path = path_profile(dev, args.path, args.at) if args.path else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({"tag": args.tag, "device": smi, "dirty": args.dirty,
+                      "iters": chip_smoke.ITERS,
+                      "host_events": args.host_events, "wall_s": wall,
                       "kernels": out, "path": path}), flush=True)
     return 0
 

@@ -206,13 +206,13 @@ def test_convert_round_trip(selfish_states):
 
 
 def test_try_miner_golden_schema():
-    """`chip_smoke.py` phase E's golden: `try_miner`'s 5 seeds at 3,000
+    """`chip_smoke.py` phase E's golden: `try_miner`'s 5 seeds at 1,500
     ticks, every leaf but `thr` digested under the port's leaf names,
     `thr` raw, zero drops, and the CSV row's numbers."""
     with open(tp.ETHPOW_GOLDEN_FILE) as f:
         golden = json.load(f)
     assert golden["call"].startswith("jax.jit(jax.vmap(")
-    assert "scan_chunk(proto, 3000)" in golden["call"]
+    assert "scan_chunk(proto, 1500)" in golden["call"]
     assert {"wall_s", "peak_rss_gb"} <= set(golden["generator"])
     proto = ethpow.ETHPoW(**tp.ethpow_line_params(), device="cpu")
     (net_np, ps_np), _ = tp.without_thr(convert.to_numpy(*proto.init(1)))

@@ -211,10 +211,13 @@ def test_registries():
             **vars(jbuilders.get_by_name(name)))
     assert tbuilders.registry_name("random", True, 0.1) == \
         jbuilders.registry_name("random", True, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuilders.get_by_name("AWS_SPEED=GAUSSIAN_TOR=0.00")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlat.get_by_name("NetworkLatencyByCity")
+    assert tbuilders.get_by_name("AWS_SPEED=GAUSSIAN_TOR=0.00") == \
+        tbuilders.NodeBuilder(**vars(jbuilders.get_by_name(
+            "AWS_SPEED=GAUSSIAN_TOR=0.00")))
+    assert repr(tlat.get_by_name("NetworkLatencyByCity")) == \
+        repr(jlat.get_by_name("NetworkLatencyByCity"))
+    assert tlat.latency_floor_ms(tlat.get_by_name("NetworkLatencyByCity")) \
+        == jlat.latency_floor_ms(jlat.get_by_name("NetworkLatencyByCity"))
     with pytest.raises(KeyError):
         tlat.get_by_name("NoSuchLatency")
     assert repr(tlat.get_by_name("NetworkFixedLatency(100)")) == \

@@ -1,10 +1,11 @@
 """The golden digests that `chip_smoke.py` holds the port's SanFermin,
 Cappos, Dfinity and P2PFlood paths against (phases S, C, D and Q), and
-its Byzantine sweep point and P2P signature batches (phases B and P):
-each file's schema and call, its leaf names those of the port's state
-of the same configuration, and its counters; marked slow, the quiet
-lines' digests recomputed from the JAX package and the port's CPU runs
-of them against the files."""
+its Byzantine sweep point and P2P signature batches (phases B and P),
+and its city-latency scenario runs and committee batches (phases L and
+A): each file's schema and call, its leaf names those of the port's
+state of the same configuration, and its counters; marked slow, the
+quiet lines' digests recomputed from the JAX package and the port's CPU
+runs of them against the files."""
 
 import dataclasses
 import json
@@ -195,4 +196,95 @@ def test_scenario_golden_schema(name):
         assert golden["ms"] % tp.OPTIMISTIC_CHUNK == 0
         assert all(c["min_cardinality"] >= 501 and
                    0 < c["done_max"] <= golden["ms"]
+                   for c in golden["counts"])
+
+
+#: the goldens of `chip_smoke.py` phases L and A: name -> (file, seeds)
+LA_FILES = {"p2phandel_city": (tp.CITY_P2PHANDEL_FILE, tp.P_SEEDS),
+            "optimistic_city": (tp.CITY_OPTIMISTIC_FILE,
+                                tp.CITY_OPTIMISTIC_SEEDS),
+            "enr": (tp.ENR_GOLDEN_FILE, tp.A_SEEDS),
+            "enr_churn": (tp.ENR_CHURN_FILE, tp.A_SEEDS),
+            **{name.lower(): (path, tp.A_SEEDS)
+               for name, path in tp.AVALANCHE_GOLDEN_FILES.items()},
+            "paxos": (tp.PAXOS_GOLDEN_FILE, tp.A_SEEDS)}
+
+
+def _la_proto(name):
+    """The port's protocol of each phase L or A golden, at a size with
+    the same leaves."""
+    if name == "p2phandel_city":
+        from wittgenstein_tpu_torch.models.p2phandel import P2PHandel
+        from wittgenstein_tpu_torch.scenarios.p2phandel_scenarios import \
+            default_params
+        return P2PHandel(**default_params(40, 8), device="cpu")
+    if name == "optimistic_city":
+        from wittgenstein_tpu_torch.models.optimistic import \
+            OptimisticP2PSignature
+        from wittgenstein_tpu_torch.scenarios.optimistic_scenarios import \
+            default_params
+        return OptimisticP2PSignature(**default_params(32), device="cpu")
+    if name.startswith("enr"):
+        from wittgenstein_tpu_torch.models.enr import ENRGossiping
+        return ENRGossiping(nodes=16, device="cpu")
+    if name == "paxos":
+        from wittgenstein_tpu_torch.models.paxos import Paxos
+        return Paxos(device="cpu")
+    from wittgenstein_tpu_torch.models import avalanche
+    return getattr(avalanche, name.capitalize())(node_count=16, device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(LA_FILES))
+def test_city_and_committee_golden_schema(name):
+    """Each phase L or A golden: its seeds with the leaf names of the
+    port's state of the same configuration and distinct digests, zero
+    drops and clamps, stop times on its chunk grid (the fast-forwarded
+    ones with their skip counts summed), and the generator's wall and
+    memory."""
+    path, seeds = LA_FILES[name]
+    golden = _load(path)
+    assert {"wall_s", "peak_rss_gb"} <= set(golden["generator"])
+    names = sorted(convert.state_digest(*convert.to_numpy(
+        *_la_proto(name).init(0))))
+    assert len(golden["seeds"]) == len(golden["counts"]) == seeds
+    assert all(sorted(d) == names for d in golden["seeds"])
+    assert len({json.dumps(d, sort_keys=True)
+                for d in golden["seeds"]}) == seeds
+    assert all(c["dropped"] == c["clamped"] == 0 for c in golden["counts"])
+    if name.endswith("_city"):
+        assert "run_multiple_times(proto" in golden["call"]
+        assert all(t % 500 == 0 and c["done_max"] <= t for t, c in
+                   zip(golden["stopped_at"], golden["counts"]))
+    if name == "p2phandel_city":
+        assert set(golden["stats"]) == {"done_min", "done_avg", "done_max",
+                                        "msg_min", "msg_avg", "msg_max",
+                                        "bytes_avg"}
+    if name == "optimistic_city":
+        header, row = golden["csv"].splitlines()
+        assert header == "nodes,done_avg,done_max,msg_avg"
+        assert row.startswith(f"{tp.CITY_OPTIMISTIC_N},")
+        assert all(c["all_done"] and c["min_cardinality"] >=
+                   int(tp.CITY_OPTIMISTIC_N * 0.99)
+                   for c in golden["counts"])
+    if name == "enr":
+        assert golden["ms"] == tp.ENR_MS and golden["params"] == {}
+        assert golden["first_seed"] == 0
+        assert golden["hint"] == {"join_ms": [], "change_ms": []}
+    if name == "enr_churn":
+        # the batch holds a join, capability changes and an exit
+        assert golden["ms"] == tp.ENR_CHURN_MS
+        assert golden["first_seed"] == tp.ENR_CHURN_FIRST_SEED
+        assert golden["params"] == tp.ENR_CHURN_PARAMS
+        assert golden["hint"]["join_ms"] and golden["hint"]["change_ms"]
+        assert min(c["live"] for c in golden["counts"]) < \
+            tp.ENR_CHURN_PARAMS["nodes"] + len(golden["hint"]["join_ms"])
+    if name in ("slush", "snowflake"):
+        assert golden["ms"] == tp.AVALANCHE_CHUNK * len(golden["chunks"])
+        assert golden["skipped_ms"] == sum(c["skipped_ms"]
+                                           for c in golden["chunks"])
+        assert all(c["colors"][0] == 0 and 0 in c["colors"][1:]
+                   for c in golden["counts"])
+    if name == "paxos":
+        assert golden["ms"] % tp.PAXOS_CHUNK == 0
+        assert all(0 < c["done_max"] <= golden["ms"] and c["value"] >= 0
                    for c in golden["counts"])

@@ -216,3 +216,36 @@ def test_chip_smoke_scenario_phase_failure_exits_nonzero(monkeypatch,
             assert e.value.code == 1
     finally:
         torch.set_num_threads(threads)
+
+
+def test_chip_smoke_city_and_committee_failure_exits_nonzero(monkeypatch,
+                                                            tmp_path):
+    """Phases L and A end the smoke with exit code 1 and no result when
+    a run disagrees with its golden: L's Optimistic ladder point at 32
+    nodes on the CPU against a golden whose CSV text is not the run's,
+    and A's Paxos batch against a golden that stops at 250 ms (the run
+    is still going there)."""
+    import json
+
+    import chip_smoke
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    opt = tmp_path / "opt.json"
+    opt.write_text(json.dumps({"csv": "nodes\n", "stopped_at": [0],
+                               "seeds": [], "counts": []}))
+    pax = tmp_path / "paxos.json"
+    pax.write_text(json.dumps({"ms": 250, "seeds": [{"net.time": "0"}] * 2}))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for run in (lambda: chip_smoke.city_optimistic_run(
+                        "cpu", n=32, seeds=2, refused=None,
+                        golden_path=str(opt)),
+                    lambda: chip_smoke.paxos_run("cpu",
+                                                 golden_path=str(pax))):
+            with pytest.raises(SystemExit) as e:
+                run()
+            assert e.value.code == 1
+    finally:
+        torch.set_num_threads(threads)

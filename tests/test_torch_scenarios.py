@@ -5,9 +5,12 @@ text equal (less the `wall_s` column, a wall clock), the runs behind
 the Byzantine sweeps equal leaf for leaf, `emission_drift.run_mode`'s
 row equal (less `wall_s`), `sigs_per_time`'s CSV equal, and `gen_anim`'s
 and `draw_imgs`' frames pixel-equal as arrays.  The Byzantine sweeps,
-`desync_sweep`, one `run_mode` and `sigs_per_time` run in tier 1; the
-other sweeps, `compare` and the animations are slow-marked with the same
-comparison."""
+`desync_sweep`, one `run_mode`, `sigs_per_time` and one point of
+`optimistic_scenarios.node_scaling` run in tier 1; the other sweeps,
+`compare`, the animations and the city-latency drivers' ladders are
+slow-marked with the same comparison, where the Optimistic ladder's
+points refuse in both packages with one count (one point of each
+P2PHandel driver runs in tier 1 in `test_torch_p2phandel_*.py`)."""
 
 import contextlib
 import importlib
@@ -135,6 +138,41 @@ def test_compare_default_batch_rule():
         "emission_drift")]
     for s in src:
         assert "(768 << 20) // (4 * nodes * nodes)" in s
+
+
+def test_optimistic_node_scaling_matches_jax(tmp_path):
+    """`optimistic_scenarios.node_scaling` at one point (32 nodes, 2
+    seeds; tests/test_scenarios.py:34), cities and the city jitter: the
+    CSV text and both seeds' final states equal."""
+    _sweep(tmp_path, "optimistic_scenarios", "node_scaling", states=True,
+           counts=(32,), seeds=2)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("fn,kw", [
+    ("node_scaling", dict(counts=(64, 128))),
+    ("strategy_sweep", dict(signers=64, relays=8))])
+def test_p2phandel_ladders_match_jax(tmp_path, fn, kw):
+    """The P2PHandel driver's own smoke ladders (its `__main__`'s points,
+    every strategy), each JAX point a program of its own (about 3
+    minutes apiece on the CPU)."""
+    _sweep(tmp_path, "p2phandel_scenarios", fn, **kw)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n", [128, 256])
+def test_optimistic_ladder_refusals_match_jax(tmp_path, n):
+    """`optimistic_scenarios.node_scaling`'s `__main__` points refuse in
+    the JAX package (their inboxes overflow under the city jitter, and
+    `run_multiple_times` raises); the port refuses with the same count
+    of dropped and clamped messages."""
+    got = []
+    for i, mod in enumerate(_modules("optimistic_scenarios")):
+        with pytest.raises(RuntimeError) as e:
+            mod.node_scaling(counts=(n,), seeds=2, out_dir=str(tmp_path),
+                             **({"device": "cpu"} if i else {}))
+        got.append(tp.refused_count(e.value))
+    assert got[0] and got[0] == got[1]
 
 
 @pytest.mark.slow

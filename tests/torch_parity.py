@@ -9,8 +9,12 @@ the 4096-node GSF, the JAX fast-forward engine's skip counts on two
 PingPong runs, Handel at scale: the tier-3 cardinal line at 65,536
 nodes, the tier-2 exact line at 32,768 nodes and a 1,024-node run under
 the byzantineSuicide attack; SanFermin, Cappos, Dfinity and the quiet
-lines; and Casper IMD's reference configuration and `try_miner`'s
-ETHPoW batch, ``... casper-golden`` and ``... ethpow-golden``).
+lines; Casper IMD's reference configuration and `try_miner`'s ETHPoW
+batch, ``... casper-golden`` and ``... ethpow-golden``; the Pareto
+jitter bits, IC3's table and the pareto speed's fixes, ``...
+latency-tables``; the P2PHandel and Optimistic drivers on the city
+latency, ``... city-goldens``; and the ENR, Slush, Snowflake and Paxos
+batches, ``... committee-goldens``).
 
 Regenerate the first three with ``JAX_PLATFORMS=cpu python
 tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
@@ -253,14 +257,39 @@ def jax_latency_table():
     .extended` of the JAX package for every (torus distance, delta),
     compiled with `jax.jit` as the engine's step runs it.  (Op-by-op
     eager evaluation rounds one entry differently, (552, 99): 147
-    instead of the compiled 146.)  Distance d is realised by a node
-    pair (1, 1) -> (1 + dx, 1 + dy) whose integer torus distance is
-    exactly d."""
+    instead of the compiled 146.)  Distance d is realised by the node
+    pair of `distance_pairs`."""
     import jax
     import jax.numpy as jnp
 
-    from wittgenstein_tpu.core.latency import (
-        NetworkLatencyByDistanceWJitter, torus_dist)
+    from wittgenstein_tpu.core.latency import NetworkLatencyByDistanceWJitter
+
+    nodes, src, dst = distance_pairs()
+    k = len(src)
+    extended = jax.jit(NetworkLatencyByDistanceWJitter().extended)
+    delta = jnp.tile(jnp.arange(100, dtype=jnp.int32), k)
+    return np.asarray(extended(nodes, jnp.repeat(src, 100),
+                               jnp.repeat(dst, 100), delta)).reshape(k, 100)
+
+
+def jax_jitter_bits():
+    """int32 [100]: the bits of the JAX package's ``gpd_inverse(delta /
+    100)`` in float32 for every delta, compiled with `jax.jit` as the
+    engine's step runs the city-jitter and AWS models."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.latency import gpd_inverse
+    fn = jax.jit(lambda d: gpd_inverse(d.astype(jnp.float32) / 100.0))
+    return np.asarray(fn(jnp.arange(100, dtype=jnp.int32))).view(np.int32)
+
+
+def distance_pairs():
+    """(nodes, src, dst) of the JAX package: node pair k realises the
+    integer torus distance k, for k in [0, MAX_DIST]."""
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.latency import torus_dist
     from wittgenstein_tpu.core.state import MAX_DIST, default_nodes
 
     dxs, dys = [], []
@@ -281,11 +310,74 @@ def jax_latency_table():
     dst = src + k
     dist = np.asarray(torus_dist(nodes, src, dst))
     assert (dist == np.arange(k)).all(), "distance realisation failed"
-    model = NetworkLatencyByDistanceWJitter()
-    extended = jax.jit(model.extended)
-    delta = jnp.tile(jnp.arange(100, dtype=jnp.int32), k)
-    return np.asarray(extended(nodes, jnp.repeat(src, 100),
-                               jnp.repeat(dst, 100), delta)).reshape(k, 100)
+    return nodes, src, dst
+
+
+def jax_ic3_table():
+    """int32 [MAX_DIST + 1]: `IC3NetworkLatency.extended` of the JAX
+    package for every torus distance, under `jax.jit`."""
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.latency import IC3NetworkLatency
+    nodes, src, dst = distance_pairs()
+    return np.asarray(jax.jit(IC3NetworkLatency().extended)(
+        nodes, src, dst, jnp.zeros_like(src)))
+
+
+def speed_grid():
+    """float32 [2^24]: every value of the builder's uniform draw."""
+    return np.arange(1 << 24, dtype=np.float32) * np.float32(2.0 ** -24)
+
+
+def jax_speed_grid(speed, slow=False):
+    """float32 [2^24]: the JAX package's `NodeBuilder._speed_ratios`,
+    op by op as a protocol's `init` runs it, on every grid value of its
+    draw (for the uniform model, of ``u2``, with ``u`` on the fast half
+    or, with `slow`, the slow one): its PRNG is replaced by the grid."""
+    import types
+
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core import builders
+
+    grid = jnp.asarray(speed_grid())
+    other = jnp.full_like(grid, 0.75 if slow else 0.25)
+    tag = 6 if speed == "uniform" else 4
+    stub = types.SimpleNamespace(
+        hash2=lambda a, b: b,
+        uniform_float=lambda s, ids: grid if s == tag else other)
+    orig, builders.prng = builders.prng, stub
+    try:
+        return np.asarray(builders.NodeBuilder(speed=speed)._speed_ratios(
+            0, None))
+    finally:
+        builders.prng = orig
+
+
+def jax_pareto_fixes():
+    """int32 [K, 2]: (grid index, float32 bits) of every grid value
+    where the JAX package's pareto speed differs from its form with a
+    correctly rounded reciprocal in place of ``powf(1 - y, -1)``."""
+    u = speed_grid()
+    y = np.clip(u, np.float32(0), np.float32(0.999999))
+    main = (np.float32(1) / (np.float32(1) - y) - np.float32(1))
+    base = np.minimum(np.float32(3), np.where(
+        y < np.float32(1e-6), np.float32(0), main) + np.float32(1))
+    want = jax_speed_grid("pareto")
+    idx = np.nonzero(base.view(np.int32) != want.view(np.int32))[0]
+    return np.stack([idx.astype(np.int32), want[idx].view(np.int32)], 1)
+
+
+def write_latency_tables():
+    """The jitter bits, IC3's table and the pareto speed's fixes, into
+    the port's data/."""
+    np.save(os.path.join(PORT_DATA, "gpd_jitter_bits.npy"),
+            jax_jitter_bits())
+    np.save(os.path.join(PORT_DATA, "ic3_latency_by_distance.npy"),
+            jax_ic3_table())
+    np.save(os.path.join(PORT_DATA, "pareto_speed_fixes.npy"),
+            jax_pareto_fixes())
 
 
 def jax_golden_digest():
@@ -869,11 +961,11 @@ def write_quiet_goldens():
 
 
 CASPER_GOLDEN_FILE = os.path.join(PORT_DATA,
-                                  "golden_casper83_r8_4000ticks.json")
-CASPER_SEEDS, CASPER_TICKS, CASPER_CHUNK = 8, 4000, 2000
+                                  "golden_casper83_r8_2000ticks.json")
+CASPER_SEEDS, CASPER_TICKS, CASPER_CHUNK = 8, 2000, 1000
 ETHPOW_GOLDEN_FILE = os.path.join(PORT_DATA,
-                                  "golden_ethpow10_r5_3000ticks.json")
-ETHPOW_RUNS, ETHPOW_TICKS = 5, 3000
+                                  "golden_ethpow10_r5_1500ticks.json")
+ETHPOW_RUNS, ETHPOW_TICKS = 5, 1500
 
 
 def ethpow_line_params(capacity=8192):
@@ -996,7 +1088,7 @@ BYZ_N, BYZ_SEEDS, BYZ_RATIO = 4096, 4, 0.25
 BYZ_GOLDEN_FILE = os.path.join(PORT_DATA,
                                "golden_handel4096_byz_suicide_r4.json")
 P_SEEDS = 4
-ETH2_DENSE_MS, ETH2_FF_MS, ETH2_CHUNK, ETH2_FF_CHUNK = 600, 1600, 200, 500
+ETH2_DENSE_MS, ETH2_FF_MS, ETH2_CHUNK, ETH2_FF_CHUNK = 600, 1100, 200, 500
 ETH2_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_handeleth2_64_r4.json")
 P2PHANDEL_CHUNK, P2PHANDEL_MAX_MS = 500, 60_000
 P2PHANDEL_GOLDEN_FILE = os.path.join(PORT_DATA,
@@ -1037,20 +1129,9 @@ def write_byz_golden(n=BYZ_N, seeds=BYZ_SEEDS, ratio=BYZ_RATIO):
     from wittgenstein_tpu.scenarios import handel_scenarios as hs
 
     t0 = time.monotonic()
-    got = {}
-    orig = hs.run_multiple_times
-
-    def capture(*a, **kw):
-        got["res"] = orig(*a, **kw)
-        return got["res"]
-    hs.run_multiple_times = capture
-    try:
-        with tempfile.TemporaryDirectory() as d:
-            csv = hs.byz_suicide_sweep(ratios=(ratio,), nodes=n,
-                                       seeds=seeds, out_dir=d)
-    finally:
-        hs.run_multiple_times = orig
-    res = got["res"]
+    with tempfile.TemporaryDirectory() as d:
+        csv, res = _captured_harness(hs, lambda: hs.byz_suicide_sweep(
+            ratios=(ratio,), nodes=n, seeds=seeds, out_dir=d))
     state = jax_state(res.nets, res.pstates)
     _write_golden(BYZ_GOLDEN_FILE, {
         "config": f"handel_scenarios.default_params(nodes={n}, "
@@ -1078,8 +1159,9 @@ def write_eth2_golden(seeds=P_SEEDS):
     0-3 in one batch: dense through ``jax.vmap(scan_chunk(proto,
     ETH2_CHUNK))`` to ETH2_DENSE_MS, then on through ``fast_forward_
     chunk(proto, ETH2_FF_CHUNK, seed_axis=True, superstep=2)`` to
-    ETH2_FF_MS (1,600 ms: the card's phase P was cut from 6,100, past
-    the second aggregation's start, for time): the per-seed leaf
+    ETH2_FF_MS (1,100 ms: the card's phase P was cut from 6,100, past
+    the second aggregation's start, to 1,600 and then 1,100 for time):
+    the per-seed leaf
     sha256s at both times and each fast-forwarded call's skip
     counts."""
     import time
@@ -1167,10 +1249,7 @@ def write_p2phandel_golden(seeds=P_SEEDS):
                 "until no seed's cont_if_p2phandel holds",
         "ms": t, "chunks": chunks,
         **{k: sum(c[k] for c in chunks) for k in chunks[0]},
-        "counts": [{"dropped": int(final[0]["dropped"][r]),
-                    "clamped": int(final[0]["clamped"][r]),
-                    "done_max": int(final[0]["nodes"]["done_at"][r].max())}
-                   for r in range(seeds)],
+        "counts": _seed_counts(final, seeds),
         "seeds": convert.seed_digests(*final)}, t0)
 
 
@@ -1215,6 +1294,277 @@ def write_optimistic_golden(seeds=P_SEEDS):
                     "clamped": int(final[0]["clamped"][r]),
                     "done_max": int(final[0]["nodes"]["done_at"][r].max()),
                     "min_cardinality": card[r]} for r in range(seeds)],
+        "seeds": convert.seed_digests(*final)}, t0)
+
+
+CITY_P2PHANDEL_FILE = os.path.join(PORT_DATA,
+                                   "golden_p2phandel_city120_r4.json")
+CITY_OPTIMISTIC_N, CITY_OPTIMISTIC_SEEDS = 64, 2
+CITY_OPTIMISTIC_REFUSED_N = 1024
+CITY_OPTIMISTIC_FILE = os.path.join(PORT_DATA,
+                                    "golden_optimistic_city_r2.json")
+A_SEEDS = 4
+ENR_MS, ENR_CHUNK = 250, 250
+ENR_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_enr58_r4.json")
+#: tests/test_enr.py's churn configuration (`make(time_to_leave=4_000)`:
+#: a joiner every 500 ms, quick exits); to 750 ms seeds 22-25 see a join
+#: at 500, an exit at 507 and a capability change at 464 (the first four
+#: seeds from 0 with a change and an exit before 750; seeds 0-3 need
+#: 1,250 ms)
+ENR_CHURN_PARAMS = dict(
+    nodes=40, total_peers=5, max_peers=12,
+    number_of_different_capabilities=5, cap_per_node=2,
+    cap_gossip_time=500, time_to_change=5_000, time_to_leave=4_000,
+    changing_nodes=0.4,
+    network_latency_name="NetworkLatencyByDistanceWJitter")
+ENR_CHURN_MS, ENR_CHURN_FIRST_SEED = 750, 22
+ENR_CHURN_FILE = os.path.join(PORT_DATA, "golden_enr48_churn_r4.json")
+AVALANCHE_CHUNK, AVALANCHE_MAX_MS = 250, 20_000
+AVALANCHE_GOLDEN_FILES = {
+    name: os.path.join(PORT_DATA, f"golden_{name.lower()}100_r4.json")
+    for name in ("Slush", "Snowflake")}
+PAXOS_CHUNK, PAXOS_MAX_MS = 250, 20_000
+PAXOS_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_paxos6_r4.json")
+
+
+def _captured_harness(module, call):
+    """``call()`` with `module`'s `run_multiple_times` captured: its
+    return value and the last `run_multiple_times` result."""
+    got = {}
+    orig = module.run_multiple_times
+
+    def capture(*a, **kw):
+        got["res"] = orig(*a, **kw)
+        return got["res"]
+    module.run_multiple_times = capture
+    try:
+        out = call()
+    finally:
+        module.run_multiple_times = orig
+    return out, got["res"]
+
+
+def _seed_counts(final, seeds):
+    """Per seed: drops, clamps and the latest doneAt."""
+    return [{"dropped": int(final[0]["dropped"][r]),
+             "clamped": int(final[0]["clamped"][r]),
+             "done_max": int(final[0]["nodes"]["done_at"][r].max())}
+            for r in range(seeds)]
+
+
+def write_city_p2phandel_golden(seeds=P_SEEDS):
+    """The JAX package's ``p2phandel_scenarios.basic_stats(P2PHandel(
+    **default_params(100, 20)), seeds=4)``: 120 nodes placed by city
+    with the city jitter latency, seeds 0-3 in one `run_multiple_times`
+    batch (chunk 500) until `cont_if_p2phandel` stops every seed: the
+    stats dict, the stop times, per seed the leaf sha256s and counts."""
+    import time
+
+    from wittgenstein_tpu.models.p2phandel import P2PHandel
+    from wittgenstein_tpu.scenarios import p2phandel_scenarios as ps_mod
+
+    t0 = time.monotonic()
+    params = ps_mod.default_params(100, 20)
+    stats, res = _captured_harness(ps_mod, lambda: ps_mod.basic_stats(
+        P2PHandel(**params), seeds))
+    final = jax_state(res.nets, res.pstates)
+    _write_golden(CITY_P2PHANDEL_FILE, {
+        "config": f"P2PHandel(**p2phandel_scenarios.default_params(100, "
+                  f"20)) = {params}, seeds 0-{seeds - 1}",
+        "call": f"p2phandel_scenarios.basic_stats(proto, seeds={seeds}): "
+                "run_multiple_times(proto, 4, max_time=60000, chunk=500, "
+                "cont_if=cont_if_p2phandel)",
+        "stats": {k: float(v) for k, v in stats.items()},
+        "stopped_at": [int(x) for x in np.asarray(res.stopped_at)],
+        "counts": _seed_counts(final, seeds),
+        "seeds": convert.seed_digests(*final)}, t0)
+
+
+def refused_count(err):
+    """The message count of a harness refusal ("N messages
+    dropped/clamped during ..."), or None for another error."""
+    head = str(err).split(" messages dropped/clamped during ", 1)
+    return int(head[0]) if len(head) == 2 and head[0].isdigit() else None
+
+
+def write_city_optimistic_golden(n=CITY_OPTIMISTIC_N,
+                                 seeds=CITY_OPTIMISTIC_SEEDS,
+                                 refused_n=CITY_OPTIMISTIC_REFUSED_N):
+    """The JAX package's ``optimistic_scenarios.node_scaling`` (cities,
+    the city jitter, threshold 99%, 4 connections, pairing 3), 2 seeds:
+    at `refused_n` (its ladder's largest point) the messages its
+    `run_multiple_times` counts as dropped or clamped when it refuses
+    (every point of the default ladder, 128-1,024 nodes, overflows the
+    192-slot inboxes); at `n` the CSV text, the stop times, per seed
+    the leaf sha256s, counts and least cardinality."""
+    import tempfile
+    import time
+
+    from wittgenstein_tpu.scenarios import optimistic_scenarios as os_mod
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            os_mod.node_scaling(counts=(refused_n,), seeds=seeds, out_dir=d)
+            raise AssertionError(f"node_scaling({refused_n}) ran through")
+        except RuntimeError as e:
+            refused = refused_count(e)
+            assert refused, e
+        csv, res = _captured_harness(os_mod, lambda: os_mod.node_scaling(
+            counts=(n,), seeds=seeds, out_dir=d))
+    final = jax_state(res.nets, res.pstates)
+    counts = _seed_counts(final, seeds)
+    for r, c in enumerate(counts):
+        c["min_cardinality"] = int(np.unpackbits(
+            final[1]["received"][r].view(np.uint8), axis=-1).sum(-1).min())
+        c["all_done"] = bool(final[1]["done"][r].all())
+    _write_golden(CITY_OPTIMISTIC_FILE, {
+        "config": f"OptimisticP2PSignature(**optimistic_scenarios."
+                  f"default_params({n})) = {os_mod.default_params(n)}, "
+                  f"seeds 0-{seeds - 1}",
+        "call": f"optimistic_scenarios.node_scaling(counts=({n},), "
+                f"seeds={seeds}): run_multiple_times(proto, {seeds}, "
+                "max_time=60000, chunk=500, cont_if=cont_if_optimistic)",
+        "refused": {"nodes": refused_n, "dropped_or_clamped": refused},
+        "csv": str(csv),
+        "stopped_at": [int(x) for x in np.asarray(res.stopped_at)],
+        "counts": counts,
+        "seeds": convert.seed_digests(*final)}, t0)
+
+
+def _until(run, state, cont, chunk, limit, what):
+    """``run`` (a jitted chunk function, fast-forwarded when it returns
+    skip counts) from the batch `state` until `cont` holds for no seed:
+    the state, the stop time and each call's skip counts."""
+    import jax
+    import jax.numpy as jnp
+    cont = jax.jit(jax.vmap(cont))
+    stats, t = [], 0
+    while bool(jnp.any(cont(*state))):
+        if t >= limit:
+            raise RuntimeError(f"{what} did not finish by {t} ms")
+        out = run(*state)
+        state = out[:2]
+        if len(out) == 3:
+            stats.append({k: int(v) for k, v in out[2].items()})
+        t += chunk
+    return state, t, stats
+
+
+def enr_hint_ms(join_at, change_start, time_to_change, ms):
+    """The ms below `ms` at which ENR's step hint reports a joiner
+    coming up or a capability change due on some node of a batch (from
+    the batch's [R, N] ``join_at`` and ``change_start``), as
+    ``{"join_ms": [...], "change_ms": [...]}``."""
+    join = sorted({int(t) for t in join_at[join_at > 0] if t < ms})
+    starts = change_start[change_start > 0]
+    change = sorted({int(t) for t in range(ms)
+                     if ((starts <= t) & ((t - starts) % time_to_change
+                                          == 0)).any()})
+    return {"join_ms": join, "change_ms": change}
+
+
+def write_enr_golden(path, params, ms, seeds=A_SEEDS, first_seed=0):
+    """An ENR batch's golden: ``ENRGossiping(**params)``, `seeds` seeds
+    from `first_seed` through ``jax.jit(jax.vmap(scan_chunk(proto,
+    ENR_CHUNK)))`` to `ms`; per seed the leaf sha256s and counts, and
+    the ms at which the step hint must report a joiner or a capability
+    change."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.enr import ENRGossiping
+
+    t0 = time.monotonic()
+    proto = ENRGossiping(**params)
+    state = jax.vmap(proto.init)(jnp.arange(first_seed, first_seed + seeds,
+                                            dtype=jnp.int32))
+    hint = enr_hint_ms(np.asarray(state[1].join_at),
+                       np.asarray(state[1].change_start),
+                       proto.time_to_change, ms)
+    run = jax.jit(jax.vmap(scan_chunk(proto, ENR_CHUNK)))
+    for _ in range(ms // ENR_CHUNK):
+        state = run(*state)
+    final = jax_state(*state)
+    counts = _seed_counts(final, seeds)
+    for r, c in enumerate(counts):
+        live = ~final[0]["nodes"]["down"][r]
+        c["live"] = int(live.sum())
+        c["done"] = int((final[0]["nodes"]["done_at"][r][live] > 0).sum())
+        c["records"] = int(final[1]["seq"][r].sum())
+    _write_golden(path, {
+        "config": f"ENRGossiping(**params) ({proto.n_initial} nodes, "
+                  f"{proto.join_slots} joiner slots), seeds "
+                  f"{first_seed}-{first_seed + seeds - 1}",
+        "params": params, "first_seed": first_seed,
+        "call": f"jax.jit(jax.vmap(scan_chunk(proto, {ENR_CHUNK}))) from "
+                f"jax.vmap(proto.init) to {ms} ms",
+        "ms": ms, "hint": hint, "counts": counts,
+        "seeds": convert.seed_digests(*final)}, t0)
+
+
+def write_committee_goldens(seeds=A_SEEDS):
+    """Phase A's goldens, seeds 0-3 in one batch of each: `ENRGossiping()`
+    (50 nodes, 8 joiner slots) to ENR_MS and, seeds 22-25,
+    ENR_CHURN_PARAMS to ENR_CHURN_MS (`write_enr_golden`); `Slush()` and `Snowflake()` (100
+    nodes) through ``jax.jit(fast_forward_chunk(proto, AVALANCHE_CHUNK,
+    seed_axis=True))`` until every node of every seed has decided, with
+    each call's skip counts; `Paxos()` (3 + 3) through ``jax.jit(
+    jax.vmap(scan_chunk(proto, PAXOS_CHUNK)))`` until no seed's
+    `cont_if` holds.  Per seed the leaf sha256s and counts."""
+    import time
+
+    import jax
+
+    from wittgenstein_tpu.core.network import fast_forward_chunk, scan_chunk
+    from wittgenstein_tpu.models.avalanche import Slush, Snowflake
+    from wittgenstein_tpu.models.paxos import Paxos
+
+    write_enr_golden(ENR_GOLDEN_FILE, {}, ENR_MS, seeds)
+    write_enr_golden(ENR_CHURN_FILE, ENR_CHURN_PARAMS, ENR_CHURN_MS, seeds,
+                     ENR_CHURN_FIRST_SEED)
+
+    for cls in (Slush, Snowflake):
+        t0 = time.monotonic()
+        proto = cls()
+        ff = jax.jit(fast_forward_chunk(proto, AVALANCHE_CHUNK,
+                                        seed_axis=True))
+        state, t, chunks = _until(
+            ff, _batched(proto, seeds), lambda net, p: ~p.decided.all(),
+            AVALANCHE_CHUNK, AVALANCHE_MAX_MS, cls.__name__)
+        final = jax_state(*state)
+        counts = _seed_counts(final, seeds)
+        for r, c in enumerate(counts):
+            c["colors"] = np.bincount(final[1]["color"][r],
+                                      minlength=3).tolist()
+        _write_golden(AVALANCHE_GOLDEN_FILES[cls.__name__], {
+            "config": f"{cls.__name__}() (100 nodes, K 7), seeds "
+                      f"0-{seeds - 1}",
+            "call": f"jax.jit(fast_forward_chunk(proto, {AVALANCHE_CHUNK}, "
+                    "seed_axis=True)) from jax.vmap(proto.init) until every "
+                    "node of every seed has decided",
+            "ms": t, "chunks": chunks,
+            **{k: sum(c[k] for c in chunks) for k in chunks[0]},
+            "counts": counts, "seeds": convert.seed_digests(*final)}, t0)
+
+    t0 = time.monotonic()
+    proto = Paxos()
+    run = jax.jit(jax.vmap(scan_chunk(proto, PAXOS_CHUNK)))
+    state, t, _ = _until(run, _batched(proto, seeds), proto.cont_if(),
+                         PAXOS_CHUNK, PAXOS_MAX_MS, "Paxos")
+    final = jax_state(*state)
+    counts = _seed_counts(final, seeds)
+    for r, c in enumerate(counts):
+        c["value"] = int(final[1]["value_accepted"][r][proto.a:].max())
+    _write_golden(PAXOS_GOLDEN_FILE, {
+        "config": f"Paxos() (3 acceptors, 3 proposers, timeout 1000), "
+                  f"seeds 0-{seeds - 1}",
+        "call": f"jax.jit(jax.vmap(scan_chunk(proto, {PAXOS_CHUNK}))) from "
+                "jax.vmap(proto.init) until no seed's cont_if holds",
+        "ms": t, "counts": counts,
         "seeds": convert.seed_digests(*final)}, t0)
 
 
@@ -1294,6 +1644,16 @@ def main():
     if sys.argv[1:2] == ["check"]:
         sys.exit(check(int(sys.argv[2]), int(sys.argv[3]),
                        *sys.argv[4:5], *map(int, sys.argv[5:7])))
+    if sys.argv[1:2] == ["city-goldens"]:
+        write_city_p2phandel_golden()
+        write_city_optimistic_golden()
+        return
+    if sys.argv[1:2] == ["committee-goldens"]:
+        write_committee_goldens()
+        return
+    if sys.argv[1:2] == ["latency-tables"]:
+        write_latency_tables()
+        return
     if sys.argv[1:2] == ["gsf-golden"]:
         write_gsf_golden()
         return

@@ -7,7 +7,8 @@ names: ``{"time": ..., "nodes": {"x": ...}, "box_data": [plane, ...],
 a `SanFerminState`, a `CapposState`, a `DfinityState`, `CasperState` or
 `PoWState` with its nested `Arena` as a nested dict (the port's ancestor
 leaf rebuilt from ``parent``), a `P2PFloodState`, a `HandelEth2State`, a
-`P2PHandelState` or an `OptSigState`, told apart by their
+`P2PHandelState`, an `OptSigState`, an `AvalancheState`, a
+`PaxosState` or an `ENRState`, told apart by their
 leaf names; a protocol whose state is a plain dict of tensors, as the
 engine tests' probes have, converts leaf for leaf). The JAX side builds
 them from its dataclasses (the tests do so with `jax.tree_util`);
@@ -31,8 +32,10 @@ import torch
 
 from .core.blockchain import JAX_LEAVES, Arena, ancestors_of
 from .core.state import NetState, NodeState
+from .models.avalanche import AvalancheState
 from .models.casper import CasperState
 from .models.dfinity import DfinityState
+from .models.enr import ENRState
 from .models.ethpow import PoWState
 from .models.gsf import GSFState
 from .models.handel import HandelState
@@ -41,6 +44,7 @@ from .models.handeleth2 import HandelEth2State
 from .models.optimistic import OptSigState
 from .models.p2phandel import P2PHandelState
 from .models.p2pflood import P2PFloodState
+from .models.paxos import PaxosState
 from .models.pingpong import PingPongState
 from .models.sanfermin import CapposState, SanFerminState
 
@@ -67,6 +71,9 @@ STATES = {
     P2PHandelState: (("verified", "peer_state", "acc", "q_sig",
                       "pend_sig"), False),
     OptSigState: (("received", "pending"), False),
+    AvalancheState: ((), False),
+    PaxosState: ((), False),
+    ENRState: ((), False),
 }
 #: protocol state leaves that are structs of their own, and the leaves
 #: of each that the JAX package has (the port's Arena adds ``anc``,

@@ -1,27 +1,47 @@
 """Node builders — the port of `wittgenstein_tpu/core/builders.py`.
 
-Ported: the random, AWS and city placements with constant speed and
-the Tor extra-latency aspect.  Cities are drawn by population: the
-cumulative share is built in float64 and cast to float32, as the JAX
-package builds it, and searched with the float32 draw.  The uniform,
-gaussian and pareto speed models raise `NotImplementedError` (queued
-in ROADMAP.md; gaussian's erfinv and pareto's GPD inverse are float
-hazards).
+The random, AWS and city placements, the Tor extra-latency aspect and
+the four speed models.  Cities are drawn by population: the cumulative
+share is built in float64 and cast to float32, as the JAX package
+builds it, and searched with the float32 draw.
+
+A speed ratio is float32 math on a draw from the 2^-24 grid, and its
+consumers truncate ``pairing_time * speed_ratio`` to an integer ms, so
+each ratio equals the JAX package's bit for bit.  The JAX package
+builds nodes in a protocol's `init`, which it never compiles: its
+speeds are the op-by-op (eager) values, each operation rounded on its
+own, and they differ from a `jax.jit` of the same function on 27%
+(uniform), 15% (gaussian) and 0.04% (pareto) of the grid.  The port
+computes the eager values:
+
+- uniform: ``0.33 + u2 * 0.67`` and ``1 + u2 * 2``, two roundings;
+- gaussian: ``sqrt(2) * erfinv(2u - 1) + 1``, with the JAX package's
+  own float32 erfinv (`ops/fmath.erfinv_f32`), not `torch.erfinv`;
+- pareto: ``min(3, 1 + (1 - u)^-1 - 1)``.  The JAX package's ``pow``
+  is the C library's ``powf``, which differs from the correctly
+  rounded reciprocal on 6,428 grid values; those values are shipped
+  (``data/pareto_speed_fixes.npy``, regenerated by the tests).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..ops import prng
+from ..ops import fmath, prng
 from . import geo
 from .state import MAX_X, MAX_Y, NodeState, default_nodes
 
 I32 = torch.int32
+F32 = torch.float32
+
+_PARETO_FILE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "pareto_speed_fixes.npy")
+SPEEDS = ("constant", "uniform", "gaussian", "pareto")
 
 # GeoAWS city positions on the 2000x1112 map, in the JAX package's
 # AWS_REGIONS order (wittgenstein_tpu/core/builders.py:22-27).
@@ -52,10 +72,8 @@ class NodeBuilder:
     def __post_init__(self):
         if self.location not in ("random", "aws", "cities"):
             raise ValueError(f"unknown location {self.location!r}")
-        if self.speed != "constant":
-            raise NotImplementedError(
-                f"node builder speed={self.speed!r} is not ported yet "
-                "(ROADMAP.md, 'the other latency models and builders')")
+        if self.speed not in SPEEDS:
+            raise ValueError(f"unknown speed model {self.speed!r}")
 
     def build(self, seed, n: int, device) -> NodeState:
         """wittgenstein_tpu/core/builders.py:54-90."""
@@ -79,7 +97,7 @@ class NodeBuilder:
                 city = city.clamp_max(len(cx) - 1)
             x = torch.tensor(cx, device=device)[city.long()]
             y = torch.tensor(cy, device=device)[city.long()]
-        speed = torch.ones(n, dtype=torch.float32, device=device)
+        speed = self._speed_ratios(seed, ids)
         if self.tor > 1e-3:
             u = prng.uniform_float(prng.hash2(seed, 5), ids)
             extra = torch.where(
@@ -89,6 +107,63 @@ class NodeBuilder:
             extra = torch.zeros(n, dtype=I32, device=device)
         return nodes.replace(x=x.to(I32), y=y.to(I32), city=city,
                              speed_ratio=speed, extra_latency=extra)
+
+
+    def _speed_ratios(self, seed, ids):
+        """wittgenstein_tpu/core/builders.py:92-115."""
+        u = prng.uniform_float(prng.hash2(seed, 4), ids)
+        u2 = (prng.uniform_float(prng.hash2(seed, 6), ids)
+              if self.speed == "uniform" else None)
+        return speed_ratio(self.speed, u, u2)
+
+
+_F033, _F067 = fmath.f32c(0.33), fmath.f32c(0.67)
+_SQRT2 = fmath.f32c(np.sqrt(np.float32(2.0)))
+_CLIP = fmath.f32c(0.999999)
+
+
+_PARETO: dict = {}
+
+
+def _pareto_fixes(device):
+    """(grid index, float32 ratio) of the grid values where the JAX
+    package's pareto speed (its ``powf``) differs from the correctly
+    rounded reciprocal."""
+    key = str(torch.device(device))
+    if key not in _PARETO:
+        fix = np.load(_PARETO_FILE).astype(np.int32)
+        _PARETO[key] = (torch.tensor(fix[:, 0], device=device),
+                        torch.tensor(fix[:, 1].view(np.float32),
+                                     device=device))
+    return _PARETO[key]
+
+
+def speed_ratio(speed: str, u, u2=None):
+    """float32 speed ratios from the builder's draws `u` (and `u2` for
+    the uniform model), as the JAX package's `init` computes them (see
+    the module docstring)."""
+    if speed == "constant":
+        return torch.ones_like(u)
+    if speed == "uniform":
+        # half the nodes fast in [0.33, 1), half slow in [1, 3)
+        fast = u2 * _F067 + _F033
+        slow = u2 * 2.0 + 1.0
+        return torch.where(u < 0.5, fast, slow)
+    if speed == "gaussian":
+        # max(0.33, N(0,1) + 1) by the inverse CDF
+        x = (2.0 * u - 1.0).clamp(-_CLIP, _CLIP)
+        return torch.clamp_min(fmath.erfinv_f32(x) * _SQRT2 + 1.0, _F033)
+    if speed == "pareto":
+        # min(3, 1 + GPD(shape 1, location 0, scale 1))
+        y = u.clamp(0.0, _CLIP)
+        main = torch.ones_like(y) / (1.0 - y) - 1.0
+        gpd = torch.where(y < 1e-6, 0.0, main)
+        out = torch.clamp_max(gpd + 1.0, 3.0)
+        idx, val = _pareto_fixes(u.device)
+        k = (u * float(1 << 24)).to(I32)
+        pos = torch.searchsorted(idx, k).clamp_max(len(idx) - 1)
+        return torch.where(idx[pos] == k, val[pos], out)
+    raise ValueError(f"unknown speed model {speed!r}")
 
 
 def registry_name(location: str, speed_constant: bool, tor: float) -> str:

@@ -894,17 +894,25 @@ class Runner:
     entry time.  ``fast_forward=True`` runs each call through
     `fast_forward_chunk` and keeps its skip counts (`ff_stats`); for a
     protocol that is not `fast_forward_ok` it runs dense, as the JAX
-    `Runner` does."""
+    `Runner` does.  Its first call hands the nodes to the latency
+    model's `validate` hook, where the model has one (a city model
+    refuses nodes placed without a city)."""
 
     def __init__(self, protocol, superstep=1, fast_forward=False):
         self.protocol = protocol
         self._superstep = int(superstep)
         self._fast_forward = bool(fast_forward) and fast_forward_ok(protocol)
         self._ff = []
+        self._validated = False
 
     def run_ms(self, net: NetState, pstate, ms: int):
         """Advance `ms` milliseconds (wittgenstein_tpu/core/network.py:
         1399-1443)."""
+        if not self._validated:
+            validate = getattr(self.protocol.latency, "validate", None)
+            if validate is not None:
+                validate(net.nodes)
+            self._validated = True
         ms = int(ms)
         t = int(net.time)
         k = (pick_superstep(self.protocol, ms, t0=t, max_k=self._superstep)

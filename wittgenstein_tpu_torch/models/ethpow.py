@@ -47,6 +47,7 @@ from ..core.protocol import FAR_FUTURE, register
 from ..core.state import (EngineConfig, _Struct, empty_outbox, init_net,
                           register_struct, resolve_device)
 from ..ops import bitset, prng
+from ..ops.fmath import exp_f32
 
 I32 = torch.int32
 TAG_MINE = 0x504F5731
@@ -119,78 +120,6 @@ def _td_eq(p, a, b):
     """wittgenstein_tpu/models/ethpow.py:133-135."""
     aw_, bw_ = a.clamp_min(0).long(), b.clamp_min(0).long()
     return (p.td_hi[aw_] == p.td_hi[bw_]) & (p.td_lo[aw_] == p.td_lo[bw_])
-
-
-def _f32(v):
-    """A constant as the float32 it rounds to, held in a Python float."""
-    return float(np.float32(v))
-
-
-_F64 = torch.float64
-#: XLA's float32 exp: Cephes' reduction and polynomial, every step a
-#: fused multiply-add (xla/service/cpu/polynomial_approximations.cc)
-_EXP_LO, _EXP_HI = _f32(-87.8), _f32(88.8)
-_F32_MIN = float(np.finfo(np.float32).tiny)
-_INF = float("inf")
-_POW2 = {}
-
-
-def _pow2(device):
-    """2^n as float32 for n = -127..127 (index n + 127), 2^-127 as 0:
-    XLA builds it in the exponent bits, (n + 127) << 23."""
-    if device not in _POW2:
-        n = np.arange(-127, 128)
-        table = np.where(n > -127, np.ldexp(1.0, n), 0.0)
-        _POW2[device] = torch.tensor(table, dtype=torch.float32,
-                                     device=device)
-    return _POW2[device]
-_LOG2E, _LN2_HI, _LN2_LO = _f32(1.44269504088896341), _f32(0.693359375), \
-    _f32(-2.12194440e-4)
-_EXP_P = [_f32(c) for c in (1.9875691500e-4, 1.3981999507e-3,
-                            8.3334519073e-3, 4.1665795894e-2,
-                            1.6666665459e-1, 5.0000001201e-1)]
-
-
-def _fma(a, b, c):
-    """``a * b + c`` in float32 with ONE rounding, as a fused
-    multiply-add (`a` a float32 tensor, `b` and `c` float32 tensors or
-    float32 values): the product is exact in float64, the float64 sum's
-    rounding error is recovered exactly (TwoSum), and the sum is rounded
-    to odd before the float32 rounding, which makes the two roundings
-    one."""
-    def wide(v):
-        return v.to(_F64) if isinstance(v, torch.Tensor) else v
-    ab = a.to(_F64) * wide(b)
-    c = wide(c)
-    s = ab + c
-    bb = s - ab
-    err = (ab - (s - bb)) + (c - bb)
-    # the parity of s's last significand bit: |s| over its ulp is the
-    # significand, an integer (exact: a power-of-two divisor)
-    mag = s.abs()
-    ulp = torch.nextafter(mag, torch.full_like(mag, _INF)) - mag
-    even = torch.fmod(mag / ulp, 2) == 0
-    s = torch.where((err != 0) & even, torch.nextafter(s, err * _INF), s)
-    return s.to(torch.float32)
-
-
-def exp_f32(x):
-    """float32 ``exp`` bit for bit as XLA computes it on the CPU (the
-    reference's platform): x = n ln2 + r with n = floor(x log2e + 1/2)
-    clamped to [-127, 127], exp(r) by Cephes' degree-6 polynomial, times
-    2^n (`_pow2`); each multiply-add fused (`_fma`);
-    results below the smallest normal float32 flushed to 0, as XLA's
-    CPU code runs with denormals flushed."""
-    x = x.clamp(_EXP_LO, _EXP_HI)
-    n = torch.floor(_fma(x, _LOG2E, 0.5)).clamp(-127, 127)
-    r = _fma(n, -_LN2_HI, x)
-    r = _fma(n, -_LN2_LO, r)
-    z = _fma(r, _EXP_P[0], _EXP_P[1])
-    for p in _EXP_P[2:]:
-        z = _fma(z, r, p)
-    z = 1.0 + _fma(z, r * r, r)
-    out = z * _pow2(n.device)[(n + 127).long()]
-    return torch.where(out < _F32_MIN, 0.0, out)
 
 
 def solve_threshold(hash_power, diff_s):

@@ -41,12 +41,14 @@ ALL, DIF, CMP_ALL, CMP_DIFF = "all", "dif", "cmp_all", "cmp_diff"
 
 
 def scenario_params(signers=100, relays=20, **overrides):
-    """The P2PHandelParameters defaults that the JAX package's
-    `scenarios/p2phandel_scenarios.default_params(signers, relays)`
-    gives (threshold 99% of the signers, 40 connections, pairing 100
-    ms, a send every 1,000 ms, the cities builder), with
-    `NetworkLatencyByDistanceWJitter` in place of its
-    `NetworkLatencyByCityWJitter`, which the port does not have yet."""
+    """The configuration of `scenarios/p2phandel_scenarios.
+    default_params(signers, relays)` (threshold 99% of the signers, 40
+    connections, pairing 100 ms, a send every 1,000 ms, the cities
+    builder), with `NetworkLatencyByDistanceWJitter` in place of its
+    `NetworkLatencyByCityWJitter`: the distance-latency configuration
+    that `chip_smoke.py` phase P and `bench_torch.py --proto p2phandel`
+    run and hold against their goldens.  The reference's own
+    configuration is `scenarios.p2phandel_scenarios.default_params`."""
     params = dict(signing_node_count=signers, relaying_node_count=relays,
                   threshold=int(signers * 0.99), connection_count=40,
                   pairing_time=100, sigs_send_period=1000,

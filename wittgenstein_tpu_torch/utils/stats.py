@@ -54,7 +54,11 @@ done_count.stat_name = "doneCount"
 def mean(v):
     """The float32 mean as the JAX package's `jnp.mean` rounds it: the
     sum times the float32 reciprocal of the count (a division rounds
-    differently in one case of three)."""
+    differently in one case of three).  The sum is taken on the CPU,
+    whose order of additions the tests hold against the JAX package's:
+    a CUDA reduction adds in another order, which rounds differently
+    (one of phase L's seven means did, on an H100)."""
+    v = v.detach().cpu()
     return float(v.sum() * torch.tensor(1.0 / v.numel(), dtype=v.dtype))
 
 
