@@ -96,6 +96,17 @@ zero drops and clamps.
         --pool 0 --state-split 2 --box-split 2  # exact mode, tier 2
     python3 bench_torch.py --seeds 256          # 16 batches of 16 seeds
 
+After the timed reps, as `bench.py` does, un-timed passes of the obs
+planes add their blocks to the line (bench.py:98-265), each
+bit-identical on the trajectory and never failing the line (a failed
+pass reports itself in its block): ``engine_metrics`` (the metrics
+plane over the line's span on up to 4 seeds in intervals of a tenth
+of it, the seed-folded engine where it takes the protocol;
+``--no-metrics`` drops it), ``audit`` (the invariant
+monitors on seed 0; ``--no-audit`` drops it) and, with ``--trace``,
+``trace`` (the flight recorder on seed 0, a ``--trace-cap``-row ring,
+65,536 by default, which must hold one event a simulated ms).
+
 Prints one JSON line in `bench.py`'s shape: ``metric``
 (``{proto}_{N}n_{R}seeds_agg_sim_ms_per_sec``, ``_cardinal`` and
 ``_ff`` appended as `bench.py` appends them), ``value`` (aggregate
@@ -521,6 +532,126 @@ def microbatched(step, init, steps, seeds, seed_batch, chunk, check):
             "crosscheck": "per_batch_materialization", **facts[-1]}
 
 
+#: seeds of the metrics pass at most (`bench.py`'s WTPU_METRICS_SEEDS
+#: default)
+METRICS_SEEDS = 4
+
+
+def engine_metrics(proto, seeds, total_ms, fast_forward=False):
+    """The un-timed metrics pass of the line's ``engine_metrics`` block
+    (`bench.py`'s `_collect_engine_metrics`, bench.py:98-147): after the
+    timed reps, bit-identical on the trajectory, so the block describes
+    the runs the bench timed.  The seed-folded engine where the batched
+    builders take the protocol (or its fast-forward twin), else the
+    dense one, on the first ``min(seeds, METRICS_SEEDS)`` seeds, in
+    intervals of a tenth of the span (even).  Never raises: a failed
+    pass reports itself in the block."""
+    import torch
+
+    from wittgenstein_tpu_torch import obs
+    from wittgenstein_tpu_torch.core.network import fast_forward_ok
+    from wittgenstein_tpu_torch.core.state import init_batched
+    try:
+        each = max(2, (total_ms // 10) & ~1)
+        spec = obs.MetricsSpec(stat_each_ms=each)
+        mseeds = min(seeds, METRICS_SEEDS)
+        ms = total_ms + (total_ms % 2)
+        nets, ps = init_batched(proto, torch.arange(mseeds))
+        try:
+            run = (obs.fast_forward_chunk_batched_metrics if fast_forward
+                   else obs.scan_chunk_batched_metrics)(proto, ms, spec)
+        except ValueError:
+            if fast_forward and fast_forward_ok(proto):
+                run = obs.fast_forward_chunk_metrics(proto, ms, spec,
+                                                     seed_axis=True)
+            else:
+                run = obs.scan_chunk_metrics(proto, ms, spec)
+        mc = run(nets, ps)[-1]
+        return obs.engine_metrics_block(obs.MetricsFrame.from_carry(spec, mc),
+                                        extra={"metrics_seeds": mseeds})
+    except Exception as e:      # noqa: BLE001 — the bench line must emit
+        print(f"bench: engine-metrics pass failed: {type(e).__name__}: "
+              f"{e!s:.300}", file=sys.stderr)
+        return {"error": f"{type(e).__name__}: {e!s:.200}"}
+
+
+def engine_trace(proto, total_ms, cap, fast_forward=False):
+    """The un-timed flight-recorder pass of the line's ``trace`` block
+    (`bench.py`'s `_collect_engine_trace`, bench.py:158-190): seed 0,
+    the dense traced engine (or its fast-forward twin).  Never raises:
+    a failed pass reports itself in the block."""
+    from wittgenstein_tpu_torch import obs
+    from wittgenstein_tpu_torch.core.network import fast_forward_ok
+    try:
+        spec = obs.TraceSpec(capacity=cap)
+        net, ps = proto.init(0)
+        if fast_forward and fast_forward_ok(proto):
+            tc = obs.fast_forward_chunk_trace(proto, total_ms, spec)(
+                net, ps)[-1]
+        else:
+            tc = obs.scan_chunk_trace(proto, total_ms, spec)(net, ps)[-1]
+        return obs.trace_block(obs.TraceFrame.from_carry(spec, tc),
+                               extra={"trace_seeds": 1})
+    except Exception as e:      # noqa: BLE001 — the bench line must emit
+        print(f"bench: flight-recorder pass failed: {type(e).__name__}: "
+              f"{e!s:.300}", file=sys.stderr)
+        return {"error": f"{type(e).__name__}: {e!s:.200}"}
+
+
+def engine_audit(proto, total_ms, fast_forward=False):
+    """The un-timed audit pass of the line's ``audit`` block (`bench.py`'s
+    `_collect_engine_audit`, bench.py:226-258): seed 0, the dense
+    audited engine (or its fast-forward twin); a violated verdict is
+    loud in the block and on stderr.  Never raises: a failed pass
+    reports itself in the block."""
+    from wittgenstein_tpu_torch import obs
+    from wittgenstein_tpu_torch.core.network import fast_forward_ok
+    try:
+        variant = ({"fast_forward": True}
+                   if fast_forward and fast_forward_ok(proto) else {})
+        report, _ = obs.audit_variant(proto, total_ms, variant,
+                                      obs.AuditSpec())
+        if not report.clean:
+            print(f"bench: AUDIT VIOLATIONS in the instrumented pass:\n"
+                  f"{report.format()}", file=sys.stderr)
+        return obs.audit_block(report, extra={"audit_seeds": 1})
+    except Exception as e:      # noqa: BLE001 — the bench line must emit
+        print(f"bench: invariant-audit pass failed: {type(e).__name__}: "
+              f"{e!s:.300}", file=sys.stderr)
+        return {"error": f"{type(e).__name__}: {e!s:.200}"}
+
+
+def obs_blocks(args, proto, total_ms):
+    """The ``engine_metrics``, ``trace`` and ``audit`` blocks the flags
+    ask for, in `bench.py`'s order (bench.py:150-265): metrics and audit
+    unless switched off (``--no-metrics``, ``--no-audit``), the trace
+    with ``--trace``, whose ring must hold one event a simulated ms
+    (checked before the timed reps, `check_trace_cap`)."""
+    out = {}
+    if args.metrics:
+        out["engine_metrics"] = engine_metrics(proto, args.seeds, total_ms,
+                                               args.fast_forward)
+    if args.trace:
+        out["trace"] = engine_trace(proto, total_ms, args.trace_cap,
+                                    args.fast_forward)
+    if args.audit:
+        out["audit"] = engine_audit(proto, total_ms, args.fast_forward)
+    return out
+
+
+def check_trace_cap(args, total_ms):
+    """`bench.py`'s `_check_trace_cap` (bench.py:193-213): a ring smaller
+    than one event row a simulated ms truncates from the first busy
+    stretch, so ``--trace`` refuses it before the timed reps."""
+    if args.trace and args.trace_cap < total_ms:
+        raise ValueError(
+            f"--trace with --trace-cap {args.trace_cap} over {total_ms} "
+            "simulated ms cannot hold even one event row per ms: the "
+            "ring would truncate silently from the first busy interval. "
+            f"Fix: raise --trace-cap to >= {total_ms} (the default "
+            "65536 fits most bench spans), lower --ms, or drop --trace")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--proto", choices=sorted(DEFAULTS), default="handel")
@@ -541,6 +672,10 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=None, dest="seeds")
     ap.add_argument("--miner", default="ETHSelfishMiner")
     ap.add_argument("--pow", type=float, default=0.40)
+    ap.add_argument("--no-metrics", dest="metrics", action="store_false")
+    ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--trace-cap", type=int, default=1 << 16)
+    ap.add_argument("--no-audit", dest="audit", action="store_false")
     args = ap.parse_args(argv)
     args.first_seed = 0
     if args.attesters and args.proto not in ("dfinity", "casper"):
@@ -591,6 +726,7 @@ def main(argv=None) -> int:
     seeds = torch.arange(batch)
     chunk = args.chunk
     steps = max(1, -(-args.ms // chunk))
+    check_trace_cap(args, steps * chunk)
     clock = {"t": 0}
 
     def init(first=0):
@@ -628,7 +764,8 @@ def main(argv=None) -> int:
            "sim_ms": steps * chunk, "chunk": chunk,
            "device": (torch.cuda.get_device_name(proto.device)
                       if platform == "cuda" else platform),
-           "card": card(platform), **res}
+           "card": card(platform), **res,
+           **obs_blocks(args, proto, steps * chunk)}
     for row in getattr(args, "csv", ()):
         print(row, flush=True)
     print(json.dumps(out), flush=True)

@@ -57,12 +57,13 @@ Phases (any failure exits non-zero; nothing is caught):
    the 2 lowest senders' deliver (got [0, 1, 1, 0]); two seeds of the
    first through the harness at K = 1 deliver at 511 each;
 7. GSF on a seed batch: `GSFSignature(node_count=4096)`, seeds 0-3 in
-   one batch to 150 ms in one chunk, (a) on the harness's engine at
+   one batch to 100 ms in one chunk (cut from 600, then 150, for
+   time), (a) on the harness's engine at
    K=1 (`network.scan_chunk` on the batch, `tools/bench_suite.py`'s GSF
    line) and (b) on the seed-folded engine (`scan_chunk_batched`, K=2),
    counters reset just before each: every seed's state equals the JAX
-   golden digests, zero drops and clamps, route once a window (150,
-   75), gsf_merge and gsf_score once a ms (150) for all 4 seeds;
+   golden digests, zero drops and clamps, route once a window (100,
+   50), gsf_merge and gsf_score once a ms (100) for all 4 seeds;
 8. the fast-forward engine, each run beside the dense run of its path
    in this process: (a) the headline on `fast_forward_chunk_batched`
    (K=2, no phase hints) to 200 ms, every seed equal to its golden, the
@@ -91,9 +92,10 @@ Phases (any failure exits non-zero; nothing is caught):
    a ms;
 S. SanFermin at 32,768 nodes, `tools/bench_suite.py`'s line
    (``SanFermin(node_count=32768, inbox_cap=16)``, two ring
-   sub-planes), one seed at K=2 in one 500-ms chunk (the bench line
-   runs on to 6,000; cut from 1,000 ms for time, PR 10): equal to the
-   JAX golden at 500 ms, zero drops and clamps, route once a window per
+   sub-planes), one seed at K=2 in one 350-ms chunk (the bench line
+   runs on to 6,000; cut from 1,000 ms, then 500, for time, still past
+   the first reply timeouts at 301): equal to the
+   JAX golden at 350 ms, zero drops and clamps, route once a window per
    sub-plane;
 C. `SanFerminCappos()` (2,048 nodes), one seed, 100 ms at K=2 (cut
    from 200 for time, PR 10, its golden regenerated): equal to its JAX
@@ -115,9 +117,10 @@ Q. `bench.py` `bench_quiet`'s lines, 4 seeds in one batch, 400 ms in
 
 K. Casper IMD's reference configuration, `CasperIMD()` (83 nodes,
    20-ms ticks, the WF byzantine producer), seeds 0-7 in one batch
-   through `run_multiple_times` in 1,000-tick chunks at the proved K
-   (2) to 2,000 ticks (40 simulated s; cut from 4,000 for time): every
-   seed equal to its JAX golden at 1,000 and 2,000 ticks,
+   through `run_multiple_times` in 600-tick chunks at the proved K
+   (2) to 1,200 ticks (24 simulated s, three slots; cut from 4,000,
+   then 2,000, for time): every seed equal to its JAX
+   golden at 600 and 1,200 ticks,
    zero unicast, broadcast and arena drops, heads within 2;
 E. ETHPoW, `try_miner`'s batch at one hash-power point (10 miners, the
    selfish miner at 0.40, 1-s latency, 8,192 blocks), seeds 1-5 in one
@@ -172,7 +175,28 @@ A. the last three protocols, four seeds in one batch each:
    fast-forwarded at K=1 in 250-ms calls until every node has decided
    (the stop time and every call's skip counts the JAX engine's), and
    ``Paxos()`` (3 + 3) dense at K=1 until `cont_if` stops every seed;
-   each equal to its JAX golden, zero drops.
+   each equal to its JAX golden, zero drops;
+G32. GSF at the reference's scale: ``GSFSignature(node_count=32768)``
+   with its defaults (L 16, W 1,024, H 512, 53 rounds; a 7.1-GB
+   snapshot pool written in place), seed 0, dense through
+   `Runner.run_ms` in two 50-ms calls: every leaf equal to the JAX
+   golden at 50 and 100 ms, zero drops and clamps, route, gsf_merge and
+   gsf_score once a ms; its build and run peak memory, wall and ops a
+   ms logged, and K1 timed on a batch captured from its next ms;
+O. the obs planes on the card, the twins of the JAX package's route
+   tests with the kernel on: ``PingPong(node_count=64)``, seed 0, under
+   the metrics plane (stat_each_ms 4, 24 ms), the flight recorder (40
+   ms) and the audit plane (``Runner(audit=)``, 40 ms): each carry and
+   state equal to the JAX planes' (``tests/torch_parity.py
+   obs-golden``), the audit clean, route once a ms.
+
+The determinism reruns run under a plane each and are held to the same
+goldens: the headline's (5b) under the metrics plane (its totals
+cross-checked against the state with `cross_check_metrics`), the
+PingPong rerun (6b) under the flight recorder (its events against the
+state's counters), the GSF rerun (4b) under the audit plane (clean).
+Each plane's chunk makes no more synchronising calls than the engine's
+alone over SYNC_MS ms (`torch.cuda.set_sync_debug_mode("warn")`).
 
 Each of S-A logs its wall, its peak allocated memory and its PyTorch
 ops a simulated ms or tick (torch.profiler, host side, over OPS_MS more
@@ -197,8 +221,11 @@ and at the scale lines': route on a K=2 window of tier 3 (H 256, N
 65,536, C 12, F 2: the rank tables in device scratch) and of one tier-2
 sub-plane (N 16,384 of 32,768), merge and score on one tier-2 q_sig
 piece (16,384 rows, W 1,024), merge's gather (16-byte or word by word)
-recorded.  ``--memory-seeds R`` also builds each scale line with R
-seeds and reports its peak device memory over its first chunk.
+recorded; and gsf_merge and gsf_score at G32's shapes (32,768 rows, Q
+16, S 16, W 1,024, the planes drawn on the card; gsf_score's branch,
+its kernel's template argument, logged).  ``--memory-seeds R`` also
+builds each scale line with R seeds and reports its peak device memory
+over its first chunk.
 
 It prints one JSON line per kernel, the ``{"kernels": [...]}`` summary,
 the ``nvidia-smi`` name/power-limit line, and last
@@ -213,13 +240,16 @@ kernels by name, and writes the tables to ``--profile-file``,
 beside it, ``_k2`` added to its name), ``--profile-t3-file`` (from
 t=600) and ``--profile-t2-file`` (from t=200), and S (from t=300), D
 and Q's two batches (from 0) to ``--profile-protocols-prefix`` with
-the path's name and ``.txt`` appended.
+the path's name and ``.txt`` appended, and G32 (from t=50) to
+``--profile-gsf32k-file``.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -249,10 +279,10 @@ PP_HARNESS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                                  "golden_pingpong1000_r16_k2_200ms.json")
 SPILL_MS = 520
 GSF_SEEDS = 4
-GSF_BATCH_MS = 150
-GSF_CHUNK = 150
+GSF_BATCH_MS = 100
+GSF_CHUNK = 100
 GSF_BATCH_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                                "golden_gsf4096_r4_150ms.json")
+                                "golden_gsf4096_r4_100ms.json")
 FF_MS = 200
 FF_STATS = os.path.join("wittgenstein_tpu_torch", "data",
                         "golden_pingpong1000_ff_stats.json")
@@ -271,8 +301,8 @@ ATTACK_MS = 200
 ATTACK_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                              "golden_handel1024_suicide_200ms.json")
 SF_NODES = 32768
-SF_CHUNK = 500
-SF_MS = 500             # the golden's first checkpoint (bench_torch runs on)
+SF_CHUNK = 350
+SF_MS = 350             # the golden's first checkpoint (bench_torch runs on)
 SF_BOX_SPLIT = 2
 SF_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                          "golden_sanfermin32768_box2.json")
@@ -293,11 +323,11 @@ QD_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
 QP_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                          "golden_p2pflood256_r4_400ms.json")
 K_SEEDS = 8
-K_CHUNK = 1000
-K_TICKS = 2000          # 40 simulated s, 5 slots (BASELINE's 5 h cut)
-K_OPS_TICKS = 10        # ticks 2,002-2,012, WF ticks after a slot boundary
+K_CHUNK = 600
+K_TICKS = 1200          # 24 simulated s, 3 slots (BASELINE's 5 h cut)
+K_OPS_TICKS = 10        # ticks 1,202-1,212, WF ticks after a slot boundary
 K_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                        "golden_casper83_r8_2000ticks.json")
+                        "golden_casper83_r8_1200ticks.json")
 E_RUNS = 5
 E_CHUNK = 1500
 E_TICKS = 1500          # 15 simulated s
@@ -342,6 +372,15 @@ AV_GOLDEN = {name: os.path.join("wittgenstein_tpu_torch", "data",
 PAXOS_CHUNK = 250
 PAXOS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                             "golden_paxos6_r4.json")
+G32_NODES = 32768
+G32_MS = (50, 100)      # the golden's checkpoints, Runner.run_ms calls
+G32_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                          "golden_gsf32768_100ms.json")
+OBS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                          "golden_obs_pingpong64.json")
+HEADLINE_STAT_MS = 20   # the headline's instrumented rerun: one row a period
+PP_TRACE_CAP = 8192     # the PingPong rerun's event ring
+SYNC_MS = 20            # simulated ms over which a plane's syncs are counted
 OPS_MS = 2              # simulated ms over which a path's ops are counted
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 WARMUP, ITERS = 2, 10   # 3 and 20 before PR 10 (cut for time)
@@ -834,15 +873,18 @@ def phase_route_drain(dev, rng):
                        phases=False)
 
 
-def gsf_merge_case(dev, rng):
-    """GSF shapes: M 4096, Q 16, S 16, W 128, L 13; a queue 70% full (30%
-    individuals), 60% of inbox slots valid, planted same-sender and
-    same-(sender, level) duplicates and superseded queue entries, a
-    got_indiv row consuming a third of the senders' individuals; the
-    masks derived as `models/gsf._receive` derives them."""
+def gsf_merge_case(dev, rng, m=GSF_NODES):
+    """GSF shapes: M 4096, Q 16, S 16, W 128, L 13 (or M `m`, W m / 32,
+    L log2(m) + 1); a queue 70% full (30% individuals), 60% of inbox
+    slots valid, planted same-sender and same-(sender, level) duplicates
+    and superseded queue entries, a got_indiv row consuming a third of
+    the senders' individuals (past 4,096 rows a hash of (node, sender):
+    the [M, M] draw would be GBs); the masks derived as
+    `models/gsf._receive` derives them.  The sig planes are drawn on the
+    card past 4,096 rows."""
     import numpy as np
     import torch
-    m, q, s, w, levels = GSF_NODES, 16, 16, GSF_NODES // 32, 13
+    q, s, w, levels = 16, 16, m // 32, m.bit_length()
     q_from = np.where(rng.random((m, q)) < 0.7, rng.integers(0, m, (m, q)),
                       -1)
     q_lvl = rng.integers(0, levels, (m, q))
@@ -861,7 +903,11 @@ def gsf_merge_case(dev, rng):
     src[rows] = q_from[rows[0], qq[rows]]
     level[rows] = q_lvl[rows[0], qq[rows]]
     valid = rng.random((m, s)) < 0.6
-    got = rng.random((m, m)) < 1 / 3
+    if m <= GSF_NODES:
+        got_of_src = np.take_along_axis(rng.random((m, m)) < 1 / 3, src, 1)
+    else:
+        key = np.arange(m)[:, None] * 0x9E3779B1 + src * 0x85EBCA77
+        got_of_src = (key >> 7) % 3 == 0
     same = src[:, :, None] == src[:, None, :]
     later = np.triu(np.ones((s, s), bool), 1)[None]
     earlier = np.tril(np.ones((s, s), bool), -1)[None]
@@ -873,7 +919,7 @@ def gsf_merge_case(dev, rng):
            ~q_indiv[:, :, None] & agg_ok[:, None, :]).any(2)
     ex_keep = (q_from >= 0) & ~sup
     dup_ind = (same & valid[:, None, :] & earlier).any(2)
-    ind_ok = valid & ~dup_ind & ~np.take_along_axis(got, src, 1)
+    ind_ok = valid & ~dup_ind & ~got_of_src
 
     def i32(a):
         return torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
@@ -882,10 +928,21 @@ def gsf_merge_case(dev, rng):
         return torch.tensor(a, device=dev)
 
     def bits(*shape):
+        if m > GSF_NODES:
+            return card_bits(dev, rng, shape)
         return torch.tensor(rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
                             .view(np.int32), device=dev)
     return [i32(q_from), i32(q_lvl), b(q_indiv), b(ex_keep), bits(m, q, w),
             i32(src), i32(level), b(agg_ok), b(ind_ok), bits(m, s, w)], levels
+
+
+def card_bits(dev, rng, shape):
+    """Random int32 words of `shape` drawn on the card (GB-sized planes;
+    the seed from `rng`)."""
+    import torch
+    g = torch.Generator(dev).manual_seed(int(rng.integers(1 << 31)))
+    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                         dtype=torch.int32, device=dev)
 
 
 def gsf_merge_bytes(args, kern, levels):
@@ -919,17 +976,17 @@ def gsf_merge_bytes(args, kern, levels):
     return cols_in + cols_out + 4 * w * (rows_read + m * q)
 
 
-def phase_gsf_merge(dev, rng, seeds=None):
-    """K5 at the GSF path's shapes; with `seeds`, that many cases in one
-    batch through `gsf_merge`'s vmap rule (one launch at seeds x 4096
-    rows, the GSF batch's), against the plain version on the folded
-    rows."""
+def phase_gsf_merge(dev, rng, seeds=None, m=GSF_NODES):
+    """K5 at the GSF path's shapes (or at `m` rows); with `seeds`, that
+    many cases in one batch through `gsf_merge`'s vmap rule (one launch
+    at seeds x 4096 rows, the GSF batch's), against the plain version on
+    the folded rows."""
     import torch
     from wittgenstein_tpu_torch.ops.gsf_merge import gsf_merge, \
         gsf_merge_plain
     from wittgenstein_tpu_torch.ops.merge import fold_seeds
     if seeds is None:
-        args, levels = gsf_merge_case(dev, rng)
+        args, levels = gsf_merge_case(dev, rng, m)
         flat = args
 
         def kern_fn():
@@ -963,23 +1020,29 @@ def phase_gsf_merge(dev, rng, seeds=None):
                 admitted_individuals=int((kern[4] != 0).sum()))
 
 
-def phase_gsf_score(dev, rng, seeds=None):
-    """K4 at the GSF path's shapes; with `seeds`, a batch through
-    `gsf_score`'s vmap rule (the node ids unbatched, as in the step),
-    against the plain version on the folded rows."""
+def phase_gsf_score(dev, rng, seeds=None, m=GSF_NODES):
+    """K4 at the GSF path's shapes (or at `m` rows, W m / 32, the levels
+    of m nodes); with `seeds`, a batch through `gsf_score`'s vmap rule
+    (the node ids unbatched, as in the step), against the plain version
+    on the folded rows.  Past 4,096 rows the planes are drawn on the
+    card, and the kernel's branch (its template argument: the staged
+    bulk-copy path or the ordinary loads) is read from the profiler's
+    kernel name and logged."""
     import numpy as np
     import torch
     from wittgenstein_tpu_torch.ops.merge import fold_seeds
     from wittgenstein_tpu_torch.ops.score import gsf_score, gsf_score_plain
-    m, q, w = GSF_NODES, 16, GSF_NODES // 32
+    q, w = 16, m // 32
     lead = () if seeds is None else (seeds,)
 
     def bits(*shape):
+        if m > GSF_NODES:
+            return card_bits(dev, rng, lead + shape)
         return torch.tensor(rng.integers(0, 2 ** 32, lead + shape,
                                          dtype=np.uint32).view(np.int32),
                             device=dev)
     args = [bits(m, q, w),
-            torch.tensor(rng.integers(0, 13, lead + (m, q)),
+            torch.tensor(rng.integers(0, m.bit_length(), lead + (m, q)),
                          dtype=torch.int32, device=dev),
             torch.arange(m, dtype=torch.int32, device=dev),
             bits(m, w), bits(m, w)]
@@ -1011,11 +1074,29 @@ def phase_gsf_score(dev, rng, seeds=None):
     # The wrapper launches one kernel: timed by its name, as the others,
     # so the flush's own spread is never subtracted.
     plain_n = plain_iters(plain_fn)
+    branch = kernel_names(kern_fn, "gsf_score_kernel")
+    log(f"gsf_score at M {m}, W {w}: kernel {branch}")
     return dict(err=err, ms=device_ms(kern_fn, "gsf_score_kernel", cold()),
                 warm_ms=device_ms(kern_fn, "gsf_score_kernel"),
                 plain_ms=device_ms(plain_fn, iters=plain_n),
                 call_ms=call_ms(kern_fn),
-                plain_call_ms=call_ms(plain_fn, iters=plain_n), nbytes=nbytes)
+                plain_call_ms=call_ms(plain_fn, iters=plain_n), nbytes=nbytes,
+                branch=branch)
+
+
+def kernel_names(fn, match):
+    """The names of the CUDA kernels like `match` that one call of fn()
+    launches, from torch.profiler (the template arguments included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and match in e.key})
 
 
 def window_case(dev, rng, hz, n, c, f, m, lo=0, n_dest=None):
@@ -1128,6 +1209,17 @@ def phase_gsf_merge_r4(dev, rng):
 
 def phase_gsf_score_r4(dev, rng):
     return phase_gsf_score(dev, rng, seeds=GSF_SEEDS)
+
+
+def phase_gsf_merge_32k(dev, rng):
+    """K5 at GSF 32k's shapes: M 32,768, Q 16, S 16, W 1,024, L 16."""
+    return phase_gsf_merge(dev, rng, m=G32_NODES)
+
+
+def phase_gsf_score_32k(dev, rng):
+    """K4 at GSF 32k's shapes: M 32,768, Q 16, W 1,024 (3 rows of 4 KB a
+    stage: past the kernel's 5-KB stage, so the unstaged branch)."""
+    return phase_gsf_score(dev, rng, m=G32_NODES)
 
 
 #: K1 cases taken from the paths' own batches (`capture_route`), by
@@ -1256,12 +1348,22 @@ KERNELS = [
      "wittgenstein_tpu_torch/csrc/route.cu",
      "wittgenstein_tpu/ops/pallas_route.py:154",
      phase_route_captured("route_p2phandel_city")),
+    ("gsf_merge_32k", "gsf_merge", "gsf32k",
+     "wittgenstein_tpu_torch/csrc/gsf_merge.cu",
+     "wittgenstein_tpu/ops/pallas_gsf_merge.py:51", phase_gsf_merge_32k),
+    ("gsf_score_32k", "gsf_score", "gsf32k",
+     "wittgenstein_tpu_torch/csrc/gsf_score.cu",
+     "wittgenstein_tpu/ops/pallas_score.py:94", phase_gsf_score_32k),
+    ("route_gsf32k", "route", "gsf32k",
+     "wittgenstein_tpu_torch/csrc/route.cu",
+     "wittgenstein_tpu/ops/pallas_route.py:154",
+     phase_route_captured("route_gsf32k")),
 ]
 #: the kernel entries whose case is captured from their path's run
 #: (`capture_route`) and timed right after it, not in phase 2
 CAPTURED = ("route_sanfermin", "route_dfinity", "route_p2pflood",
             "route_casper", "route_ethpow", "route_byz",
-            "route_optimistic", "route_p2phandel_city")
+            "route_optimistic", "route_p2phandel_city", "route_gsf32k")
 #: the launches each path's run must make, by wrapper (others: none).
 #: The per-ms paths launch each kernel once a simulated ms; the headline
 #: bins once a K=2 window, merges every ms and scores on the
@@ -1296,7 +1398,12 @@ PATH_LAUNCHES = {
     "attack": {"route": ATTACK_MS, "merge": ATTACK_MS,
                "score": ATTACK_MS},
     "sanfermin": {"route": SF_BOX_SPLIT * (SF_MS // 2)},
-    "dfinity": {"route": D_TICKS // 2}}
+    "dfinity": {"route": D_TICKS // 2},
+    "gsf32k": {"route": G32_MS[-1], "gsf_merge": G32_MS[-1],
+               "gsf_score": G32_MS[-1]},
+    "obs_metrics": {"route": 24},
+    "obs_trace": {"route": 40},
+    "obs_audit": {"route": 40}}
 
 
 # ------------------------------------------------------------- main path
@@ -1389,15 +1496,29 @@ def gsf_path(dev):
                  GSF_MS // 4)
 
 
-def determinism(what, proto, ms, want):
+def determinism(what, proto, ms, want, audit=None):
     """Seed 0 again, to `ms` ms: its state digest equals `want`, the
-    first run's at `ms`."""
+    first run's at `ms`.  With `audit` (an `obs.AuditSpec`) the rerun
+    runs under the audit plane, which must be clean and issue no more
+    synchronising calls than the engine without it."""
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.core.network import Runner
-    net, ps = Runner(proto).run_ms(*proto.init(0), ms)
+    runner = Runner(proto, audit=audit)
+    net, ps = runner.run_ms(*proto.init(0), ms)
     check_digest(f"{what} seed 0 run twice, at {ms} ms",
                  convert.state_digest(*convert.to_numpy(net, ps)), want)
     log(f"{what} determinism: two runs of seed 0 identical at {ms} ms")
+    if audit is not None:
+        from wittgenstein_tpu_torch.core.network import scan_chunk
+        from wittgenstein_tpu_torch.obs import scan_chunk_audit
+        report = runner.audit_report()
+        if not report.clean or "ring_conservation" not in report.claimed:
+            fail(f"{what} rerun's audit is not clean: {report.format()}")
+        log(f"{what} rerun under the audit plane: {report.format()}; "
+            f"totals {report.totals_dict()}")
+        check_syncs(what, scan_chunk(proto, SYNC_MS),
+                    plane_result(scan_chunk_audit(proto, SYNC_MS, audit)),
+                    (net, ps), ms)
 
 
 def golden_and_determinism(dev, mid_digest):
@@ -1432,8 +1553,9 @@ def gsf_golden_and_determinism(dev, final_np, mid_digest):
                  convert.state_digest(*final_np), golden["leaves"])
     log(f"GSF golden: all {len(golden['leaves'])} leaves match the JAX "
         f"reference at {GSF_MS} ms (JAX counts {golden['counts']})")
+    from wittgenstein_tpu_torch.obs import AuditSpec
     determinism("GSF", GSFSignature(node_count=GSF_NODES, device=dev),
-                GSF_MS // 4, mid_digest)
+                GSF_MS // 4, mid_digest, audit=AuditSpec())
 
 
 def headline_init(dev):
@@ -1447,29 +1569,40 @@ def headline_init(dev):
     return proto, init_batched(proto, torch.arange(HEADLINE_SEEDS))
 
 
-def headline_run(dev, golden=None, ms=HEADLINE_MS):
+def headline_run(dev, golden=None, ms=HEADLINE_MS, metrics=None):
     """The benchmark headline through `bench_torch.py`'s path: `ms` in
     200-ms chunks of `scan_chunk_batched` (superstep 2, t0_mod 0), every
     launch counter set to 0 just before.  With `golden` (the JAX
     package's per-seed digests at 200 ms) every seed's state is checked
-    after the first chunk, outside the timed wall.  Returns the run's
-    numbers, the launch counts, each seed's final digest and, with
-    `golden`, each seed's digest at 200 ms."""
+    after the first chunk, outside the timed wall.  With `metrics` (an
+    `obs.MetricsSpec`) the chunks run under the metrics plane
+    (`scan_chunk_batched_metrics`), their carries kept in
+    ``res["carries"]`` with the final state.  Returns the run's numbers,
+    the launch counts, each seed's final digest and, with `golden`, each
+    seed's digest at 200 ms."""
     import torch
     from torch.utils import _pytree as pytree
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    from wittgenstein_tpu_torch.obs import scan_chunk_batched_metrics
     proto, (nets, ps) = headline_init(dev)
     state_bytes = sum(x.numel() * x.element_size()
                       for x in pytree.tree_leaves((nets, ps)))
-    run = scan_chunk_batched(proto, HEADLINE_CHUNK, t0_mod=0, superstep=2)
+    if metrics is None:
+        run = scan_chunk_batched(proto, HEADLINE_CHUNK, t0_mod=0,
+                                 superstep=2)
+    else:
+        run = plane_result(scan_chunk_batched_metrics(
+            proto, HEADLINE_CHUNK, metrics, superstep=2))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    wall, first = 0.0, None
+    wall, first, carries = 0.0, None, []
     for i in range(ms // HEADLINE_CHUNK):
         t0 = time.perf_counter()
         nets, ps = run(nets, ps, t=i * HEADLINE_CHUNK)
+        if metrics is not None:
+            carries.append(run.carry)
         torch.cuda.synchronize()
         wall += time.perf_counter() - t0
         if golden is not None and i == 0:
@@ -1487,6 +1620,8 @@ def headline_run(dev, golden=None, ms=HEADLINE_MS):
                msg_sent=int(nets.nodes.msg_sent.sum()),
                state_bytes=state_bytes,
                peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if metrics is not None:
+        res["carries"], res["state"] = carries, (nets, ps)
     return (res, launches, convert.seed_digests(*convert.to_numpy(nets, ps)),
             first)
 
@@ -1507,30 +1642,45 @@ def headline_determinism(dev, first, digests, dense_final_np):
     state there (`first`); the first run's seed 0 at 1000 ms (`digests`)
     equals the dense path's state of phase 3."""
     from wittgenstein_tpu_torch import convert
-    res, _, again, _ = headline_run(dev, ms=HEADLINE_CHUNK)
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    from wittgenstein_tpu_torch.obs import (MetricsFrame, MetricsSpec,
+                                            scan_chunk_batched_metrics)
+    spec = MetricsSpec(stat_each_ms=HEADLINE_STAT_MS)
+    res, _, again, _ = headline_run(dev, ms=HEADLINE_CHUNK, metrics=spec)
     bad = [r for r, (a, b) in enumerate(zip(first, again)) if a != b]
     if bad:
         fail(f"headline run twice differs in seeds {bad}")
     log(f"headline determinism: two runs identical at {HEADLINE_CHUNK} ms "
-        f"(second run wall {res['wall_s']:.3f} s)")
+        f"(second run, under the metrics plane, wall {res['wall_s']:.3f} "
+        "s)")
+    frame = MetricsFrame.from_carries(spec, res["carries"])
+    check_metrics_totals("headline rerun", frame, *res["state"],
+                         HEADLINE_SEEDS * HEADLINE_CHUNK)
+    proto, _ = headline_init(dev)
+    check_syncs("headline", scan_chunk_batched(proto, SYNC_MS, superstep=2),
+                plane_result(scan_chunk_batched_metrics(proto, SYNC_MS, spec,
+                                                        superstep=2)),
+                res["state"], HEADLINE_CHUNK)
     if digests[0] != convert.state_digest(*dense_final_np):
         fail("headline seed 0 differs from the dense path's state at "
              f"{HEADLINE_MS} ms")
     log(f"headline seed 0 equals the dense path's state at {HEADLINE_MS} ms")
 
 
-def pingpong_run(dev, ms=PP_MS):
+def pingpong_run(dev, ms=PP_MS, trace=None):
     """`PingPong(1000)`, seed 0, through `Runner.run_ms` in 100-ms steps
-    to `ms`, every launch counter set to 0 just before.  Returns the run's
-    numbers (the pong curve among them), the launch counts, the state
-    digest after each step and the final state as numpy dicts."""
+    to `ms`, every launch counter set to 0 just before; with `trace` (an
+    `obs.TraceSpec`) under the flight recorder (``Runner(trace=)``, its
+    frame and final state kept in ``res``).  Returns the run's numbers
+    (the pong curve among them), the launch counts, the state digest
+    after each step and the final state as numpy dicts."""
     import torch
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.core.network import Runner
     from wittgenstein_tpu_torch.models.pingpong import PingPong
     proto = PingPong(node_count=PP_NODES, device=dev)
     net, ps = proto.init(0)
-    runner = Runner(proto)
+    runner = Runner(proto, trace=trace)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -1547,6 +1697,8 @@ def pingpong_run(dev, ms=PP_MS):
                clamped=int(net.clamped), time=int(net.time),
                msg_sent=int(net.nodes.msg_sent.sum()),
                peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if trace is not None:
+        res["frame"], res["state"] = runner.trace_frame(), (net, ps)
     return res, launches, digests, convert.to_numpy(net, ps)
 
 
@@ -1574,11 +1726,21 @@ def pingpong_golden_and_determinism(dev, res, digests):
                  golden["leaves"])
     log(f"PingPong golden: all {len(golden['leaves'])} leaves match the "
         f"JAX reference at {PP_MS} ms, curve {res['pongs']}")
-    again = pingpong_run(dev, PP_MS // 2)[2]
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    from wittgenstein_tpu_torch.obs import TraceSpec, scan_chunk_trace
+    spec = TraceSpec(capacity=PP_TRACE_CAP)
+    rres, _, again, _ = pingpong_run(dev, PP_MS // 2, trace=spec)
     if again[PP_MS // 2] != digests[PP_MS // 2]:
         fail("PingPong seed 0 run twice differs")
     log(f"PingPong determinism: two runs of seed 0 identical at "
-        f"{PP_MS // 2} ms")
+        f"{PP_MS // 2} ms (the second under the flight recorder)")
+    check_trace_accounting("PingPong rerun", rres["frame"], *rres["state"],
+                           PP_NODES)
+    proto = PingPong(node_count=PP_NODES, device=dev)
+    check_syncs("PingPong", scan_chunk(proto, SYNC_MS),
+                plane_result(scan_chunk_trace(proto, SYNC_MS, spec)),
+                rres["state"], PP_MS // 2)
 
 
 def pingpong_harness(dev, dense_digests):
@@ -1737,7 +1899,7 @@ def check_seed_goldens(what, nets, ps, golden):
 
 
 def gsf_batch_run(dev, k):
-    """GSF 4096, seeds 0-3 in one batch, to 150 ms in one chunk: K=1
+    """GSF 4096, seeds 0-3 in one batch, to 100 ms in one chunk: K=1
     on the harness's engine (`network.scan_chunk` on the batch), K=2 on
     the seed-folded engine (`scan_chunk_batched`); counters set to 0
     just before the run, the peak taken from before the batch is built.
@@ -2063,6 +2225,245 @@ def attack_run(dev):
     return res, launches
 
 
+# ---------------------------------------------- the obs planes, GSF 32k
+
+
+class plane_result:
+    """A plane's chunk ``run(net, pstate, t) -> (net, pstate, carry)``
+    as an engine chunk returning ``(net, pstate)``; the last carry is
+    kept in `.carry`."""
+
+    def __init__(self, run):
+        self.run, self.carry = run, None
+
+    def __call__(self, net, pstate, t=None):
+        net, pstate, self.carry = self.run(net, pstate, t)
+        return net, pstate
+
+
+def sync_count(fn):
+    """The synchronising CUDA calls fn() makes: the warnings
+    `torch.cuda.set_sync_debug_mode("warn")` raises during it."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def check_syncs(what, plain, plane, state, t):
+    """A plane adds no host read inside a chunk: the same SYNC_MS-ms
+    chunk from a copy of `state` (at time `t`) with the plane (`plane`)
+    issues no more synchronising calls than without it (`plain`).  Each
+    is run once untimed first, so that neither is charged with the
+    caching allocator's first growth (a cudaMalloc can synchronise)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    counts = []
+    for fn in (plain, plane, plain, plane):
+        copy = pytree.tree_map(torch.clone, state)
+        counts.append(sync_count(lambda: fn(*copy, t=t)))
+        del copy
+    counts = counts[2:]
+    if counts[1] > counts[0]:
+        fail(f"{what}: the plane's chunk made {counts[1]} synchronising "
+             f"calls over {SYNC_MS} ms, the engine's alone {counts[0]}")
+    log(f"{what}: {counts[1]} synchronising calls over {SYNC_MS} ms under "
+        f"the plane, {counts[0]} without")
+
+
+def state_totals(net):
+    """The audit plane's TOTALS (msg_sent, msg_received, drop_count,
+    done_count) of a state or a seed batch, read from it."""
+    import numpy as np
+    nodes = net.nodes
+    drops = sum(int(getattr(net, k).sum()) for k in
+                ("dropped", "bc_dropped", "clamped", "sp_dropped"))
+    return np.array([int(nodes.msg_sent.sum()),
+                     int(nodes.msg_received.sum()), drops,
+                     int(((~nodes.down) & (nodes.done_at > 0)).sum())])
+
+
+def check_metrics_totals(what, frame, net, ps, samples):
+    """`obs.cross_check_metrics` of a metrics frame against the totals
+    the audit plane samples at a run's last window, which are its final
+    state's (`state_totals`); every executed ms of every seed sampled."""
+    import numpy as np
+    from wittgenstein_tpu_torch.obs import (AuditReport, AuditSpec,
+                                            cross_check_metrics)
+    report = AuditReport(spec=AuditSpec(), counts=np.zeros(8, np.int64),
+                         first=None, totals=state_totals(net))
+    bad = cross_check_metrics(report, frame)
+    totals = frame.totals()
+    if bad or totals["samples"] != samples:
+        fail(f"{what}: the metrics plane disagrees with the state: {bad}, "
+             f"samples {totals['samples']} (want {samples})")
+    log(f"{what} under the metrics plane: cross_check_metrics clean, "
+        f"totals {totals}")
+
+
+def check_trace_accounting(what, frame, net, ps, n):
+    """A flight-recorder frame against its run's state: not truncated,
+    one deliver event a received message, one send event an attempted
+    unicast and one a sendAll (which counts n sends)."""
+    if frame.dropped:
+        fail(f"{what}: the trace dropped {frame.dropped} events")
+    sends = frame.filter(kinds=["send"]).column("dst")
+    uni, bc = int((sends >= 0).sum()), int((sends < 0).sum())
+    counts = frame.counts()
+    if counts.get("deliver", 0) != int(net.nodes.msg_received.sum()) or \
+            uni + n * bc != int(net.nodes.msg_sent.sum()):
+        fail(f"{what}: the trace's events {counts} disagree with the "
+             f"state's counters")
+    log(f"{what} under the flight recorder: {frame.n_events} events "
+        f"{counts}, equal to the state's counters, high water "
+        f"{frame.high_water}")
+
+
+def gsf32k_run(dev):
+    """Path G32: `GSFSignature(node_count=32768)` with its defaults
+    (L 16, W 1,024, H 512, 53 rounds), seed 0, dense through
+    `Runner.run_ms` in two 50-ms calls, counters set to 0 just before:
+    equal to the JAX golden at 50 and 100 ms (outside the timed wall),
+    zero drops and clamps, K1, K4 and K5 once a ms.  Peak memory while
+    the state is built and over the run apart, wall, and ops a ms over
+    two more ms; then a K1 case is captured from one more ms."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import Runner, scan_chunk
+    from wittgenstein_tpu_torch.models.gsf import GSFSignature
+    with open(G32_GOLDEN) as f:
+        golden = json.load(f)["ms"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proto = GSFSignature(node_count=G32_NODES, device=dev)
+    net, ps = proto.init(0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in pytree.tree_leaves((net, ps)))
+    torch.cuda.reset_peak_memory_stats()
+    runner = Runner(proto)
+    reset_counters()
+    # Each checkpoint's state is copied to the host before the next call
+    # writes it in place; its 15 GB are hashed on a thread meanwhile.
+    hasher = concurrent.futures.ThreadPoolExecutor(1)
+    walls, t, copy_s, digests = [], 0, 0.0, {}
+    for stop in G32_MS:
+        t0 = time.perf_counter()
+        net, ps = runner.run_ms(net, ps, stop - t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        t = stop
+        t0 = time.perf_counter()
+        digests[t] = hasher.submit(convert.state_digest,
+                                   *convert.to_numpy(net, ps))
+        copy_s += time.perf_counter() - t0
+    launches = read_counters()
+    t0 = time.perf_counter()
+    for t_, digest in digests.items():
+        want = golden[str(t_)]
+        check_digest(f"GSF {G32_NODES} at {t_} ms", digest.result(),
+                     want["leaves"])
+        log(f"GSF {G32_NODES} golden: all {len(want['leaves'])} leaves "
+            f"match the JAX reference at {t_} ms (JAX counts "
+            f"{want['counts']})")
+    hasher.shutdown()
+    check_s = copy_s + time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated()
+    wall = sum(walls)
+    res = dict(wall_s=wall, chunk_walls_s=walls, sim_ms=t,
+               sim_ms_per_s=t / wall, ms_per_sim_ms=1e3 * wall / t,
+               build_s=build_s, golden_check_s=check_s,
+               state_bytes=state_bytes, init_peak_mem_bytes=init_peak,
+               peak_mem_bytes=run_peak, evicted=int(ps.evicted),
+               frac_done=float((net.nodes.done_at[~net.nodes.down] > 0)
+                               .float().mean()),
+               msg_sent=int(net.nodes.msg_sent.sum()), **counts_of(net))
+    window = scan_chunk(proto, OPS_MS)
+    res["aten_ops_per_ms"] = ops_per_ms(lambda: window(net, ps, t=t),
+                                        OPS_MS)
+    with capture_route("route_gsf32k", {0}):
+        scan_chunk(proto, 1)(net, ps, t=t + OPS_MS)
+    if res["dropped"] or res["clamped"] or res["bc_dropped"]:
+        fail(f"GSF {G32_NODES}: drops and clamps must be 0: {res}")
+    return res, launches
+
+
+def obs_run(dev):
+    """Phase O: `PingPong(node_count=64)`, seed 0, under each plane on
+    the card, the twins of tests/test_pallas_route.py:200 and :211 (the
+    planes with the routing kernel on), counters set to 0 just before
+    each: the metrics plane (stat_each_ms 4) over 24 ms of
+    `scan_chunk_metrics`, the flight recorder over 40 ms of
+    `scan_chunk_trace`, the audit through ``Runner(audit=).run_ms`` to
+    40 ms.  Each carry and state equals the JAX golden made on the CPU
+    (`tests/torch_parity.py obs-golden`); the audit is clean."""
+    import numpy as np
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.core.network import Runner
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    from wittgenstein_tpu_torch.obs import (AuditSpec, MetricsSpec,
+                                            TraceSpec, scan_chunk_metrics,
+                                            scan_chunk_trace)
+    with open(OBS_GOLDEN) as f:
+        golden = json.load(f)
+    proto = PingPong(node_count=64, device=dev)
+    out = {}
+    for plane in ("metrics", "trace", "audit"):
+        want = golden[plane]
+        net, ps = proto.init(0)
+        reset_counters()
+        t0 = time.perf_counter()
+        if plane == "metrics":
+            spec = MetricsSpec(stat_each_ms=4)
+            net, ps, carry = scan_chunk_metrics(proto, want["ms"], spec)(
+                net, ps)
+        elif plane == "trace":
+            net, ps, carry = scan_chunk_trace(proto, want["ms"],
+                                              TraceSpec())(net, ps)
+        else:
+            runner = Runner(proto, audit=AuditSpec())
+            net, ps = runner.run_ms(net, ps, want["ms"])
+            carry = runner.audit_carries[-1]
+            report = runner.audit_report()
+            if not report.clean or \
+                    "ring_conservation" not in report.claimed:
+                fail(f"phase O: the audit is not clean: {report.format()}")
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        got = {f.name: getattr(carry, f.name).cpu().numpy()
+               for f in dataclasses.fields(carry)}
+        if plane == "trace":
+            got = {"cursor": int(got["cursor"]),
+                   "dropped": int(got["dropped"]),
+                   "buf": convert.leaf_digest(got["buf"].astype(np.int32)),
+                   "down": convert.leaf_digest(got["down"].astype(bool))}
+        else:
+            got = {k: v.tolist() for k, v in got.items()}
+        if got != want["carry"]:
+            fail(f"phase O: the {plane} carry differs from the JAX "
+                 f"plane's: {got} against {want['carry']}")
+        check_digest(f"phase O {plane} state at {want['ms']} ms",
+                     convert.state_digest(*convert.to_numpy(net, ps)),
+                     want["leaves"])
+        log(f"phase O: the {plane} plane's carry and the state at "
+            f"{want['ms']} ms equal the JAX golden ({wall:.2f} s)")
+        out[f"obs_{plane}"] = (dict(ms=want["ms"], wall_s=wall), launches)
+    return out
+
+
 # ------------------------------------- SanFermin, Dfinity and P2PFlood
 
 def ops_per_ms(window, ms):
@@ -2127,7 +2528,7 @@ def chunked(run, state, t0, t1, chunk, check=None, ff=False):
 def sanfermin_run(dev):
     """Path S: `tools/bench_suite.py`'s SanFermin line,
     ``SanFermin(node_count=32768, inbox_cap=16)`` with two ring
-    sub-planes, seed 0, one run at the proved K (2) in 500-ms
+    sub-planes, seed 0, one run at the proved K (2) in 350-ms
     `network.scan_chunk` calls to SF_MS, counters set to 0 just before:
     equal to the JAX golden at its checkpoints (outside the timed wall), zero
     drops and clamps, route once a window per sub-plane.  A K1 case is
@@ -2415,9 +2816,9 @@ def casper_run(dev):
     """Path K: Casper IMD's reference configuration, ``CasperIMD()`` (83
     nodes: observer, WF byzantine producer, one honest producer, 4 x 20
     attesters; 20-ms ticks; the distance latency), seeds 0-7 in one
-    batch through `run_multiple_times` in 1,000-tick chunks at the K the
+    batch through `run_multiple_times` in 600-tick chunks at the K the
     gate proves, counters set to 0 just before: every seed equal to its
-    JAX golden at 1,000 and 2,000 ticks, zero unicast, broadcast and
+    JAX golden at 600 and 1,200 ticks, zero unicast, broadcast and
     arena drops and heads within 2 where the JAX seeds show it; each
     seed's highest head, skew, blocks and attestations logged.  A K1
     case is captured from its windows."""
@@ -2458,7 +2859,7 @@ def casper_run(dev):
     out = dict(superstep=k, wall_s=wall, sim_ticks=K_TICKS,
                agg_sim_ticks_per_s=K_SEEDS * K_TICKS / wall,
                peak_mem_bytes=peak, **counts_of(nets, ps))
-    # the slot boundary at 2,000 (a build, reevaluations), then WF ticks
+    # the slot boundary at 1,200 (a build, reevaluations), then WF ticks
     event = scan_chunk(proto, k, superstep=k)
     out["aten_ops_per_tick_slot_boundary"] = ops_per_ms(
         lambda: event(nets, ps, t=K_TICKS), k)
@@ -3313,6 +3714,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-t3-file", default="profile_t3.txt")
     ap.add_argument("--profile-t2-file", default="profile_t2.txt")
     ap.add_argument("--profile-protocols-prefix", default="profile_")
+    ap.add_argument("--profile-gsf32k-file", default="profile_gsf32k.txt")
     ap.add_argument("--memory-seeds", type=int, default=0, metavar="R")
     args = ap.parse_args(argv)
     import torch
@@ -3357,6 +3759,7 @@ def main(argv=None) -> int:
         phase = next(e[5] for e in KERNELS if e[0] == name)
         t0 = time.perf_counter()
         results[name] = r = phase(dev, rng)
+        r["case_s"] = time.perf_counter() - t0
         log(f"kernel {name} ({time.perf_counter() - t0:.1f} s): bit-equal "
             f"to its plain version; device "
             f"{r['ms'] * 1e3:.2f} us cold, {r['warm_ms'] * 1e3:.2f} us warm"
@@ -3575,6 +3978,25 @@ def main(argv=None) -> int:
     log(f"phases L and A: {la_wall:.1f} s")
     done("A")
 
+    # G32. GSF at the reference's 32,768 nodes, and K1 on its window
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    g32res, g32launches = gsf32k_run(dev)
+    log(f"GSF {G32_NODES}: {json.dumps(g32res)} launches {g32launches}")
+    check_launches("gsf32k", g32launches)
+    kernel_case("route_gsf32k")
+    g32_wall = time.perf_counter() - t0 + sum(
+        results[k]["case_s"] for k in ("gsf_merge_32k", "gsf_score_32k"))
+    log(f"phase G32 with its phase-2 kernel cases: {g32_wall:.1f} s")
+    done("G32")
+
+    # O. PingPong 64 under each obs plane, held to the JAX planes
+    obs = obs_run(dev)
+    for key, (ores, olaunches) in obs.items():
+        log(f"{key}: {json.dumps(ores)} launches {olaunches}")
+        check_launches(key, olaunches)
+    done("O")
+
     memory = {}
     if args.memory_seeds:
         memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
@@ -3644,6 +4066,12 @@ def main(argv=None) -> int:
                 label, protocol_window(dev, path, start, pms), start, pms,
                 f"{args.profile_protocols_prefix}{path}.txt",
                 PROFILE_KERNELS[path])
+        profiles["gsf32k"] = profile(
+            f"GSFSignature {G32_NODES} nodes",
+            dense_window(GSFSignature(node_count=G32_NODES, device=dev), 50,
+                         args.profile),
+            50, args.profile, args.profile_gsf32k_file,
+            PROFILE_KERNELS["gsf"])
         done("profile")
 
     path_ms = {"handel": MAIN_MS, "gsf": GSF_MS, "headline": HEADLINE_MS,
@@ -3661,7 +4089,9 @@ def main(argv=None) -> int:
                **{k: v[0]["sim_ms"] for k, v in protos.items()
                   if k in ("p2phandel", "optimistic")},
                **{k: v[0]["sim_ms"] for k, v in lat.items()},
-               **{k: v[0]["sim_ms"] for k, v in committee.items()}}
+               **{k: v[0]["sim_ms"] for k, v in committee.items()},
+               "gsf32k": G32_MS[-1],
+               **{k: v[0]["ms"] for k, v in obs.items()}}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
                      "pingpong_harness": hplaunches, "spill": slaunches,
@@ -3676,7 +4106,9 @@ def main(argv=None) -> int:
                      "byz": blaunches,
                      **{k: v[1] for k, v in protos.items()},
                      **{k: v[1] for k, v in lat.items()},
-                     **{k: v[1] for k, v in committee.items()}}
+                     **{k: v[1] for k, v in committee.items()},
+                     "gsf32k": g32launches,
+                     **{k: v[1] for k, v in obs.items()}}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -3696,7 +4128,7 @@ def main(argv=None) -> int:
                "bound_us": bound_ms * 1e3, "library_us": None,
                "bytes": r["nbytes"], "call_ms": r["call_ms"],
                "plain_call_ms": r["plain_call_ms"]}
-        for extra in ("phases_us", "gather"):
+        for extra in ("phases_us", "gather", "branch", "case_s"):
             if extra in r:
                 rec[extra] = r[extra]
         print(json.dumps(rec), flush=True)
@@ -3720,6 +4152,8 @@ def main(argv=None) -> int:
                       **{f"{k}_path": v[0] for k, v in lat.items()},
                       **{f"{k}_path": v[0] for k, v in committee.items()},
                       "phases_la_wall_s": la_wall,
+                      "gsf32k_path": g32res, "phase_g32_wall_s": g32_wall,
+                      **{f"{k}_path": v[0] for k, v in obs.items()},
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

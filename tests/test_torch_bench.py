@@ -86,6 +86,14 @@ def test_bench_torch_cpu_line(capsys):
     assert line["sim_ms"] == 600 and line["value"] > 0
     assert line["frac_done"] > 0.99
     assert line["dropped"] == line["clamped"] == line["evicted"] == 0
+    # the un-timed obs passes: the metrics plane on the seed-folded
+    # engine over the whole span, the audit on seed 0, clean
+    metrics, audit = line["engine_metrics"], line["audit"]
+    assert "error" not in metrics and "error" not in audit
+    assert metrics["totals"]["samples"] == 2 * 600
+    assert metrics["totals"]["done_count"] > 0
+    assert audit["clean"] and audit["totals"]["msg_sent"] > 0
+    assert "trace" not in line
 
 
 def test_bench_torch_pingpong_cpu_line(capsys):
@@ -96,7 +104,8 @@ def test_bench_torch_pingpong_cpu_line(capsys):
     try:
         assert bench_torch.main(["--proto", "pingpong", "--device", "cpu",
                                  "--nodes", "64", "--seeds", "2", "--ms",
-                                 "400", "--reps", "1"]) == 0
+                                 "400", "--reps", "1", "--no-metrics",
+                                 "--no-audit"]) == 0
     finally:
         torch.set_num_threads(threads)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -109,11 +118,13 @@ def test_bench_torch_pingpong_cpu_line(capsys):
 
 
 def _line(capsys, argv):
+    """The line's JSON, its un-timed obs passes switched off (the lines'
+    checks do not read them; `test_bench_torch_cpu_line` does)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        assert bench_torch.main(argv + ["--device", "cpu", "--reps", "1"]) \
-            == 0
+        assert bench_torch.main(argv + ["--device", "cpu", "--reps", "1",
+                                        "--no-metrics", "--no-audit"]) == 0
     finally:
         torch.set_num_threads(threads)
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -9,7 +9,9 @@ producer's first block) and `try_miner`'s ETHPoW batch with 5 miners (2
 seeds from 1, 200 ticks, its CSV row printed); and phase P's HandelEth2
 (16 nodes, fast-forwarded to 1,000 ms), P2PHandel (40 signers and 8
 relays, 500 ms) and OptimisticP2PSignature (64 nodes, 200 ms), 2 seeds
-each."""
+each.  The obs blocks (``engine_metrics``, ``trace``, ``audit``) of
+one PingPong line equal the JAX `bench.py`'s blocks for the same
+configuration; the other lines run with those passes off."""
 
 import json
 
@@ -19,12 +21,16 @@ import torch
 import bench_torch
 
 
-def _line(capsys, argv):
+def _line(capsys, argv, obs=False):
+    """The line's JSON; without `obs` its un-timed obs passes are
+    switched off (the lines' checks do not read them, and each pass
+    reruns the span)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    off = [] if obs else ["--no-metrics", "--no-audit"]
     try:
-        assert bench_torch.main(argv + ["--device", "cpu", "--reps", "1"]) \
-            == 0
+        assert bench_torch.main(argv + ["--device", "cpu", "--reps", "1"]
+                                + off) == 0
     finally:
         torch.set_num_threads(threads)
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -142,3 +148,27 @@ def test_optimistic_line(capsys):
     assert line["progress"] == 128 and line["dropped"] == 0
     with pytest.raises(SystemExit):
         bench_torch.main(["--proto", "optimistic", "--fast-forward"])
+
+
+def test_obs_blocks_equal_the_jax_lines(capsys):
+    """One CPU line carries the ``engine_metrics``, ``trace`` and
+    ``audit`` blocks, each equal to the block `bench.py` builds for the
+    same configuration (PingPong, 32 nodes, 2 seeds, 200 ms)."""
+    import bench
+    from wittgenstein_tpu.models.pingpong import PingPong
+    line = _line(capsys, ["--proto", "pingpong", "--nodes", "32", "--seeds",
+                          "2", "--ms", "200", "--trace"], obs=True)
+    jp = PingPong(node_count=32)
+    assert line["engine_metrics"] == bench._collect_engine_metrics(
+        jp, 2, 200)
+    assert line["trace"] == bench._collect_engine_trace(jp, 200, 1 << 16)
+    assert line["audit"] == bench._collect_engine_audit(jp, 200)
+    assert line["audit"]["clean"] and not line["trace"]["truncated"]
+    assert line["engine_metrics"]["metrics_seeds"] == 2
+    off = _line(capsys, ["--proto", "pingpong", "--nodes", "32", "--seeds",
+                         "2", "--ms", "200"])
+    assert not {"engine_metrics", "trace", "audit"} & set(off)
+    with pytest.raises(ValueError, match="--trace-cap"):
+        bench_torch.main(["--proto", "pingpong", "--nodes", "32", "--ms",
+                          "200", "--device", "cpu", "--trace",
+                          "--trace-cap", "100"])

@@ -149,25 +149,28 @@ def test_convert_round_trip():
 
 
 def test_reference_golden_schema():
-    """`chip_smoke.py` phase K's golden: `CasperIMD()`'s 8 seeds at 1,000
-    and 2,000 ticks, leaf names those of the port's state, zero drops,
-    heads within 2 (test_casper.py's consensus check)."""
+    """`chip_smoke.py` phase K's golden: `CasperIMD()`'s 8 seeds at each
+    CASPER_CHUNK ticks to CASPER_TICKS (600 and 1,200), leaf names those
+    of the port's state, zero drops,
+    heads within 2 (test_casper.py's consensus check), and at the end a
+    block a slot past the first (8-s slots, 400 ticks of 20 ms)."""
     with open(tp.CASPER_GOLDEN_FILE) as f:
         golden = json.load(f)
     assert golden["call"].startswith("jax.jit(jax.vmap(")
-    assert "scan_chunk(proto, 1000)" in golden["call"]
+    assert f"scan_chunk(proto, {tp.CASPER_CHUNK})" in golden["call"]
     assert {"wall_s", "peak_rss_gb"} <= set(golden["generator"])
     proto = CasperIMD(device="cpu")
     assert proto.node_count == 83
     names = sorted(convert.state_digest(*convert.to_numpy(*proto.init(0))))
-    assert sorted(golden["ticks"]) == ["1000", "2000"]
+    assert sorted(map(int, golden["ticks"])) == list(range(
+        tp.CASPER_CHUNK, tp.CASPER_TICKS + 1, tp.CASPER_CHUNK))
     for at in golden["ticks"].values():
         assert len(at["seeds"]) == len(at["counts"]) == tp.CASPER_SEEDS
         for leaves, counts in zip(at["seeds"], at["counts"]):
             assert sorted(leaves) == names
             assert counts["dropped"] == counts["bc_dropped"] == 0
             assert counts["height_max"] - counts["height_min"] <= 2
-    assert len({json.dumps(s, sort_keys=True)
-                for s in golden["ticks"]["2000"]["seeds"]}) == 8
-    assert np.all([c["height_max"] >= 4
-                   for c in golden["ticks"]["2000"]["counts"]])
+    last = golden["ticks"][str(tp.CASPER_TICKS)]
+    assert len({json.dumps(s, sort_keys=True) for s in last["seeds"]}) == 8
+    assert np.all([c["height_max"] >= tp.CASPER_TICKS // 400 - 1
+                   for c in last["counts"]])

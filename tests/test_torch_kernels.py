@@ -263,12 +263,12 @@ def test_gsf_merge_refuses_wide_rows():
 # -------------------------------------------------------------- GSF score
 
 
-def _gsf_score_vs_pallas(sig, elvl, ver, ind):
+def _gsf_score_vs_pallas(sig, elvl, ver, ind, ids=None):
     import jax.numpy as jnp
 
     from wittgenstein_tpu.ops.pallas_score import gsf_score_pallas
     n = sig.shape[0]
-    ids = np.arange(n, dtype=np.int32)
+    ids = np.arange(n, dtype=np.int32) if ids is None else ids
     args = (sig, elvl, ids, ver, ind)
     ref = gsf_score_pallas(*[jnp.asarray(a) for a in args], interpret=True)
     got = score.gsf_score(*[_i32(a) for a in args])
@@ -288,6 +288,32 @@ def test_gsf_score_random():
                          rng.integers(0, levels, (n, q)).astype(np.int32),
                          rng.integers(0, 2 ** 32, (n, w), **u32),
                          rng.integers(0, 2 ** 32, (n, w), **u32))
+
+
+def test_gsf_score_w1024():
+    """GSF 32k's width: 8 rows of W 1,024 (32,768 node ids, levels 0 to
+    16), nodes spread over the id space so the level ranges fall in
+    every part of the row, against the Pallas kernel in interpret
+    mode."""
+    n, q, w, levels = 8, 16, 1024, 16
+    rng = np.random.default_rng(31)
+    u32 = dict(dtype=np.uint32)
+    _gsf_score_vs_pallas(rng.integers(0, 2 ** 32, (n, q, w), **u32),
+                         rng.integers(0, levels + 1, (n, q)).astype(np.int32),
+                         rng.integers(0, 2 ** 32, (n, w), **u32),
+                         rng.integers(0, 2 ** 32, (n, w), **u32),
+                         ids=rng.choice(32 * w, n, replace=False).astype(
+                             np.int32))
+
+
+def test_gsf_merge_w1024():
+    """GSF 32k's width: 8 rows, Q 16, S 16, W 1,024, senders drawn from
+    32,768 ids over 16 levels, against the Pallas kernel in interpret
+    mode."""
+    rng = np.random.default_rng(32)
+    case = _gsf_merge_case(rng, 8, 16, 16, 1024, n_ids=32768, levels=16)
+    got = _gsf_merge_vs_pallas(case, levels=16)
+    assert case[8].any() and int(got[4].ne(0).sum()) > 0
 
 
 @pytest.mark.parametrize("fill", [0, 0xFFFFFFFF])
@@ -477,6 +503,27 @@ def test_cuda_gsf_merge_matches_plain():
                            n_ids=4096, levels=13)
     plain = gsf_merge.gsf_merge(*[_i32(a) for a in case], 13)
     kern = gsf_merge.gsf_merge(*[_i32(a).to(dev) for a in case], 13)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, kern):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_gsf_kernels_w1024_match_plain():
+    """K4 and K5 at GSF 32k's width (W 1,024; K4's unstaged branch), 256
+    rows, against their plain versions."""
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    n, q, w, levels = 256, 16, 1024, 16
+    args = [rng.integers(0, 2 ** 32, (n, q, w), dtype=np.uint32),
+            rng.integers(0, levels + 1, (n, q)).astype(np.int32),
+            rng.choice(32 * w, n, replace=False).astype(np.int32)] + [
+        rng.integers(0, 2 ** 32, (n, w), dtype=np.uint32) for _ in range(2)]
+    plain = score.gsf_score(*[_i32(a) for a in args])
+    kern = score.gsf_score(*[_i32(a).to(dev) for a in args])
+    case = _gsf_merge_case(rng, n, 16, 16, w, n_ids=32768, levels=levels)
+    plain += gsf_merge.gsf_merge(*[_i32(a) for a in case], levels)
+    kern += gsf_merge.gsf_merge(*[_i32(a).to(dev) for a in case], levels)
     torch.cuda.synchronize()
     for a, b in zip(plain, kern):
         assert torch.equal(a, b.cpu())

@@ -66,14 +66,18 @@ PINGPONG_HARNESS_FILE = os.path.join(PORT_DATA,
                                      "golden_pingpong1000_r16_k2_200ms.json")
 PINGPONG_N, PINGPONG_MS = 1000, 800
 PINGPONG_SEEDS, PINGPONG_HARNESS_MS = 16, 200
-GSF_BATCH_FILE = os.path.join(PORT_DATA, "golden_gsf4096_r4_150ms.json")
-GSF_BATCH_SEEDS, GSF_BATCH_MS = 4, 150
+GSF_BATCH_FILE = os.path.join(PORT_DATA, "golden_gsf4096_r4_100ms.json")
+GSF_BATCH_SEEDS, GSF_BATCH_MS = 4, 100
 FF_STATS_FILE = os.path.join(PORT_DATA, "golden_pingpong1000_ff_stats.json")
 CARDINAL_N, CARDINAL_MS = 65536, (200, 1000)
 CARDINAL_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_cardinal65536_k2.json")
 TIER2_N, TIER2_MS = 32768, (100, 400)
 TIER2_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_tier2_32768.json")
 ATTACK_N, ATTACK_MS = 1024, 200
+GSF32K_N, GSF32K_MS = 32768, (50, 100)
+GSF32K_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_gsf32768_100ms.json")
+OBS_N, OBS_METRICS_MS, OBS_STAT_MS, OBS_MS = 64, 24, 4, 40
+OBS_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_obs_pingpong64.json")
 ATTACK_GOLDEN_FILE = os.path.join(PORT_DATA,
                                   "golden_handel1024_suicide_200ms.json")
 
@@ -722,6 +726,109 @@ def write_tier2_golden(n=TIER2_N, ms=TIER2_MS, chunk=20):
         "ms": at}, t0)
 
 
+def write_gsf32k_golden(n=GSF32K_N, ms=GSF32K_MS, path=None):
+    """Leaf sha256s of the JAX package's `GSFSignature(node_count=n)`
+    with its defaults (at 32,768 nodes: L 16, W 1,024, H 512, 53 rounds;
+    a pool of 7.1 GB), seed 0, at each checkpoint of `ms`, through
+    ``Runner(proto).run_ms`` calls of equal length (one compiled scan,
+    donated state), with the drop, clamp and eviction counters beside
+    them, into `path` (the shipped file by default).  Its wall and peak
+    RSS on the generating host are in the file, under "generator": about
+    5 minutes and 32 GB on an 8-core CPU host at 32,768 nodes."""
+    import time
+
+    from wittgenstein_tpu.core.network import Runner
+    from wittgenstein_tpu.models.gsf import GSFSignature
+
+    t0 = time.monotonic()
+    proto = GSFSignature(node_count=n)
+    net, ps = proto.init(0)
+    runner = Runner(proto)
+    at, t = {}, 0
+    for stop in ms:
+        net, ps = runner.run_ms(net, ps, stop - t)
+        t = stop
+        at[str(t)] = {"counts": _run_counts(net, ps),
+                      "leaves": convert.state_digest(*jax_state(net, ps))}
+        print(f"gsf32k golden: {t} ms at {time.monotonic() - t0:.0f} s",
+              flush=True)
+    body = {"config": f"GSFSignature(node_count={n}), seed 0",
+            "call": "wittgenstein_tpu.core.network.Runner(proto).run_ms("
+                    f"net, ps, {ms[0]}) from proto.init(0), {len(ms)} "
+                    "calls",
+            "ms": at}
+    _write_golden(path or GSF32K_GOLDEN_FILE, body, t0)
+    return body
+
+
+def jax_obs_carries(n=OBS_N):
+    """The JAX package's three obs planes on `PingPong(node_count=n)`,
+    seed 0 (the twins of tests/test_pallas_route.py:200 and :211): the
+    metrics plane (``stat_each_ms`` OBS_STAT_MS) over OBS_METRICS_MS ms
+    of `scan_chunk_metrics`, the flight recorder (`TraceSpec()`) over
+    OBS_MS ms of `scan_chunk_trace`, and the audit plane (`AuditSpec()`)
+    through ``Runner(audit=...).run_ms`` to OBS_MS ms.  Returns ``{plane:
+    (carry as numpy dict, state as numpy dicts)}``."""
+    import jax
+
+    from wittgenstein_tpu.core.network import Runner
+    from wittgenstein_tpu.models.pingpong import PingPong
+    from wittgenstein_tpu.obs import AuditSpec, MetricsSpec, TraceSpec
+    from wittgenstein_tpu.obs.engine import scan_chunk_metrics
+    from wittgenstein_tpu.obs.trace import scan_chunk_trace
+
+    proto = PingPong(node_count=n)
+    out = {}
+    net, ps, mc = jax.jit(scan_chunk_metrics(
+        proto, OBS_METRICS_MS, MetricsSpec(stat_each_ms=OBS_STAT_MS)))(
+        *proto.init(0))
+    out["metrics"] = (jax_nested(mc), jax_state(net, ps))
+    net, ps, tc = jax.jit(scan_chunk_trace(proto, OBS_MS, TraceSpec()))(
+        *proto.init(0))
+    out["trace"] = (jax_nested(tc), jax_state(net, ps))
+    runner = Runner(proto, donate=False, audit=AuditSpec())
+    net, ps = runner.run_ms(*proto.init(0), OBS_MS)
+    out["audit"] = (jax_nested(runner.audit_carries[-1]),
+                    jax_state(net, ps))
+    return out
+
+
+def obs_carry_record(plane, carry):
+    """A plane's carry as the golden keeps it: the metrics series and
+    the audit carry whole, the trace ring by its cursor, dropped count
+    and the digests of its buffer and down row."""
+    if plane == "trace":
+        return {"cursor": int(carry["cursor"]),
+                "dropped": int(carry["dropped"]),
+                "buf": convert.leaf_digest(np.asarray(carry["buf"],
+                                                      np.int32)),
+                "down": convert.leaf_digest(np.asarray(carry["down"],
+                                                       bool))}
+    return {k: np.asarray(v).tolist() for k, v in carry.items()}
+
+
+def write_obs_golden(n=OBS_N):
+    """`jax_obs_carries` as the golden `chip_smoke.py` phase O holds the
+    port's planes on the card to: each plane's carry record and the
+    state's leaf digests.  A few seconds of JAX on the CPU."""
+    import time
+
+    t0 = time.monotonic()
+    body = {"config": f"PingPong(node_count={n}), seed 0"}
+    calls = {"metrics": f"scan_chunk_metrics(proto, {OBS_METRICS_MS}, "
+                        f"MetricsSpec(stat_each_ms={OBS_STAT_MS}))",
+             "trace": f"scan_chunk_trace(proto, {OBS_MS}, TraceSpec())",
+             "audit": "Runner(proto, donate=False, audit=AuditSpec())"
+                      f".run_ms(net, ps, {OBS_MS})"}
+    for plane, (carry, state) in jax_obs_carries(n).items():
+        body[plane] = {"call": calls[plane],
+                       "ms": OBS_METRICS_MS if plane == "metrics"
+                       else OBS_MS,
+                       "carry": obs_carry_record(plane, carry),
+                       "leaves": convert.state_digest(*state)}
+    _write_golden(OBS_GOLDEN_FILE, body, t0)
+
+
 def write_attack_golden(n=ATTACK_N, ms=ATTACK_MS):
     """Leaf sha256s of the JAX package's exact Handel at `n` nodes
     under the byzantineSuicide attack (``reference_default_params(n)``,
@@ -745,7 +852,7 @@ def write_attack_golden(n=ATTACK_N, ms=ATTACK_MS):
         "leaves": convert.state_digest(*jax_state(net, ps))}, t0)
 
 
-SANFERMIN_N, SANFERMIN_MS, SANFERMIN_BOX_SPLIT = 32768, (500, 1000), 2
+SANFERMIN_N, SANFERMIN_MS, SANFERMIN_BOX_SPLIT = 32768, (350, 700), 2
 SANFERMIN_GOLDEN_FILE = os.path.join(PORT_DATA,
                                      "golden_sanfermin32768_box2.json")
 CAPPOS_MS = 100
@@ -778,7 +885,7 @@ def _chain_counts(net, ps):
     return out
 
 
-def write_sanfermin_golden(n=SANFERMIN_N, ms=SANFERMIN_MS, chunk=500):
+def write_sanfermin_golden(n=SANFERMIN_N, ms=SANFERMIN_MS, chunk=350):
     """Leaf sha256s of the JAX package's SanFermin line of
     `tools/bench_suite.py` (``SanFermin(node_count=n, inbox_cap=16)``,
     ``box_split=SANFERMIN_BOX_SPLIT`` ring sub-planes), seed 0, at each
@@ -961,8 +1068,8 @@ def write_quiet_goldens():
 
 
 CASPER_GOLDEN_FILE = os.path.join(PORT_DATA,
-                                  "golden_casper83_r8_2000ticks.json")
-CASPER_SEEDS, CASPER_TICKS, CASPER_CHUNK = 8, 2000, 1000
+                                  "golden_casper83_r8_1200ticks.json")
+CASPER_SEEDS, CASPER_TICKS, CASPER_CHUNK = 8, 1200, 600
 ETHPOW_GOLDEN_FILE = os.path.join(PORT_DATA,
                                   "golden_ethpow10_r5_1500ticks.json")
 ETHPOW_RUNS, ETHPOW_TICKS = 5, 1500
@@ -1568,6 +1675,143 @@ def write_committee_goldens(seeds=A_SEEDS):
         "seeds": convert.seed_digests(*final)}, t0)
 
 
+#: tests/test_obs.py's, test_trace.py's and test_audit.py's configurations
+OBS_HANDEL = dict(node_count=64, threshold=56, nodes_down=6, pairing_time=4,
+                  dissemination_period_ms=20, level_wait_time=50,
+                  fast_path=10)
+OBS_PARAMS = {
+    "PingPong": ("pingpong", "PingPong", dict(node_count=64)),
+    "Handel": ("handel", "Handel", OBS_HANDEL),
+    "HandelCardinal": ("handel", "Handel",
+                       dict(OBS_HANDEL, level_wait_time=None,
+                            mode="cardinal")),
+    "Dfinity": ("dfinity", "Dfinity",
+                dict(block_producers_count=10, attesters_count=10,
+                     attesters_per_round=10)),
+    # test_superstep.py's floor-rich Handel: fixed 16 ms latency
+    # licenses the K in {2, 4} window ladder
+    "FloorHandel": ("handel", "Handel",
+                    dict(OBS_HANDEL, horizon=64,
+                         network_latency_name="NetworkFixedLatency(16)")),
+}
+
+
+def obs_protocols(name: str):
+    """(JAX protocol, port protocol on the CPU) of an obs test
+    configuration."""
+    import importlib
+    mod, cls, params = OBS_PARAMS[name]
+    params = {k: v for k, v in params.items() if v is not None}
+    jax_cls = getattr(importlib.import_module(
+        f"wittgenstein_tpu.models.{mod}"), cls)
+    port_cls = getattr(importlib.import_module(
+        f"wittgenstein_tpu_torch.models.{mod}"), cls)
+    return jax_cls(**params), port_cls(**params, device="cpu")
+
+
+def assert_carries_equal(jax_carry, port_carry, what=""):
+    """An obs plane's carry (metrics, trace or audit) of the port equal
+    to the JAX plane's, leaf for leaf and bit for bit."""
+    for fld in dataclasses.fields(port_carry):
+        a = np.asarray(getattr(jax_carry, fld.name))
+        b = getattr(port_carry, fld.name).cpu().numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, (
+            f"{what} {fld.name}: JAX {a.dtype}{a.shape}, port "
+            f"{b.dtype}{b.shape}")
+        if not np.array_equal(a, b):
+            idx = tuple(int(i) for i in np.argwhere(a != b)[0])
+            raise AssertionError(f"{what} {fld.name} differs at {idx}: "
+                                 f"JAX {a[idx]!r}, port {b[idx]!r}")
+
+
+def jax_batch(jproto, seeds):
+    """``jax.vmap(jproto.init)`` of seeds 0..seeds-1."""
+    import jax
+    import jax.numpy as jnp
+    return jax.vmap(jproto.init)(jnp.arange(seeds, dtype=jnp.int32))
+
+
+def port_batch(proto, seeds):
+    """The port's batch of seeds 0..seeds-1 (`init_batched`)."""
+    import torch
+
+    from wittgenstein_tpu_torch.core.state import init_batched
+    return init_batched(proto, torch.arange(seeds))
+
+
+def assert_port_jax_states(jax_state_, port_state, what=""):
+    """A port state (a run or a batch) equal to a JAX one, leaf for
+    leaf."""
+    assert_states_equal(jax_state(*jax_state_),
+                        convert.to_numpy(*port_state), what)
+
+
+def pytree_leaves(tree):
+    """The tensor leaves of a port state or carry, in tree order."""
+    from torch.utils import _pytree as pytree
+    return pytree.tree_leaves(tree)
+
+
+def clone(state):
+    """A copy of a port state (the engine writes its ring in place)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(torch.clone, state)
+
+
+def first_divergence_cross(jproto, proto, total_ms, chunk_ms=32, seed=0):
+    """The cross-package bisector: run the JAX package's `jproto` and the
+    port's `proto` from the same seed, side by side in `chunk_ms`
+    chunks of the dense per-ms engine, comparing the whole states at
+    every boundary; from the last agreeing one, re-run both a ms at a
+    time to the first differing ms.  Returns None when the two agree
+    over `total_ms`, else ``{"ms", "leaf", "index", "jax", "port"}``:
+    the divergent ms (the states agree at its start and differ after
+    it), the first differing leaf under the JAX names, its first
+    differing element and both values (the record ROADMAP.md queue C
+    keeps of a port fault)."""
+    import jax
+    from torch.utils import _pytree as pytree
+
+    from wittgenstein_tpu.core.network import scan_chunk as jscan
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+
+    def flat(state_np):
+        return convert.flatten({"net": state_np[0], "pstate": state_np[1]})
+
+    def copy(state):
+        import torch
+        return pytree.tree_map(torch.clone, state)
+
+    jstate, pstate = jproto.init(seed), proto.init(seed)
+    jrun, prun = jax.jit(jscan(jproto, chunk_ms)), scan_chunk(proto,
+                                                              chunk_ms)
+    saved, t = (jstate, copy(pstate)), 0
+    diff = None
+    while t < total_ms:
+        jstate, pstate = jrun(*jstate), prun(*pstate, t=t)
+        diff = convert.first_difference(flat(jax_state(*jstate)),
+                                        flat(convert.to_numpy(*pstate)))
+        if diff is not None:
+            break
+        t += chunk_ms
+        saved = (jstate, copy(pstate))
+    if diff is None:
+        return None
+    jstate, pstate = saved[0], copy(saved[1])
+    j1, p1 = jax.jit(jscan(jproto, 1)), scan_chunk(proto, 1)
+    for ms in range(t, t + chunk_ms):
+        jstate, pstate = j1(*jstate), p1(*pstate, t=ms)
+        diff = convert.first_difference(flat(jax_state(*jstate)),
+                                        flat(convert.to_numpy(*pstate)))
+        if diff is not None:
+            name, idx, a, b = diff
+            return {"ms": ms, "leaf": name, "index": idx, "jax": a,
+                    "port": b}
+    raise RuntimeError("the ms-by-ms pass lost the divergence the chunk "
+                       "pass found: a run is not deterministic")
+
+
 def _params(protocol: str, n: int) -> dict:
     """Constructor arguments of `protocol` at size `n` (for Dfinity, n
     attesters, committees of up to 10)."""
@@ -1707,6 +1951,12 @@ def main():
         return
     if sys.argv[1:2] == ["optimistic-golden"]:
         write_optimistic_golden()
+        return
+    if sys.argv[1:2] == ["gsf32k-golden"]:
+        write_gsf32k_golden()
+        return
+    if sys.argv[1:2] == ["obs-golden"]:
+        write_obs_golden()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

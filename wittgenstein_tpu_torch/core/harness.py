@@ -16,8 +16,7 @@ run's final state is exactly its state at its own stop time, ring
 included, and stats match the sequential semantics run for run.
 
 Not ported: the JAX package's `devices=`/`mesh=` sharding and its
-persistent compile cache (one card, no compiler; ROADMAP.md A15),
-`progress_per_time_on_device` and `capture_trace` (the obs planes).
+persistent compile cache (one card, no compiler; ROADMAP.md A15).
 """
 
 from __future__ import annotations
@@ -56,8 +55,10 @@ def _freeze_chunk(protocol, chunk, cont, t0=0):
     largest K `pick_superstep` proves for the chunk and entry time (1
     for a spill protocol or an unaligned entry).  The ring is updated in
     place, so stopped runs are kept out of its clear and its binning,
-    the spill drain's included (`frozen`); their other leaves are
-    selected back."""
+    the spill drain's included (`frozen`); a protocol's own leaves that
+    its step writes in place (`IN_PLACE`, GSF's snapshot pool) are
+    copied before the chunk and their stopped runs' rows put back; their
+    other leaves are selected back."""
     lcm = getattr(protocol, "schedule_lcm", None)
     use_spec = bool(lcm and chunk % lcm == 0)
     ss = pick_superstep(protocol, chunk, t0=t0,
@@ -67,14 +68,25 @@ def _freeze_chunk(protocol, chunk, cont, t0=0):
                            superstep=ss, timed_hints=bool(lcm) and
                            not use_spec)
 
+    in_place = getattr(protocol, "IN_PLACE", ())
+
     def chunk_all(nets, ps, stopped, stopped_at, t):
+        # protocol leaves the step writes in place: the stopped runs'
+        # rows are restored from a copy (the ring is kept by `frozen`)
+        kept = {name: getattr(ps, name).clone() for name in in_place}
         nets2, ps2 = one_chunk(nets, ps, t=t, frozen=stopped)
 
+        def mask(x):
+            return stopped.reshape((stopped.shape[0],) + (1,) * (x.dim() - 1))
+
+        for name, old in kept.items():
+            leaf = getattr(ps2, name)
+            leaf.copy_(torch.where(mask(leaf), old, leaf))
+
         def sel(old, new):
-            if old is new:                # the ring, updated in place
+            if old is new:                # updated in place
                 return new
-            shape = (stopped.shape[0],) + (1,) * (new.dim() - 1)
-            return torch.where(stopped.reshape(shape), old, new)
+            return torch.where(mask(new), old, new)
 
         nets3 = pytree.tree_map(sel, nets, nets2)
         ps3 = pytree.tree_map(sel, ps, ps2)
@@ -234,3 +246,61 @@ def progress_per_time(protocol, run_count=1, max_time=20_000,
                 "avg": [stats_mod.mean(s[comp]) for s in samples],
             }
     return TimeSeries(times=times, per_run=series, merged=merged), nets, ps
+
+
+def progress_per_time_on_device(protocol, run_count=1, max_time=20_000,
+                                stat_each_ms=10, counters=None,
+                                first_seed=0, fast_forward=False):
+    """`progress_per_time` with the sampling on the device
+    (wittgenstein_tpu/core/harness.py:326-364): one chunk covers the
+    whole span and the obs metrics plane records the per-interval series
+    beside the state, with no host read a sample period.
+
+    Returns ``(frame, nets, pstates)``: an `obs.MetricsFrame` (CSV,
+    Perfetto, bench block) summed over the seed batch, and the final
+    states.  As in the JAX package, the counter set is the engine
+    plane's (obs/spec.py COUNTERS), and runs are not frozen at their
+    stop time: the whole batch advances `max_time` ms.
+    ``fast_forward=True`` uses the instrumented quiet-window engine
+    (skipped intervals record ``samples == 0`` and forward-fill
+    exactly)."""
+    from ..obs import MetricsFrame, MetricsSpec
+    from ..obs.engine import fast_forward_chunk_metrics, scan_chunk_metrics
+
+    spec = MetricsSpec(stat_each_ms=stat_each_ms,
+                       **({"counters": tuple(counters)} if counters
+                          else {}))
+    nets, ps = init_batched(protocol, torch.arange(
+        first_seed, first_seed + run_count, dtype=torch.int32))
+    if fast_forward:
+        nets, ps, _, mc = fast_forward_chunk_metrics(
+            protocol, max_time, spec, seed_axis=True)(nets, ps)
+    else:
+        nets, ps, mc = scan_chunk_metrics(protocol, max_time, spec)(nets,
+                                                                    ps)
+    return MetricsFrame.from_carry(spec, mc), nets, ps
+
+
+def capture_trace(protocol, ms: int, spec=None, seed=0,
+                  fast_forward=False, superstep=1):
+    """One-command flight-recorder capture
+    (wittgenstein_tpu/core/harness.py:367-394): run `ms` simulated ms of
+    `protocol` from a fresh `seed` with the event trace plane on and
+    return ``(TraceFrame, net, pstate)``, the decoded event stream and
+    the final state (bit-identical to an untraced run).  From here
+    `frame.format()` prints the timeline and
+    `obs.trace_to_perfetto(frame, path)` renders it; a truncated ring
+    announces itself through ``frame.dropped``."""
+    from ..obs.decode import TraceFrame
+    from ..obs.trace import (TraceSpec, fast_forward_chunk_trace,
+                             scan_chunk_trace)
+
+    spec = spec or TraceSpec()
+    net, pstate = protocol.init(seed)
+    if fast_forward:
+        net, pstate, _, tc = fast_forward_chunk_trace(
+            protocol, int(ms), spec, superstep=superstep)(net, pstate)
+    else:
+        net, pstate, tc = scan_chunk_trace(protocol, int(ms), spec,
+                                           superstep=superstep)(net, pstate)
+    return TraceFrame.from_carry(spec, tc), net, pstate

@@ -441,17 +441,18 @@ def _check_step(protocol):
 
 
 def step_ms(protocol, net: NetState, pstate, t: int | None = None,
-            hints=None, frozen=None):
+            hints=None, frozen=None, tap=None):
     """Advance one millisecond (wittgenstein_tpu/core/network.py:
-    448-504, without taps or fault hooks): `step_kms` with K = 1.  `t`
-    is the current time as a Python int, read from the device when
-    omitted; `hints` are the protocol's phase hints for this ms."""
+    448-504, without fault hooks): `step_kms` with K = 1.  `t` is the
+    current time as a Python int, read from the device when omitted;
+    `hints` are the protocol's phase hints for this ms; `tap` is the
+    observation hook of the obs planes (see `step_kms`)."""
     return step_kms(protocol, net, pstate, 1, hints_k=[hints], t=t,
-                    frozen=frozen)
+                    frozen=frozen, tap=tap)
 
 
 def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
-             t: int | None = None, frozen=None):
+             t: int | None = None, frozen=None, tap=None):
     """Advance K milliseconds in one engine pass, the superstep
     (wittgenstein_tpu/core/network.py:448-663), for one run or a seed
     batch (see the module docstring).
@@ -476,7 +477,17 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
     the sends or the spill drain (the ring is updated in place, so a
     caller that keeps a stopped run's other leaves cannot restore its
     ring afterwards; `core/harness.py` uses it).  Their other leaves
-    advance, and the caller selects them back."""
+    advance, and the caller selects them back.
+
+    `tap` is the observation hook of the trace and audit planes
+    (`obs/trace.py`, `obs/audit.py`; wittgenstein_tpu/core/network.py:
+    448-620): ``tap(t_i, net, None)`` at each simulated ms's entry,
+    before its broadcast retire and spill drain, and ``tap(t_i, net,
+    out)`` right after its protocol step, before its broadcasts are
+    enqueued, so every observation inside a K window carries its own
+    ms.  `net` is the whole state, the ring included (for a batch with
+    the seed axis in front, as is `out`); the hook reads it and must
+    not write it.  ``tap=None`` adds no operation."""
     if hints_k is not None and len(hints_k) != k:
         raise ValueError(f"hints_k must have {k} entries, got "
                          f"{len(hints_k)}")
@@ -490,6 +501,8 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
     if t is None:
         t = int(net.time.reshape(-1)[0])
     net, ring = _split_ring(net)
+    if tap is not None:
+        tap(t, net.replace(**ring), None)
     bcast = _broadcasts(protocol)
     if bcast:
         net = _retire_broadcasts(cfg, net, t)
@@ -503,6 +516,8 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
     net = net.replace(nodes=nodes)
     outs = []
     for i in range(k):
+        if i and tap is not None:
+            tap(t + i, net.replace(**ring), None)
         inbox = Inbox(data=data.select(lead, i), src=src.select(lead, i),
                       valid=valid.select(lead, i))
         if bcast:
@@ -517,6 +532,8 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
                 pstate, net.nodes, inbox)
         net = net.replace(nodes=nodes)
         outs.append(out)
+        if tap is not None:
+            tap(t + i, net.replace(**ring), out)
         if bcast:
             net = per_run(functools.partial(enqueue_broadcast, cfg,
                                             t=t + i))(net, out)
@@ -777,7 +794,7 @@ def _jump(cfg: EngineConfig, net: NetState, dt: int, t2: int):
 
 
 def fast_forward_chunk(protocol, ms: int, seed_axis: bool = False,
-                       superstep: int = 1):
+                       superstep: int = 1, observer=None):
     """The fast-forward chunk (wittgenstein_tpu/core/network.py:
     991-1059): advance exactly `ms` ms, stepping a window of K ms
     (`step_kms`) only where work can be, and jumping the clock by
@@ -793,7 +810,16 @@ def fast_forward_chunk(protocol, ms: int, seed_axis: bool = False,
     time, read from the device when omitted.  Each window ends with one
     read of the oracle: the host waits there for the card.  There is no
     `frozen` argument (the JAX chunk has none; the harness runs dense
-    chunks)."""
+    chunks).
+
+    `observer` is the hook of the obs planes' fast-forward twins
+    (`obs/engine.py`, `obs/trace.py`, `obs/audit.py`): when given, each
+    window runs ``observer.window(net, pstate, k, t)`` (`step_kms` with
+    the plane's tap and its fold) in place of `step_kms`, and every
+    oracle read is followed by ``observer.jump(t, dt)``, the jump of
+    ``dt >= 0`` quiet ms from `t` (`_jump` as the JAX planes'
+    `record_jump`, `trace_jump` and `audit_jump` see it, dt 0
+    included)."""
     check_chunk_config(protocol, ms, superstep=superstep,
                        fast_forward=True)
     cfg, k = protocol.cfg, superstep
@@ -811,11 +837,16 @@ def fast_forward_chunk(protocol, ms: int, seed_axis: bool = False,
         t_end = t + ms
         skipped = jumps = 0
         while t < t_end:
-            net, pstate = step_kms(protocol, net, pstate, k, t=t)
+            if observer is None:
+                net, pstate = step_kms(protocol, net, pstate, k, t=t)
+            else:
+                net, pstate = observer.window(net, pstate, k, t)
             t += k
             nw = int(next_work(protocol, net, pstate, t))
             dt = min(nw, t_end) - t
             dt -= dt % k
+            if observer is not None:
+                observer.jump(t, dt)
             if dt > 0:
                 net = _jump(cfg, net, dt, t + dt)
                 t += dt
@@ -888,22 +919,78 @@ def scan_chunk(protocol, ms: int, t0_mod=None, superstep: int = 1,
 
 class Runner:
     """Drives a protocol chunk by chunk — the port of `Runner`
-    (wittgenstein_tpu/core/network.py:1177-1443) without observability
-    planes.  ``superstep=K`` is an upper bound: each call runs the
-    largest K <= it that `pick_superstep` proves for its length and
-    entry time.  ``fast_forward=True`` runs each call through
-    `fast_forward_chunk` and keeps its skip counts (`ff_stats`); for a
-    protocol that is not `fast_forward_ok` it runs dense, as the JAX
-    `Runner` does.  Its first call hands the nodes to the latency
-    model's `validate` hook, where the model has one (a city model
-    refuses nodes placed without a city)."""
+    (wittgenstein_tpu/core/network.py:1177-1443).  ``superstep=K`` is an
+    upper bound: each call runs the largest K <= it that
+    `pick_superstep` proves for its length and entry time (and, with
+    the metrics plane, for `stat_each_ms`).  ``fast_forward=True`` runs
+    each call through `fast_forward_chunk` and keeps its skip counts
+    (`ff_stats`); for a protocol that is not `fast_forward_ok` it runs
+    dense, as the JAX `Runner` does.  Its first call hands the nodes to
+    the latency model's `validate` hook, where the model has one (a city
+    model refuses nodes placed without a city).
 
-    def __init__(self, protocol, superstep=1, fast_forward=False):
+    One observability plane a Runner, as in the JAX package:
+    ``metrics=`` (an `obs.MetricsSpec`), ``trace=`` (an
+    `obs.TraceSpec`) or ``audit=`` (an `obs.AuditSpec`) runs every call
+    through the plane's chunk builder, bit-identical on the state, and
+    keeps each call's carry on the device (`metrics_carries`,
+    `trace_carries`, `audit_carries`; no host read);
+    `metrics_frame`, `trace_frame`, `trace_stats`, `audit_report` and
+    `audit_stats` fetch and stitch them.  The engine writes the ring
+    (and a protocol's `IN_PLACE` leaves) in place: the state handed to
+    `run_ms` is donated, as the JAX `Runner` donates it off the TPU."""
+
+    def __init__(self, protocol, superstep=1, fast_forward=False,
+                 metrics=None, trace=None, audit=None):
+        if sum(p is not None for p in (metrics, trace, audit)) > 1:
+            raise ValueError(
+                "Runner supports ONE observability plane per pass "
+                "(metrics=, trace=, audit=): the planes are separate "
+                "carries and their builders do not compose yet. Fix: "
+                "run the chunk twice (every plane is bit-identical on "
+                "the trajectory), or pick the one you are debugging "
+                "with")
         self.protocol = protocol
         self._superstep = int(superstep)
         self._fast_forward = bool(fast_forward) and fast_forward_ok(protocol)
+        self._metrics, self._trace, self._audit = metrics, trace, audit
         self._ff = []
+        self.metrics_carries = []
+        self.trace_carries = []
+        self.audit_carries = []
         self._validated = False
+
+    def _chunk_fn(self, ms: int, k: int):
+        """The chunk of this Runner's plane (or of none), as ``run(net,
+        pstate, t) -> (net, pstate, skip counts or None, carry or
+        None)``."""
+        proto, ff = self.protocol, self._fast_forward
+        specs = {"metrics": self._metrics, "trace": self._trace,
+                 "audit": self._audit}
+        name = next((n for n, spec in specs.items() if spec is not None),
+                    None)
+        if name is None:
+            if ff:
+                base = fast_forward_chunk(proto, ms, superstep=k)
+                return lambda net, ps, t: (*base(net, ps, t), None)
+            dense = scan_chunk(proto, ms, superstep=k)
+            return lambda net, ps, t: (*dense(net, ps, t), None, None)
+        from .. import obs
+        build = {"metrics": (obs.fast_forward_chunk_metrics,
+                             obs.scan_chunk_metrics),
+                 "trace": (obs.fast_forward_chunk_trace,
+                           obs.scan_chunk_trace),
+                 "audit": (obs.fast_forward_chunk_audit,
+                           obs.scan_chunk_audit)}[name][0 if ff else 1]
+        base = build(proto, ms, specs[name], superstep=k)
+        if ff:
+            return base
+
+        def dense_plane(net, ps, t):
+            net, ps, carry = base(net, ps, t)
+            return net, ps, None, carry
+
+        return dense_plane
 
     def run_ms(self, net: NetState, pstate, ms: int):
         """Advance `ms` milliseconds (wittgenstein_tpu/core/network.py:
@@ -915,21 +1002,85 @@ class Runner:
             self._validated = True
         ms = int(ms)
         t = int(net.time)
-        k = (pick_superstep(self.protocol, ms, t0=t, max_k=self._superstep)
+        stat_ms = (self._metrics.stat_each_ms
+                   if self._metrics is not None else None)
+        k = (pick_superstep(self.protocol, ms, t0=t, max_k=self._superstep,
+                            also_divides=stat_ms)
              if self._superstep >= 2 else 1)
-        if not self._fast_forward:
-            return scan_chunk(self.protocol, ms, superstep=k)(net, pstate,
-                                                               t)
-        net, pstate, stats = fast_forward_chunk(self.protocol, ms,
-                                                superstep=k)(net, pstate, t)
-        self._ff.append(stats)
+        net, pstate, stats, carry = self._chunk_fn(ms, k)(net, pstate, t)
+        if stats is not None:
+            self._ff.append(stats)
+        if carry is not None:
+            for spec, carries in ((self._metrics, self.metrics_carries),
+                                  (self._trace, self.trace_carries),
+                                  (self._audit, self.audit_carries)):
+                if spec is not None:
+                    carries.append(carry)
         return net, pstate
 
     def ff_stats(self):
         """The skip counts summed over every call this Runner made, or
         None when fast-forward was off or never ran
-        (wittgenstein_tpu/core/network.py:1290-1303)."""
+        (wittgenstein_tpu/core/network.py:1317-1330)."""
         if not self._ff:
             return None
         return {k: sum(s[k] for s in self._ff)
                 for k in ("skipped_ms", "jump_count")}
+
+    def metrics_frame(self):
+        """Host-side `obs.MetricsFrame` stitched from every call's carry,
+        or None when metrics were off or never ran
+        (wittgenstein_tpu/core/network.py:1332-1339)."""
+        if self._metrics is None or not self.metrics_carries:
+            return None
+        from ..obs.export import MetricsFrame
+        return MetricsFrame.from_carries(self._metrics,
+                                         self.metrics_carries)
+
+    def trace_frame(self):
+        """Host-side `obs.TraceFrame` stitched from every call's event
+        ring, or None when tracing was off or never ran
+        (wittgenstein_tpu/core/network.py:1341-1347)."""
+        if self._trace is None or not self.trace_carries:
+            return None
+        from ..obs.decode import TraceFrame
+        return TraceFrame.from_carries(self._trace, self.trace_carries)
+
+    def trace_stats(self):
+        """Flight-recorder truncation accounting across every call: total
+        recorded events, the per-call ring high-water mark, capacity and
+        the dropped-event count, or None when tracing was off or never
+        ran (wittgenstein_tpu/core/network.py:1349-1367).  Reads the
+        device."""
+        if self._trace is None or not self.trace_carries:
+            return None
+        from ..obs.export import to_host
+        cursors = [to_host(tc.cursor).reshape(-1)
+                   for tc in self.trace_carries]
+        dropped = sum(int(to_host(tc.dropped).sum())
+                      for tc in self.trace_carries)
+        return {"events": int(sum(c.sum() for c in cursors)),
+                "high_water": int(max(c.max() for c in cursors)),
+                "capacity": self._trace.capacity,
+                "dropped": dropped}
+
+    def audit_report(self):
+        """Host-side `obs.AuditReport` stitched from every call's carry,
+        or None when the audit plane was off or never ran
+        (wittgenstein_tpu/core/network.py:1369-1380).  Reads the
+        device."""
+        if self._audit is None or not self.audit_carries:
+            return None
+        from ..obs.audit import monitored_invariants
+        from ..obs.audit_report import AuditReport
+        return AuditReport.from_carries(
+            self._audit, self.audit_carries,
+            monitored=monitored_invariants(self._audit,
+                                           self.protocol.cfg))
+
+    def audit_stats(self):
+        """The audit verdict dict across every call, or None when the
+        plane was off or never ran
+        (wittgenstein_tpu/core/network.py:1382-1387)."""
+        rep = self.audit_report()
+        return None if rep is None else rep.stats()

@@ -64,9 +64,15 @@ def register_struct(cls, static=()):
     def unflatten(leaves, ctx):
         return cls(**dict(zip(names, leaves)), **dict(zip(static, ctx)))
 
+    def flatten_with_keys(obj):
+        leaves, ctx = flatten(obj)
+        return [(pytree.GetAttrKey(k), v) for k, v in zip(names, leaves)], \
+            ctx
+
     pytree.register_pytree_node(
         cls, flatten, unflatten,
-        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}",
+        flatten_with_keys_fn=flatten_with_keys)
     return cls
 
 

@@ -16,7 +16,14 @@ Bitset rows are int32 words holding the JAX package's uint32 bits (see
 kernels, on CPU tensors their plain versions.  The step is written out
 of place, so it runs under `torch.func.vmap` over a seed batch (the
 state registered as a pytree, both kernels custom ops whose vmap rules
-fold the seeds into their rows).
+fold the seeds into their rows), with one exception: the snapshot pool
+(``[N, rounds, W]``, 7.1 GB at 32,768 nodes) has its round slot written
+IN PLACE, as the engine writes the ring, where the JAX package writes it
+with ``.at[].set`` under donation.  A copy of the pool every ms would
+double its memory and move 14 GB a simulated ms at that size.  So a
+state handed to the step is donated: the caller keeps no earlier pool
+(`GSFSignature.IN_PLACE` names the leaf; `core/harness.py` keeps the
+stopped runs' rows).
 """
 
 from __future__ import annotations
@@ -80,6 +87,10 @@ class GSFSignature(LevelMixin):
 
     # Dests come from sibling-half level peer sets — never self.
     may_self_send = False
+    #: protocol-state leaves the step writes in place (see the module
+    #: docstring); a caller that keeps an earlier state keeps no copy
+    #: of them
+    IN_PLACE = ("pool",)
 
     def __init__(self, node_count=1024, threshold=None, pairing_time=3,
                  timeout_per_level_ms=50, period_duration_ms=10,
@@ -461,16 +472,15 @@ class GSFSignature(LevelMixin):
         dest = torch.cat(dest, 1)
 
         # Snapshot pool: senders record their V row for this round slot,
-        # after the sends (the JAX order).
+        # after the sends (the JAX order), in place (`IN_PLACE`).
         wrote = (dest >= 0).any(1)
-        pool = p.pool.clone()
-        pool[:, rslot] = torch.where(wrote[:, None], p.verified,
-                                     p.pool[:, rslot])
+        slot = p.pool[:, rslot]
+        slot.copy_(torch.where(wrote[:, None], p.verified, slot))
 
         out = empty_outbox(self.cfg, dev, slot0=0).replace(
             dest=dest, payload=torch.cat(payload, 1),
             size=torch.cat(sizes, 1))
-        return p.replace(pos=pos, remaining=remaining, pool=pool,
+        return p.replace(pos=pos, remaining=remaining,
                          accel_pending=accel_pending), out
 
     # ---------------------------------------------------------------- misc
