@@ -106,6 +106,14 @@ of it, the seed-folded engine where it takes the protocol;
 monitors on seed 0; ``--no-audit`` drops it) and, with ``--trace``,
 ``trace`` (the flight recorder on seed 0, a ``--trace-cap``-row ring,
 65,536 by default, which must hold one event a simulated ms).
+``--chaos '<FaultSchedule JSON>'`` adds `bench.py`'s ``chaos`` block
+(``WTPU_CHAOS``, bench.py:267-320): the schedule is parsed and validated
+against the protocol's node count and the line's span before the timed
+reps (a malformed or out-of-range schedule exits non-zero there); after
+them seed 0 runs under `chaos.ChaosProtocol` on the dense audited
+engine at K=1, then a fault-free twin, and the block carries
+``schedule`` (event counts), ``transitions``, ``audit`` (the faulted
+run's verdict), ``faulted`` and ``baseline`` (`chaos.impact_summary`).
 
 Prints one JSON line in `bench.py`'s shape: ``metric``
 (``{proto}_{N}n_{R}seeds_agg_sim_ms_per_sec``, ``_cardinal`` and
@@ -639,6 +647,35 @@ def obs_blocks(args, proto, total_ms):
     return out
 
 
+def chaos_block(proto, sched, total_ms):
+    """The un-timed chaos pass of the line's ``chaos`` block (`bench.py`'s
+    `_collect_chaos`, bench.py:267-313): seed 0 under `ChaosProtocol` on
+    the dense audited engine at K=1, then its fault-free twin.  A
+    violated verdict is loud on stderr.  Never raises: a failed pass
+    reports itself in the block."""
+    from wittgenstein_tpu_torch import obs
+    from wittgenstein_tpu_torch.chaos import ChaosProtocol, impact_summary
+    try:
+        spec = obs.AuditSpec()
+        report, (nets, _) = obs.audit_variant(
+            ChaosProtocol(proto, sched), total_ms, {"superstep": 1}, spec)
+        _, (nets0, _) = obs.audit_variant(proto, total_ms,
+                                          {"superstep": 1}, spec)
+        if not report.clean:
+            print(f"bench: AUDIT VIOLATIONS under the chaos schedule:\n"
+                  f"{report.format()}", file=sys.stderr)
+        return {"schedule": sched.counts(),
+                "transitions": len(sched.transition_times()),
+                "audit": obs.audit_block(report),
+                "faulted": impact_summary(nets),
+                "baseline": impact_summary(nets0)}
+    except Exception as e:      # noqa: BLE001 — the bench line must emit
+        print(f"bench: chaos pass failed: {type(e).__name__}: "
+              f"{e!s:.300}", file=sys.stderr)
+        return {"error": f"{type(e).__name__}: {e!s:.200}",
+                "schedule": sched.counts()}
+
+
 def check_trace_cap(args, total_ms):
     """`bench.py`'s `_check_trace_cap` (bench.py:193-213): a ring smaller
     than one event row a simulated ms truncates from the first busy
@@ -676,6 +713,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--trace-cap", type=int, default=1 << 16)
     ap.add_argument("--no-audit", dest="audit", action="store_false")
+    ap.add_argument("--chaos", default=None, metavar="JSON")
     args = ap.parse_args(argv)
     args.first_seed = 0
     if args.attesters and args.proto not in ("dfinity", "casper"):
@@ -727,6 +765,14 @@ def main(argv=None) -> int:
     chunk = args.chunk
     steps = max(1, -(-args.ms // chunk))
     check_trace_cap(args, steps * chunk)
+    sched = None
+    if args.chaos:
+        from wittgenstein_tpu_torch.chaos import FaultSchedule
+        try:
+            sched = FaultSchedule.from_json(args.chaos).validate(
+                n=proto.cfg.n, sim_ms=steps * chunk)
+        except ValueError as e:
+            ap.error(f"--chaos: {e}")
     clock = {"t": 0}
 
     def init(first=0):
@@ -766,6 +812,8 @@ def main(argv=None) -> int:
                       if platform == "cuda" else platform),
            "card": card(platform), **res,
            **obs_blocks(args, proto, steps * chunk)}
+    if sched is not None:
+        out["chaos"] = chaos_block(proto, sched, steps * chunk)
     for row in getattr(args, "csv", ()):
         print(row, flush=True)
     print(json.dumps(out), flush=True)

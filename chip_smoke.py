@@ -82,10 +82,10 @@ Phases (any failure exits non-zero; nothing is caught):
 10. tier 2: exact Handel at 32,768 nodes with hashed emission, no
    snapshot pool, two q_sig pieces and two ring sub-planes
    (`tier2_params`, `TIER2_BOX_SPLIT`), one seed as in 9 in 100-ms
-   chunks to 400 ms: equal to the JAX golden digests at 100 and 400 ms,
-   zero drops, clamps and evictions, route once a window per sub-plane
-   (400), merge every ms and score on the verification ms per piece
-   (800, 200);
+   chunks to 200 ms (400 until the chaos phase X came): equal to the
+   JAX golden digests at 100 and 200 ms, zero drops, clamps and
+   evictions, route once a window per sub-plane (200), merge every ms
+   and score on the verification ms per piece (400, 100);
 11. an attack: `Handel(**reference_default_params(1024),
    byzantine_suicide=True)`, seed 0, 200 ms through `Runner.run_ms`:
    equal to its JAX golden, honest blacklists filled, the kernels once
@@ -107,10 +107,11 @@ D. Dfinity with 10,000 attesters (bench_suite's line, 10,111 nodes),
    12,000, every chunk's skip counts the JAX engine's, zero unicast and
    arena drops, heads within 1 (the JAX run stops at height 2, short of
    bench_suite's 30: the port is held to the JAX run);
-Q. `bench.py` `bench_quiet`'s lines, 4 seeds in one batch, 400 ms in
-   200-ms `network.scan_chunk` chunks at K=2 (`bench_torch.py` runs
-   1,000; cut for time, PR 10, its goldens regenerated; P2PFlood's
-   flood completes by 400): Dfinity (31 nodes) dense
+Q. `bench.py` `bench_quiet`'s lines, 4 seeds in one batch, 300 ms in
+   100-ms `network.scan_chunk` chunks at K=2 (`bench_torch.py` runs
+   1,000 in 200-ms chunks; cut for time, to 400 and then 300, its
+   goldens regenerated; P2PFlood's flood completes by 300): Dfinity (31
+   nodes) dense
    and fast-forwarded (the JAX engine's skip counts chunk by chunk),
    P2PFlood (`quiet_params`, 256 nodes) dense; every seed equal to its
    golden.
@@ -188,7 +189,31 @@ O. the obs planes on the card, the twins of the JAX package's route
    the metrics plane (stat_each_ms 4, 24 ms), the flight recorder (40
    ms) and the audit plane (``Runner(audit=)``, 40 ms): each carry and
    state equal to the JAX planes' (``tests/torch_parity.py
-   obs-golden``), the audit clean, route once a ms.
+   obs-golden``), the audit clean, route once a ms;
+X. the chaos plane and the memo plane's freeze synthesis
+   (``tests/torch_parity.py chaos-goldens``): X1 the headline (16 seeds
+   of the 2048-node reference-default Handel, seed-folded engine, K=2,
+   phase hints) wrapped in `ChaosProtocol` to 200 ms under churn of 32
+   nodes up at init in every seed (40-120 ms), a partition of nodes
+   0-1,023 (60-140), 200 per mille loss on every link (20-160) and +3
+   ms on the links from the first half to the second (100-180): every
+   seed equal to the JAX golden at 100 and 200 ms, the schedule equal to
+   the golden's, route once a window, merge every ms, score on the
+   verification ms, the faulted `impact_summary` beside the plain
+   headline's at 200 ms (phase 5), K1's window at 100 ms (inside every
+   fault) replayed against its plain version; X2 `PingPong(1000)`, 16
+   seeds, under tests/test_checkpoint.py:111's schedule scaled to 1,000
+   nodes, in 40-ms chunks at the proved K: `checkpoint.save` at 40 ms
+   (inside an outage and the partition; 6.4 GB, uncompressed, in
+   memory), `checkpoint.load` into a fresh state, on to 120 ms, equal
+   to the uninterrupted run on the card and to the JAX golden at 120
+   ms; X3 `PingPong(1000)`, 16 seeds, fixed 10-ms latency, 240 ms in
+   40-ms chunks under the metrics, audit and trace planes (one pass a
+   chunk, `planes_chunk`): at each chunk boundary `memo.build_probe`
+   marks the quiet runs, and for each, `frozen_final` and
+   `frozen_carries` equal the state and the three carries of stepping
+   its remaining chunks (at least one frozen).  ``--only-chaos`` builds
+   the kernels and runs phase X alone.
 
 The determinism reruns run under a plane each and are held to the same
 goldens: the headline's (5b) under the metrics plane (its totals
@@ -293,7 +318,7 @@ T3_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                          "golden_cardinal65536_k2.json")
 T2_NODES = 32768
 T2_CHUNK = 100
-T2_MS = 400
+T2_MS = 200
 T2_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                          "golden_tier2_32768.json")
 ATTACK_NODES = 1024
@@ -316,12 +341,12 @@ D_FF_TICKS = 12000      # 120 simulated s in 10-ms ticks
 D_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                         "golden_dfinity10k_400ticks.json")
 Q_SEEDS = 4
-Q_CHUNK = 200
-Q_MS = 400
+Q_CHUNK = 100
+Q_MS = 300
 QD_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                         "golden_dfinity31_r4_400ticks.json")
+                         "golden_dfinity31_r4_300ticks.json")
 QP_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
-                         "golden_p2pflood256_r4_400ms.json")
+                         "golden_p2pflood256_r4_300ms.json")
 K_SEEDS = 8
 K_CHUNK = 600
 K_TICKS = 1200          # 24 simulated s, 3 slots (BASELINE's 5 h cut)
@@ -378,6 +403,17 @@ G32_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                           "golden_gsf32768_100ms.json")
 OBS_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                           "golden_obs_pingpong64.json")
+X_CHUNK = 100           # X1: the faulted headline in 100-ms chunks
+X_MS = (100, 200)       # the golden's checkpoints
+X_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                        "golden_headline_chaos_200ms.json")
+X_CHURN = 32
+X2_CHUNK = 40
+X2_MS = 120
+X2_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                         "golden_pingpong1000_r16_chaos_120ms.json")
+X3_CHUNK = 40
+X3_MS = 240
 HEADLINE_STAT_MS = 20   # the headline's instrumented rerun: one row a period
 PP_TRACE_CAP = 8192     # the PingPong rerun's event ring
 SYNC_MS = 20            # simulated ms over which a plane's syncs are counted
@@ -1403,7 +1439,11 @@ PATH_LAUNCHES = {
                "gsf_score": G32_MS[-1]},
     "obs_metrics": {"route": 24},
     "obs_trace": {"route": 40},
-    "obs_audit": {"route": 40}}
+    "obs_audit": {"route": 40},
+    "chaos_headline": {"route": X_MS[-1] // 2, "merge": X_MS[-1],
+                       "score": X_MS[-1] // 4},
+    "chaos_checkpoint": {"route": (2 * X2_MS - X2_CHUNK) // 2},
+    "chaos_freeze": {"route": X3_MS // 2}}
 
 
 # ------------------------------------------------------------- main path
@@ -1586,6 +1626,7 @@ def headline_run(dev, golden=None, ms=HEADLINE_MS, metrics=None):
     from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
     from wittgenstein_tpu_torch.obs import scan_chunk_batched_metrics
     proto, (nets, ps) = headline_init(dev)
+    impact = None
     state_bytes = sum(x.numel() * x.element_size()
                       for x in pytree.tree_leaves((nets, ps)))
     if metrics is None:
@@ -1597,20 +1638,23 @@ def headline_run(dev, golden=None, ms=HEADLINE_MS, metrics=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    wall, first, carries = 0.0, None, []
+    wall, first, carries, walls = 0.0, None, [], []
     for i in range(ms // HEADLINE_CHUNK):
         t0 = time.perf_counter()
         nets, ps = run(nets, ps, t=i * HEADLINE_CHUNK)
         if metrics is not None:
             carries.append(run.carry)
         torch.cuda.synchronize()
-        wall += time.perf_counter() - t0
+        walls.append(time.perf_counter() - t0)
+        wall += walls[-1]
         if golden is not None and i == 0:
             first = check_headline_golden(golden, nets, ps)
+            from wittgenstein_tpu_torch.chaos import impact_summary
+            impact = impact_summary(nets)
     launches = read_counters()
     frac = [float((nets.nodes.done_at[r][~nets.nodes.down[r]] > 0)
                   .float().mean()) for r in range(HEADLINE_SEEDS)]
-    res = dict(wall_s=wall, sim_ms_per_s=ms / wall,
+    res = dict(wall_s=wall, chunk_walls_s=walls, sim_ms_per_s=ms / wall,
                agg_sim_ms_per_s=HEADLINE_SEEDS * ms / wall,
                frac_done=sum(frac) / len(frac), frac_done_min=min(frac),
                dropped=int(nets.dropped.sum()),
@@ -1620,6 +1664,8 @@ def headline_run(dev, golden=None, ms=HEADLINE_MS, metrics=None):
                msg_sent=int(nets.nodes.msg_sent.sum()),
                state_bytes=state_bytes,
                peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if impact is not None:
+        res[f"impact_{HEADLINE_CHUNK}ms"] = impact
     if metrics is not None:
         res["carries"], res["state"] = carries, (nets, ps)
     return (res, launches, convert.seed_digests(*convert.to_numpy(nets, ps)),
@@ -1958,24 +2004,16 @@ def oracle_ms(proto, nets, ps, t):
     return (time.perf_counter() - t0) / ITERS * 1e3
 
 
-def ff_headline(dev):
+def ff_headline(dev, dense_wall):
     """Path F(a): the headline's 16 seeds on `fast_forward_chunk_batched`
     (K=2, no phase hints) to 200 ms, beside the dense headline chunk
-    (phase hints, as `bench_torch.py` runs it) on a fresh batch; counters
-    set to 0 just before the fast-forward run.  Every seed equals the
-    JAX golden digests at 200 ms."""
+    (phase hints, as `bench_torch.py` runs it: `dense_wall` is phase 5's
+    first 200-ms chunk); counters set to 0 just before the fast-forward
+    run.  Every seed equals the JAX golden digests at 200 ms."""
     import torch
-    from wittgenstein_tpu_torch.core.batched import (
-        fast_forward_chunk_batched, scan_chunk_batched)
+    from wittgenstein_tpu_torch.core.batched import \
+        fast_forward_chunk_batched
     golden = load_golden(HEADLINE_GOLDEN, FF_MS, HEADLINE_SEEDS)
-    proto, (nets, ps) = headline_init(dev)
-    dense = scan_chunk_batched(proto, FF_MS, t0_mod=0, superstep=2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    nets, ps = dense(nets, ps, t=0)
-    torch.cuda.synchronize()
-    dense_wall = time.perf_counter() - t0
-    del nets, ps
     proto, (nets, ps) = headline_init(dev)
     run = fast_forward_chunk_batched(proto, FF_MS, superstep=2)
     torch.cuda.synchronize()
@@ -2464,6 +2502,334 @@ def obs_run(dev):
     return out
 
 
+
+# ---------------------------------------------- the chaos and memo planes
+
+def chaos_headline_schedule(down):
+    """Phase X1's fault schedule as JSON from the batch's entry down
+    flags ([R, N]; `tests/torch_parity.py` `chaos_headline_schedule`,
+    whose golden records it): churn of the first `churn` nodes up at
+    init in every seed, down 40-120 ms; nodes [0, n/2) in partition 1
+    from 60 to 140 ms; 200 per mille loss on every link from 20 to 160
+    ms; +3 ms from the first half to the second from 100 to 180 ms."""
+    import numpy as np
+    live = ~np.asarray(down).any(0)
+    n = live.shape[0]
+    h = n // 2
+    return {"churn": [[int(v), 40, 120]
+                      for v in np.flatnonzero(live)[:X_CHURN]],
+            "partitions": [[60, 140, 1, 0, h]],
+            "loss": [[20, 160, 200, 0, n, 0, n]],
+            "delay": [[100, 180, 3, 0, h, h, n]]}
+
+
+def checkpoint_chaos_schedule():
+    """Phase X2's schedule: tests/test_checkpoint.py:111's, its node
+    ranges scaled from 64 nodes to PP_NODES."""
+    n = PP_NODES
+    return {"churn": [[3, 20, 60], [5, 40, 100]],
+            "partitions": [[30, 90, 1, 0, n // 2]],
+            "loss": [[0, 120, 250, 0, n, 0, n]]}
+
+
+def states_equal(a, b) -> bool:
+    """Two port states (or carries) equal leaf for leaf, on the card."""
+    import torch
+    from torch.utils import _pytree as pytree
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def route_replay(name):
+    """The K1 call captured as ROUTE_CASES[name] (`capture_route`) run
+    again on copies of its ring through the kernel and its plain
+    version: equal outputs and drop counts.  The replay's launch is not
+    counted."""
+    import torch
+    from wittgenstein_tpu_torch.ops.route import (bin_into_ring,
+                                                  bin_into_ring_plain)
+    ring, msg = ROUTE_CASES.pop(name)
+    plain = [t.clone() for t in ring]
+    kern = [t.clone() for t in ring]
+    launches = bin_into_ring.launches
+    dk = bin_into_ring(*kern, *msg)
+    bin_into_ring.launches = launches
+    dp = bin_into_ring_plain(*plain, *msg)
+    err = max_abs_err(plain + [dp], kern + [dk])
+    if err or not all(torch.equal(a, b) for a, b in zip(plain, kern)):
+        fail(f"{name}: the route kernel differs from its plain version "
+             f"(max err {err})")
+    return int(msg[-1].sum())
+
+
+def chaos_headline_run(dev, plain_impact):
+    """X1 (module docstring): the faulted headline in 100-ms chunks of
+    `scan_chunk_batched` (K=2, phase hints), counters set to 0 just
+    before; every seed against the JAX golden at 100 and 200 ms (outside
+    the timed wall); K1's window at 100 ms captured and replayed against
+    its plain version."""
+    import torch
+    from wittgenstein_tpu_torch.chaos import (ChaosProtocol, FaultSchedule,
+                                              impact_summary)
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    with open(X_GOLDEN) as f:
+        golden = json.load(f)
+    proto, (nets, ps) = headline_init(dev)
+    sched = chaos_headline_schedule(nets.nodes.down.cpu().numpy())
+    if sched != golden["schedule"]:
+        fail(f"X1: the schedule built from the batch's init differs from "
+             f"the golden's: {sched} against {golden['schedule']}")
+    cp = ChaosProtocol(proto, FaultSchedule.from_json(sched))
+    run = scan_chunk_batched(cp, X_CHUNK, t0_mod=0, superstep=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    wall = 0.0
+    with capture_route("route_chaos", {X_CHUNK // 2}):
+        for t in range(0, X_MS[-1], X_CHUNK):
+            t0 = time.perf_counter()
+            nets, ps = run(nets, ps, t=t)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            want = golden["ms"][str(t + X_CHUNK)]
+            check_seed_goldens("X1 faulted headline", nets, ps,
+                               {"ms": t + X_CHUNK, "seeds": want["seeds"]})
+    launches = read_counters()
+    n_valid = route_replay("route_chaos")
+    impact = impact_summary(nets)
+    log(f"X1: K1 on the window at {X_CHUNK} ms ({n_valid} messages) "
+        "equals its plain version")
+    if impact != want["impact"]:
+        fail(f"X1: impact {impact} differs from the JAX run's "
+             f"{want['impact']}")
+    log(f"X1 impact at {X_MS[-1]} ms: faulted {impact}, plain (phase 5) "
+        f"{plain_impact}; launches route {launches['route']}, merge "
+        f"{launches['merge']}, score {launches['score']}")
+    res = dict(wall_s=wall, sim_ms_per_s=X_MS[-1] / wall,
+               agg_sim_ms_per_s=HEADLINE_SEEDS * X_MS[-1] / wall,
+               schedule=cp.chaos_schedule.counts(),
+               transitions=len(cp.chaos_schedule.transition_times()),
+               faulted=impact, plain=plain_impact,
+               dropped=int(nets.dropped.sum()),
+               clamped=int(nets.clamped.sum()),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return res, launches
+
+
+def chaos_checkpoint_run(dev):
+    """X2 (module docstring): the run saved at 40 ms into an in-memory
+    .npz (uncompressed: the 16 seeds' ring is 6.4 GB) goes on
+    uninterrupted to 120 ms; a fresh state loaded from the file goes on
+    to 120 ms too.  Counters set to 0 just before.  The two equal on the
+    card, and the resumed one equals the JAX golden at 120 ms."""
+    import io
+
+    import torch
+    from wittgenstein_tpu_torch.chaos import (ChaosProtocol, FaultSchedule,
+                                              impact_summary)
+    from wittgenstein_tpu_torch.core.network import (pick_superstep,
+                                                     scan_chunk)
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.models.pingpong import PingPong
+    from wittgenstein_tpu_torch.utils import checkpoint
+    with open(X2_GOLDEN) as f:
+        golden = json.load(f)
+    sched = checkpoint_chaos_schedule()
+    if sched != golden["schedule"]:
+        fail(f"X2: schedule {sched} differs from the golden's "
+             f"{golden['schedule']}")
+    cp = ChaosProtocol(PingPong(node_count=PP_NODES, device=dev),
+                       FaultSchedule.from_json(sched))
+    k = pick_superstep(cp, X2_CHUNK, t0=0)
+    if k != 2:
+        fail(f"X2: the gate proves K={k} under the schedule, want 2")
+    run = scan_chunk(cp, X2_CHUNK, superstep=k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    straight = run(*init_batched(cp, torch.arange(PP_SEEDS)), t=0)
+    torch.cuda.synchronize()
+    c0 = time.perf_counter()
+    buf = io.BytesIO()
+    checkpoint.save(buf, *straight, meta={"time": X2_CHUNK},
+                    compress=False)
+    size = buf.tell()
+    save_s = time.perf_counter() - c0
+    for t in range(X2_CHUNK, X2_MS, X2_CHUNK):
+        straight = run(*straight, t=t)
+    torch.cuda.synchronize()
+    c0 = time.perf_counter()
+    buf.seek(0)
+    net, ps, meta = checkpoint.load(buf, cp, seed=0, device=dev)
+    del buf
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - c0
+    if meta != {"time": X2_CHUNK} or net.time.tolist() != \
+            [X2_CHUNK] * PP_SEEDS:
+        fail(f"X2: the checkpoint restored meta {meta}, times "
+             f"{net.time.tolist()}")
+    resumed = (net, ps)
+    for t in range(X2_CHUNK, X2_MS, X2_CHUNK):
+        resumed = run(*resumed, t=t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    if not states_equal(straight, resumed):
+        fail("X2: the resumed run differs from the uninterrupted one")
+    del straight
+    check_seed_goldens("X2 resumed PingPong", *resumed,
+                       {"ms": X2_MS, "seeds":
+                        golden["ms"][str(X2_MS)]["seeds"]})
+    res = dict(superstep=k, wall_s=wall, save_s=save_s, load_s=load_s,
+               checkpoint_bytes=size, impact=impact_summary(resumed[0]),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    log(f"X2: resumed at {X2_CHUNK} ms from a {size / 1e9:.2f}-GB "
+        f"checkpoint (save {save_s:.2f} s, load {load_s:.2f} s); equal to "
+        f"the uninterrupted run and the JAX golden at {X2_MS} ms")
+    return res, launches
+
+
+def planes_chunk(proto, chunk, k, specs):
+    """``run(net, pstate, t) -> (net, pstate, {plane: carry})``: `chunk`
+    ms at K=`k` under the metrics, audit and trace planes at once (their
+    builders' steps in one engine pass: the audit and trace taps both
+    ride `step_kms`, each writing only its own cell, and the metrics
+    recorder samples after each window), so each carry is the one its
+    own plane's chunk records (`specs`: their specs by plane)."""
+    from wittgenstein_tpu_torch.core.network import step_kms
+    from wittgenstein_tpu_torch.obs.audit import (audit_tap, fold_window,
+                                                  init_audit)
+    from wittgenstein_tpu_torch.obs.plane import init_metrics, record_step
+    from wittgenstein_tpu_torch.obs.trace import init_trace, trace_tap
+    mspec, aspec, tspec = specs["metrics"], specs["audit"], specs["trace"]
+
+    def run(net, pstate, t):
+        t0 = t
+        mc = init_metrics(mspec, chunk, net.time)
+        ac, tc = init_audit(aspec, net), init_trace(tspec, net.nodes.down)
+        for _ in range(chunk // k):
+            acell, tcell = [None], [tc, None]
+            taps = (audit_tap(proto, aspec, acell),
+                    trace_tap(proto, tspec, tcell))
+
+            def tap(ti, n, out):
+                for f in taps:
+                    f(ti, n, out)
+            net, pstate = step_kms(proto, net, pstate, k, t=t, tap=tap)
+            ac = fold_window(aspec, proto.cfg, ac, acell[0], net, k, t)
+            tc = tcell[0]
+            mc = record_step(mspec, mc, net, t0, t + k, n_steps=k)
+            t += k
+        return net, pstate, {"metrics": mc, "audit": ac, "trace": tc}
+
+    return run
+
+
+def chaos_freeze_run(dev):
+    """X3 (module docstring): the spec's chunks stepped under the three
+    planes in one pass a chunk (`planes_chunk`; before any run is quiet,
+    whose carries nothing compares, without them), counters set to 0
+    just before.  A run first quiet at boundary b is copied there; its
+    `frozen_final` must equal the state at 240 ms, and at every later
+    boundary the freeze of its current state the first; each boundary's
+    `frozen_carries` must equal the stepped carries of the chunks after
+    it."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch import obs
+    from wittgenstein_tpu_torch.core.network import scan_chunk
+    from wittgenstein_tpu_torch.core.state import init_batched
+    from wittgenstein_tpu_torch.memo import (build_probe, frozen_carries,
+                                             frozen_final)
+    from wittgenstein_tpu_torch.serve import ScenarioSpec
+    spec = ScenarioSpec(protocol="PingPong",
+                        params={"node_count": PP_NODES},
+                        latency_model="NetworkFixedLatency(10)",
+                        seeds=tuple(range(PP_SEEDS)), sim_ms=X3_MS,
+                        chunk_ms=X3_CHUNK, superstep=2,
+                        obs=("metrics", "audit", "trace")).validate()
+    proto = spec.build_protocol(device=dev)
+    cfg, chunk = proto.cfg, spec.chunk_ms
+    n_chunks = spec.sim_ms // chunk
+    run = planes_chunk(proto, chunk, spec.superstep, {
+        "metrics": obs.MetricsSpec(stat_each_ms=spec.stat_each_ms),
+        "audit": obs.AuditSpec(),
+        "trace": obs.TraceSpec(capacity=spec.trace_capacity)})
+    plain = scan_chunk(proto, chunk, superstep=spec.superstep)
+    probe = build_probe(proto)
+
+    def lane(tree, r):
+        return pytree.tree_map(lambda x: x[r:r + 1], tree)
+
+    state = init_batched(proto, torch.arange(PP_SEEDS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    first, synth, carries, frozen_at = {}, [], [], []
+    for b in range(n_chunks):
+        quiet = [r for r, w in enumerate(probe(*state).tolist())
+                 if w >= spec.sim_ms]
+        frozen_at.append(len(quiet))
+        for r in quiet:
+            one = lane(state, r)
+            if r not in first:
+                first[r] = frozen_final(
+                    cfg, pytree.tree_map(torch.clone, one), spec.sim_ms)
+            elif not states_equal(frozen_final(cfg, one, spec.sim_ms),
+                                  first[r]):
+                fail(f"X3: run {r}'s freeze at {b * chunk} ms differs "
+                     "from its first")
+            synth.append((r, b, frozen_carries(spec, cfg, one, b * chunk,
+                                               n_chunks - b)))
+        if first:
+            *state, got = run(*state, t=b * chunk)
+        else:
+            # no run is frozen yet: no carry of this chunk is compared
+            state, got = plain(*state, t=b * chunk), None
+        carries.append(got)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    if not first:
+        fail("X3: no run froze")
+    for r, fin in first.items():
+        if not states_equal(fin, lane(state, r)):
+            fail(f"X3: run {r}'s frozen_final differs from stepping")
+    carries = [c and pytree.tree_map(lambda x: x.cpu(), c)
+               for c in carries]
+    for r, b, fc in synth:
+        for c in range(n_chunks - b):
+            for plane in spec.obs:
+                if not states_equal(lane(carries[b + c][plane], r),
+                                    fc[plane][c]):
+                    fail(f"X3: run {r}'s {plane} carry of chunk {b + c}, "
+                         f"synthesized at {b * chunk} ms, differs from "
+                         "stepping")
+    log(f"X3: {len(first)} of {PP_SEEDS} runs frozen (quiet runs at each "
+        f"boundary: {frozen_at}); {len(synth)} tails synthesized, each "
+        "equal to stepping its chunks under the three planes")
+    res = dict(superstep=spec.superstep, wall_s=wall,
+               frozen_runs=len(first), quiet_at_boundary=frozen_at,
+               tails_checked=len(synth),
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return res, launches
+
+
+def chaos_phase(dev, plain_impact):
+    """Phase X: X1, X2 and X3, each with its launches; K1 on X1's
+    window."""
+    out = {"chaos_headline": chaos_headline_run(dev, plain_impact),
+           "chaos_checkpoint": chaos_checkpoint_run(dev),
+           "chaos_freeze": chaos_freeze_run(dev)}
+    for key, (res, launches) in out.items():
+        log(f"{key}: {json.dumps(res)} launches {launches}")
+        check_launches(key, launches)
+    return out
+
 # ------------------------------------- SanFermin, Dfinity and P2PFlood
 
 def ops_per_ms(window, ms):
@@ -2703,7 +3069,7 @@ def dfinity_run(dev):
 
 def quiet_run(dev, line, n=None, golden_path=None):
     """Path Q: `bench.py` `bench_quiet`'s lines, 4 seeds in one batch,
-    Q_MS in 200-ms `network.scan_chunk` calls on `init_batched` at
+    Q_MS in Q_CHUNK-ms `network.scan_chunk` calls on `init_batched` at
     the proved K (2), counters set to 0 just before: ``dfinity``, the
     reference default (31 nodes), dense and then fast-forwarded
     (`fast_forward_chunk(seed_axis=True)`, the JAX engine's skip counts
@@ -3716,6 +4082,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-protocols-prefix", default="profile_")
     ap.add_argument("--profile-gsf32k-file", default="profile_gsf32k.txt")
     ap.add_argument("--memory-seeds", type=int, default=0, metavar="R")
+    ap.add_argument("--only-chaos", action="store_true",
+                    help="build, then phase X alone, without the "
+                    "summary lines")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3767,6 +4136,13 @@ def main(argv=None) -> int:
             f" per call {r['call_ms'] * 1e3:.2f} us vs plain "
             f"{r['plain_call_ms'] * 1e3:.2f} us"
             + (f"; phases {r['phases_us']}" if "phases_us" in r else ""))
+    if args.only_chaos:
+        t0 = time.perf_counter()
+        for key, (res_, _) in chaos_phase(dev, None).items():
+            log(f"{key}: {json.dumps(res_)}")
+        log(f"phase X: {time.perf_counter() - t0:.1f} s")
+        done("X")
+        return 0
     for name, *_ in KERNELS:
         if name not in CAPTURED:
             kernel_case(name)
@@ -3856,7 +4232,7 @@ def main(argv=None) -> int:
     done("7")
 
     # 8. the fast-forward engine, beside the dense runs of its paths
-    fares, falaunches = ff_headline(dev)
+    fares, falaunches = ff_headline(dev, hres["chunk_walls_s"][0])
     log(f"fast-forwarded headline: {json.dumps(fares)} launches "
         f"{falaunches}")
     check_launches("ff_headline", falaunches)
@@ -3997,6 +4373,14 @@ def main(argv=None) -> int:
         check_launches(key, olaunches)
     done("O")
 
+    # X. the chaos plane on the headline, a checkpoint across an outage,
+    # lane freezing
+    t0 = time.perf_counter()
+    chaos = chaos_phase(dev, hres[f"impact_{HEADLINE_CHUNK}ms"])
+    x_wall = time.perf_counter() - t0
+    log(f"phase X: {x_wall:.1f} s")
+    done("X")
+
     memory = {}
     if args.memory_seeds:
         memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
@@ -4108,7 +4492,8 @@ def main(argv=None) -> int:
                      **{k: v[1] for k, v in lat.items()},
                      **{k: v[1] for k, v in committee.items()},
                      "gsf32k": g32launches,
-                     **{k: v[1] for k, v in obs.items()}}
+                     **{k: v[1] for k, v in obs.items()},
+                     **{k: v[1] for k, v in chaos.items()}}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -4154,6 +4539,8 @@ def main(argv=None) -> int:
                       "phases_la_wall_s": la_wall,
                       "gsf32k_path": g32res, "phase_g32_wall_s": g32_wall,
                       **{f"{k}_path": v[0] for k, v in obs.items()},
+                      **{f"{k}_path": v[0] for k, v in chaos.items()},
+                      "phase_x_wall_s": x_wall,
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

@@ -13,8 +13,11 @@ lines; Casper IMD's reference configuration and `try_miner`'s ETHPoW
 batch, ``... casper-golden`` and ``... ethpow-golden``; the Pareto
 jitter bits, IC3's table and the pareto speed's fixes, ``...
 latency-tables``; the P2PHandel and Optimistic drivers on the city
-latency, ``... city-goldens``; and the ENR, Slush, Snowflake and Paxos
-batches, ``... committee-goldens``).
+latency, ``... city-goldens``; the ENR, Slush, Snowflake and Paxos
+batches, ``... committee-goldens``; and the headline under a fault
+schedule at 100 and 200 ms and the 16-seed PingPong(1000) under
+tests/test_checkpoint.py's schedule at 40 and 120 ms, ``...
+chaos-goldens``, about 3 minutes).
 
 Regenerate the first three with ``JAX_PLATFORMS=cpu python
 tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
@@ -71,7 +74,7 @@ GSF_BATCH_SEEDS, GSF_BATCH_MS = 4, 100
 FF_STATS_FILE = os.path.join(PORT_DATA, "golden_pingpong1000_ff_stats.json")
 CARDINAL_N, CARDINAL_MS = 65536, (200, 1000)
 CARDINAL_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_cardinal65536_k2.json")
-TIER2_N, TIER2_MS = 32768, (100, 400)
+TIER2_N, TIER2_MS = 32768, (100, 200)
 TIER2_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_tier2_32768.json")
 ATTACK_N, ATTACK_MS = 1024, 200
 GSF32K_N, GSF32K_MS = 32768, (50, 100)
@@ -691,9 +694,10 @@ def write_tier2_golden(n=TIER2_N, ms=TIER2_MS, chunk=20):
     pieces, and ``box_split=TIER2_BOX_SPLIT`` ring sub-planes), seed 0,
     at each checkpoint of `ms`, through ``scan_chunk(proto, chunk,
     t0_mod=0, superstep=2)`` calls (the phase-specialized K=2 scan,
-    bit-identical to the per-ms one).  On an 8-core CPU host: 437 s and
-    13.4 GB resident to 400 ms (the run's own numbers are in the file,
-    under "generator")."""
+    bit-identical to the per-ms one).  On an 8-core CPU host 437 s and
+    13.4 GB resident to 400 ms, before the card's phase 10 was cut to
+    200 ms (the run's own numbers are in the file, under
+    "generator")."""
     import time
 
     import jax
@@ -860,11 +864,11 @@ CAPPOS_GOLDEN_FILE = os.path.join(PORT_DATA, "golden_cappos2048_100ms.json")
 DFINITY10K_TICKS, DFINITY10K_FF_TICKS = 400, 12000
 DFINITY10K_GOLDEN_FILE = os.path.join(PORT_DATA,
                                       "golden_dfinity10k_400ticks.json")
-QUIET_SEEDS, QUIET_MS, QUIET_CHUNK = 4, 400, 200
+QUIET_SEEDS, QUIET_MS, QUIET_CHUNK = 4, 300, 100
 DFINITY_QUIET_FILE = os.path.join(PORT_DATA,
-                                  "golden_dfinity31_r4_400ticks.json")
+                                  "golden_dfinity31_r4_300ticks.json")
 P2PFLOOD_QUIET_FILE = os.path.join(PORT_DATA,
-                                   "golden_p2pflood256_r4_400ms.json")
+                                   "golden_p2pflood256_r4_300ms.json")
 
 
 def _chain_counts(net, ps):
@@ -1884,6 +1888,125 @@ def check(n: int, ms: int, protocol: str = "handel", every: int = 100,
     return 0
 
 
+CHAOS_HEADLINE_FILE = os.path.join(PORT_DATA,
+                                   "golden_headline_chaos_200ms.json")
+CHAOS_SEEDS, CHAOS_CHUNK, CHAOS_MS = 16, 100, (100, 200)
+CHAOS_CHURN = 32
+CHECKPOINT_CHAOS_FILE = os.path.join(
+    PORT_DATA, "golden_pingpong1000_r16_chaos_120ms.json")
+CKPT_N, CKPT_SEEDS, CKPT_CHUNK, CKPT_MS = 1000, 16, 40, (40, 120)
+
+
+def chaos_headline_schedule(down, n=HEADLINE_N, churn=CHAOS_CHURN):
+    """The fault schedule of `chip_smoke.py` phase X1 as JSON, from the
+    batch's entry down flags ([R, N]): churn of the first `churn` nodes
+    that are up at init in every seed (a churned node is up outside its
+    window), down 40-120 ms; nodes [0, n/2) in partition 1 from 60 to
+    140 ms; 200 per mille loss on every link from 20 to 160 ms; +3 ms
+    on the links from the first half to the second from 100 to 180 ms.
+    Every churn and partition transition is even (K=2 holds)."""
+    live = ~np.asarray(down).any(0)
+    h = n // 2
+    return {"churn": [[int(v), 40, 120]
+                      for v in np.flatnonzero(live)[:churn]],
+            "partitions": [[60, 140, 1, 0, h]],
+            "loss": [[20, 160, 200, 0, n, 0, n]],
+            "delay": [[100, 180, 3, 0, h, h, n]]}
+
+
+def jax_impact(net):
+    """`chaos.impact_summary` of a JAX state."""
+    from wittgenstein_tpu.chaos import impact_summary
+    return impact_summary(net)
+
+
+def write_chaos_headline_golden(n=HEADLINE_N, seeds=CHAOS_SEEDS,
+                                path=CHAOS_HEADLINE_FILE):
+    """The benchmark headline under a fault schedule (`chip_smoke.py`
+    phase X1): the n-node reference-default Handel, seeds 0-15, wrapped
+    in ``ChaosProtocol`` with `chaos_headline_schedule`, through
+    ``scan_chunk_batched(proto, 100, t0_mod=0, superstep=2)`` to 200
+    ms: per seed the leaf sha256s at 100 and 200 ms, and the batch's
+    `impact_summary` there.  About 10 minutes and 5 GB of JAX on an
+    8-core CPU host."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.chaos import ChaosProtocol, FaultSchedule
+    from wittgenstein_tpu.core.batched import scan_chunk_batched
+    from wittgenstein_tpu.models.handel import Handel
+    from wittgenstein_tpu_torch.models.handel import reference_default_params
+
+    t0 = time.monotonic()
+    proto = Handel(**reference_default_params(n))
+    nets, ps = jax.vmap(proto.init)(jnp.arange(seeds, dtype=jnp.int32))
+    sched = chaos_headline_schedule(nets.nodes.down, n)
+    cp = ChaosProtocol(proto, FaultSchedule.from_json(sched))
+    run = jax.jit(scan_chunk_batched(cp, CHAOS_CHUNK, t0_mod=0,
+                                     superstep=2))
+    ms = {}
+    for t in range(CHAOS_CHUNK, CHAOS_MS[-1] + 1, CHAOS_CHUNK):
+        nets, ps = run(nets, ps)
+        if t in CHAOS_MS:
+            ms[str(t)] = {"seeds": convert.seed_digests(*jax_state(nets,
+                                                                   ps)),
+                          "impact": jax_impact(nets)}
+    _write_golden(path, {
+        "config": f"ChaosProtocol(Handel(**reference_default_params({n}))"
+                  f", schedule), seeds 0-{seeds - 1}",
+        "call": f"jax.jit(wittgenstein_tpu.core.batched.scan_chunk_batched"
+                f"(cp, {CHAOS_CHUNK}, t0_mod=0, superstep=2)) from "
+                f"jax.vmap(cp.init)(jnp.arange({seeds})), called to "
+                f"{CHAOS_MS[-1]} ms",
+        "schedule": sched, "ms": ms}, t0)
+
+
+def checkpoint_chaos_schedule(n=CKPT_N):
+    """tests/test_checkpoint.py:111's schedule with its node ranges
+    scaled from 64 nodes to `n` (its node ids and times kept)."""
+    return {"churn": [[3, 20, 60], [5, 40, 100]],
+            "partitions": [[30, 90, 1, 0, n // 2]],
+            "loss": [[0, 120, 250, 0, n, 0, n]]}
+
+
+def write_checkpoint_chaos_golden(n=CKPT_N, seeds=CKPT_SEEDS,
+                                  path=CHECKPOINT_CHAOS_FILE):
+    """`chip_smoke.py` phase X2's run without the checkpoint: PingPong(n)
+    seeds 0-15 under `checkpoint_chaos_schedule`, through
+    ``jax.vmap(scan_chunk(cp, 40))`` to 120 ms: per seed the leaf
+    sha256s at 40 and 120 ms.  About a minute of JAX on the CPU."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from wittgenstein_tpu.chaos import ChaosProtocol, FaultSchedule
+    from wittgenstein_tpu.core.network import scan_chunk
+    from wittgenstein_tpu.models.pingpong import PingPong
+
+    t0 = time.monotonic()
+    sched = checkpoint_chaos_schedule(n)
+    cp = ChaosProtocol(PingPong(node_count=n), FaultSchedule.from_json(sched))
+    nets, ps = jax.vmap(cp.init)(jnp.arange(seeds, dtype=jnp.int32))
+    run = jax.jit(jax.vmap(scan_chunk(cp, CKPT_CHUNK)))
+    ms = {}
+    for t in range(CKPT_CHUNK, CKPT_MS[-1] + 1, CKPT_CHUNK):
+        nets, ps = run(nets, ps)
+        if t in CKPT_MS:
+            ms[str(t)] = {"seeds": convert.seed_digests(*jax_state(nets,
+                                                                   ps)),
+                          "impact": jax_impact(nets)}
+    _write_golden(path, {
+        "config": f"ChaosProtocol(PingPong(node_count={n}), schedule), "
+                  f"seeds 0-{seeds - 1}",
+        "call": f"jax.jit(jax.vmap(wittgenstein_tpu.core.network."
+                f"scan_chunk(cp, {CKPT_CHUNK}))) from jax.vmap(cp.init)("
+                f"jnp.arange({seeds})), called to {CKPT_MS[-1]} ms",
+        "schedule": sched, "ms": ms}, t0)
+
+
 def main():
     if sys.argv[1:2] == ["check"]:
         sys.exit(check(int(sys.argv[2]), int(sys.argv[3]),
@@ -1957,6 +2080,10 @@ def main():
         return
     if sys.argv[1:2] == ["obs-golden"]:
         write_obs_golden()
+        return
+    if sys.argv[1:2] == ["chaos-goldens"]:
+        write_checkpoint_chaos_golden()
+        write_chaos_headline_golden()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

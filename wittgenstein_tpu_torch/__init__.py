@@ -2,7 +2,9 @@
 
 A second package beside the JAX one, held bit for bit against it.  It
 keeps the JAX package's module layout (`ops/`, `core/`, `models/`,
-`utils/`) so each function's counterpart is found under the same name,
+`obs/`, `chaos/`, `memo/`, `serve/`, `server/`, `matrix/`, `scenarios/`,
+`tools/`, `utils/`) so each function's counterpart is found under the
+same name,
 and runs on one NVIDIA Hopper card: the TPU's Pallas kernels become
 hand-written CUDA C++ under `csrc/`, built at first use by
 `ops/_build.py`.

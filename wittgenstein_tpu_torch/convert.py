@@ -98,10 +98,16 @@ def state_class(pstate_np: dict):
 
 
 def _tensor(a, device):
+    """A copy of `a` on `device` (uint32 bits as int32): one host-to-
+    device copy for a card, one host copy for the CPU."""
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.tensor(np.array(a, order="C"), device=device)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")
+    t = torch.from_numpy(a)
+    return t.clone() if torch.device(device).type == "cpu" else \
+        t.to(device)
 
 
 def _numpy(t: torch.Tensor, u32: bool = False):

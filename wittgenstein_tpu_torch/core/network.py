@@ -49,8 +49,10 @@ superstep gate (`unicast_floor_ms`, `superstep_ok`,
 the fast-forward engine (`fast_forward_ok`, `next_work`, `_jump`,
 `fast_forward_chunk`) and `Runner` with `ff_stats`, over one ring or
 its ``box_split`` node-range sub-planes (the binning kernel runs once per
-sub-plane, `_bin_into_ring`).  Fault hooks raise `NotImplementedError`
-and are queued in ROADMAP.md.
+sub-plane, `_bin_into_ring`), and the chaos plane's hooks: a protocol's
+`apply_faults(net, t)` at every window entry, the per-step PRNG key for
+a protocol that asks for it (``wants_step_key``), and the fault
+schedule's gates (`superstep_ok`, `check_chunk_config`).
 """
 
 from __future__ import annotations
@@ -74,12 +76,6 @@ AUTO_SUPERSTEP_MAX = 32
 
 #: the mailbox ring's leaves, updated in place
 RING = ("box_data", "box_src", "box_size", "box_count")
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, the engine items after "
-        "the first slice)")
 
 
 def _split_ring(net: NetState):
@@ -396,12 +392,13 @@ def enqueue_broadcast(cfg: EngineConfig, net: NetState, out: Outbox,
         bc_dropped=net.bc_dropped + (req & ~ok).sum(dtype=I32))
 
 
-def protocol_step(protocol, pstate, nodes, inbox, t: int, hints=None,
-                  step_hint=None):
+def protocol_step(protocol, pstate, nodes, inbox, key=None, *, t: int,
+                  hints=None, step_hint=None):
     """``protocol.step``, with the phase hints only when there are any
-    (protocols without a static schedule take none) and the step hint
-    only for a protocol that has one (`step_hint`)."""
-    kw = {}
+    (protocols without a static schedule take none), the step hint only
+    for a protocol that has one (`step_hint`) and the per-step PRNG key
+    only for a protocol that asks for it (`step_key`)."""
+    kw = {} if key is None else {"key": key}
     if hints is not None:
         kw["hints"] = hints
     if step_hint is not None:
@@ -423,6 +420,18 @@ def step_hint(protocol, pstate, inbox: Inbox, t: int):
     return None if fn is None else fn(pstate, inbox, t)
 
 
+def step_key(protocol, net: NetState, t: int):
+    """The JAX engines' per-step key ``fold_in(PRNGKey(seed), t)``
+    (wittgenstein_tpu/core/network.py:488), as two uint32 words in int64
+    ([2], or [R, 2] for a batch), for a protocol that declares
+    ``wants_step_key`` (the chaos plane's loss draw); None for every
+    other protocol, whose step takes no key and costs no operation for
+    it."""
+    if not getattr(protocol, "wants_step_key", False):
+        return None
+    return prng.fold_in_key(net.seed, t)
+
+
 def _broadcasts(protocol) -> bool:
     """Whether the engine runs its broadcast half for `protocol`: it has
     a broadcast table and may broadcast.  A protocol whose outbox never
@@ -435,15 +444,10 @@ def _broadcasts(protocol) -> bool:
         getattr(protocol, "sends_broadcast", True)
 
 
-def _check_step(protocol):
-    if getattr(protocol, "apply_faults", None) is not None:
-        raise _unported("fault hooks (apply_faults)")
-
-
 def step_ms(protocol, net: NetState, pstate, t: int | None = None,
             hints=None, frozen=None, tap=None):
     """Advance one millisecond (wittgenstein_tpu/core/network.py:
-    448-504, without fault hooks): `step_kms` with K = 1.  `t` is the
+    448-504): `step_kms` with K = 1.  `t` is the
     current time as a Python int, read from the device when omitted;
     `hints` are the protocol's phase hints for this ms; `tap` is the
     observation hook of the obs planes (see `step_kms`)."""
@@ -487,7 +491,14 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
     enqueued, so every observation inside a K window carries its own
     ms.  `net` is the whole state, the ring included (for a batch with
     the seed axis in front, as is `out`); the hook reads it and must
-    not write it.  ``tap=None`` adds no operation."""
+    not write it.  ``tap=None`` adds no operation.
+
+    A protocol with `apply_faults` (the chaos plane, `chaos/wrap.py`)
+    has it applied once at the window's entry, before the tap and
+    everything else (wittgenstein_tpu/core/network.py:476-478 and
+    568-570): the gates require every churn/partition transition to be
+    K-aligned, so the fault state is constant across the window.  A
+    protocol without it runs no operation for it."""
     if hints_k is not None and len(hints_k) != k:
         raise ValueError(f"hints_k must have {k} entries, got "
                          f"{len(hints_k)}")
@@ -495,11 +506,13 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
     if k > 1 and cfg.spill_cap > 0:
         raise ValueError("step_kms requires spill_cap == 0 (spill drain "
                          "is inherently per-ms)")
-    _check_step(protocol)
     lead = net.time.dim()
     per_run = torch.func.vmap if lead else (lambda fn: fn)
     if t is None:
         t = int(net.time.reshape(-1)[0])
+    apply_faults = getattr(protocol, "apply_faults", None)
+    if apply_faults is not None:
+        net = apply_faults(net, t)
     net, ring = _split_ring(net)
     if tap is not None:
         tap(t, net.replace(**ring), None)
@@ -525,11 +538,13 @@ def step_kms(protocol, net: NetState, pstate, k: int, hints_k=None,
                 net = _retire_broadcasts(cfg, net, t + i)
             net, inbox = per_run(functools.partial(
                 _with_broadcasts, cfg, model, t=t + i))(net, inbox)
+        key = step_key(protocol, net, t + i)
         pstate, nodes, out = per_run(functools.partial(
             protocol_step, protocol, t=t + i,
             hints=None if hints_k is None else hints_k[i],
             step_hint=step_hint(protocol, pstate, inbox, t + i)))(
-                pstate, net.nodes, inbox)
+                pstate, net.nodes, inbox,
+                *(() if key is None else (key,)))
         net = net.replace(nodes=nodes)
         outs.append(out)
         if tap is not None:
@@ -578,14 +593,18 @@ def unicast_floor_ms(protocol) -> int:
 def superstep_ok(protocol, superstep: int = 2) -> bool:
     """True iff `step_kms` with this K is valid for this protocol
     (wittgenstein_tpu/core/network.py:733-748; the chunk length and entry
-    time must also be K-aligned, which the caller checks)."""
+    time must also be K-aligned, which the caller checks).  A chaos
+    schedule (`chaos_schedule`) must have every churn/partition
+    transition on a K-ms window boundary."""
     cfg = protocol.cfg
+    sched = getattr(protocol, "chaos_schedule", None)
     return (cfg.spill_cap == 0
             and superstep >= 1
             and cfg.horizon % superstep == 0
             and superstep < cfg.horizon
             and superstep <= unicast_floor_ms(protocol) + 1
-            and not getattr(protocol, "mutates_liveness", False))
+            and not getattr(protocol, "mutates_liveness", False)
+            and (sched is None or sched.superstep_aligned(superstep)))
 
 
 def fast_forward_ok(protocol) -> bool:
@@ -605,8 +624,7 @@ def check_chunk_config(protocol, ms, t0_mod=None, superstep=1,
     never changes results; `pick_superstep` is the demoting half.  From
     `t0_mod` (a residue mod the schedule lcm) the K-alignment of the
     absolute entry time is provable only mod gcd(K, lcm); callers that
-    know the entry time route through `pick_superstep(t0=...)`.  The
-    chaos plane's schedule checks have no protocol here."""
+    know the entry time route through `pick_superstep(t0=...)`."""
     cfg = protocol.cfg
     if not isinstance(superstep, int) or superstep < 1:
         raise ValueError(f"superstep must be a positive int, got "
@@ -651,6 +669,19 @@ def check_chunk_config(protocol, ms, t0_mod=None, superstep=1,
             "rows are read and cleared as one contiguous window. "
             f"Fix: pad the horizon to a multiple of {k} (at least "
             f"{2 * k}), or lower K")
+    sched = getattr(protocol, "chaos_schedule", None)
+    if sched is not None and not sched.superstep_aligned(k):
+        bad = [t for t in sched.transition_times() if t % k]
+        raise ValueError(
+            f"superstep={k} needs every chaos churn/partition "
+            f"transition on a K-ms window boundary (misaligned: "
+            f"{bad[:8]}): liveness/partition state is applied at "
+            "window entry, so a mid-window transition would be "
+            "visible to the per-ms engine but not the fused window. "
+            f"Fix: align the FaultSchedule times to multiples of "
+            f"{k}, pick a superstep dividing "
+            f"gcd={sched.align_gcd() or 1} of the transition times, "
+            "or fall back to superstep=1")
     floor = unicast_floor_ms(protocol)
     if k > floor + 1:
         self_send = getattr(protocol, "may_self_send", True)

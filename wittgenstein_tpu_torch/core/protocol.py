@@ -5,7 +5,10 @@ A protocol holds `cfg` (EngineConfig), `latency` (a latency model) and
 its parameters; ``init(seed) -> (NetState, pstate)`` builds the state
 and ``step(pstate, nodes, inbox, t) -> (pstate, nodes, outbox)`` is the
 per-ms transition for all nodes at once.  The JAX contract also passes
-a `jax.random` key; no ported protocol reads it, so the port drops it.
+every step a `jax.random` key; the port's engine passes it (as
+``key=``, the two uint32 words of ``fold_in(PRNGKey(seed), t)``) only to
+a protocol that sets ``wants_step_key`` (the chaos plane's
+`ChaosProtocol`, whose loss draw is keyed on it): no model reads it.
 """
 
 from __future__ import annotations

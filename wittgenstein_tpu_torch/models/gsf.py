@@ -80,10 +80,12 @@ class GSFState(_Struct):
 
 @register
 class GSFSignature(LevelMixin):
-    """Parameters mirror wittgenstein_tpu/models/gsf.py:87-152 without
-    the kernel switch `pallas_merge` (the port has one path: the kernels
-    on CUDA tensors, their plain versions on CPU tensors); the port adds
-    `device` (``cuda`` unless the caller asks for another)."""
+    """Parameters mirror wittgenstein_tpu/models/gsf.py:87-152.  The
+    kernel switch `pallas_merge` is accepted for parameter-set
+    compatibility and selects nothing (the port has one path: the
+    kernels on CUDA tensors, their plain versions on CPU tensors); the
+    port adds `device` (``cuda`` unless the caller asks for
+    another)."""
 
     # Dests come from sibling-half level peer sets — never self.
     may_self_send = False
@@ -96,7 +98,8 @@ class GSFSignature(LevelMixin):
                  timeout_per_level_ms=50, period_duration_ms=10,
                  accelerated_calls_count=10, nodes_down=0,
                  node_builder_name=None, network_latency_name=None,
-                 queue_cap=16, inbox_cap=16, horizon=512, device=None):
+                 queue_cap=16, inbox_cap=16, horizon=512,
+                 pallas_merge=None, device=None):
         if queue_cap + 2 * inbox_cap > 255:
             # The merge kernel's unique-key headroom (BIG0 + position).
             raise ValueError(

@@ -171,3 +171,45 @@ def bij_perm_inv(key, y, bits: int):
     if not 1 <= bits <= 31:
         raise ValueError(f"bits must be in [1, 31], got {bits}")
     return bij_perm_inv_dyn(key, y, bits)
+
+
+#: Threefry-2x32's rotations, by round group (the default `jax.random`
+#: generator, jax/_src/prng.py `_threefry2x32_lowering`)
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds, key words (k0, k1) on the counter
+    words (x0, x1), every word uint32 held in int64: the block function
+    of JAX's default PRNG (jax/_src/prng.py `threefry2x32`)."""
+    k0, k1, x0, x1 = (u32(v) for v in (k0, k1, x0, x1))
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + k0) & M32, (x1 + k1) & M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0, x1
+
+
+def fold_in_key(seed, t):
+    """Both uint32 words of ``jax.random.fold_in(jax.random.PRNGKey(
+    seed), t)`` under the default threefry generator, as int64 with the
+    two words on a last axis of 2: the per-step key the JAX engines hand
+    a protocol's step (wittgenstein_tpu/core/network.py:488 and :620).
+    `seed` is a run's int32 seed (a tensor, scalar or [R], or an int),
+    `t` the step's ms.  ``PRNGKey(seed)`` is the pair ``(0, seed)`` and
+    ``fold_in(key, t)`` the block function of the key on the counter
+    pair ``(0, t)``."""
+    seed = u32(seed)
+    zero = seed & 0 if isinstance(seed, torch.Tensor) else 0
+    w0, w1 = threefry2x32(zero, seed, zero, u32(t) + zero)
+    if isinstance(w0, torch.Tensor):
+        return torch.stack([w0, w1], -1)
+    return torch.tensor([w0, w1], dtype=torch.int64)
