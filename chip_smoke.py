@@ -214,6 +214,38 @@ X. the chaos plane and the memo plane's freeze synthesis
    `frozen_carries` equal the state and the three carries of stepping
    its remaining chunks (at least one frozen).  ``--only-chaos`` builds
    the kernels and runs phase X alone.
+V. the request plane (`serve`, `server`): V1 the headline's 16 seeds as
+   16 requests over HTTP: `make_server(port=0, batch_auto=False)` on
+   the card on 127.0.0.1, ``GET /w/protocols``, 16 ``POST
+   /w/batch/submit`` (Handel, ``reference_default_params(2048)``, one
+   seed each, engine "batched", K=2, 200 ms in 100-ms chunks, the
+   metrics plane), one compile key, ``POST /w/batch/run`` with counters
+   set to 0 just before: one group of width 16 (one registry miss, no
+   hit), every seed equal to the headline's JAX golden at 200 ms, each
+   request's engine_metrics totals equal to its state's, zero drops,
+   clamps and evictions, one ledger row a request whose config_digest is
+   the spec's, ``/w/batch/stream`` giving both chunk boundaries; route
+   once a K=2 window (100), merge once a ms (200) and score once a ms
+   (200: the served chunk has no phase hints, as the JAX registry
+   builds it); the time and bytes that keeping a launch's state adds to
+   a chunk (`Scheduler._launch_state`) and the peak memory are logged;
+   V2 crash-only recovery: a `Scheduler(checkpoint_dir=, journal_dir=)`
+   under a temporary directory takes (a) `PingPong(1000)` seeds 0-1
+   and (b) seeds 2-3 (vmapped, K=2, 200 ms, metrics and audit; (a) in
+   100-ms chunks, (b) in one, another compile key), is killed from the
+   launcher seam after (a)'s first chunk, and a fresh `Scheduler` over
+   the same directories `recover()`s: (a) from its 100-ms checkpoint,
+   (b) from the journal, the four seeds equal to the JAX golden at 200
+   ms, the audits clean, the journal tombstoned (the checkpoint's bytes
+   and its save and load times logged); V3 ``POST
+   /w/network/init/PingPong`` (1,000 nodes, seed 0) and ``runMs/100``:
+   the time 100, the server's state equal to phase 6's at 100 ms, node
+   0 and the messages answered, node stop/start, ``POST
+   /w/network/send`` launching the route kernel once, and the node with
+   the most deliveries due in the next 10 ms made external through
+   `_external_rest` to the server's own ``/w/external_sink``: it gets
+   them over loopback.  ``--only-serve`` builds the kernels, runs phase
+   6's PingPong to 100 ms and phase V alone.
 
 The determinism reruns run under a plane each and are held to the same
 goldens: the headline's (5b) under the metrics plane (its totals
@@ -414,6 +446,12 @@ X2_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
                          "golden_pingpong1000_r16_chaos_120ms.json")
 X3_CHUNK = 40
 X3_MS = 240
+V_SEEDS = 16            # V1: the headline's 16 seeds as 16 requests
+V_MS = 200              # the golden's checkpoint
+V_CHUNK = 100
+V2_NODES = 1000         # V2: PingPong(1000), two requests of two seeds
+V3_MS = 100             # V3: /w/network/runMs, phase 6's state at 100 ms
+V3_EXTERNAL_MS = 10
 HEADLINE_STAT_MS = 20   # the headline's instrumented rerun: one row a period
 PP_TRACE_CAP = 8192     # the PingPong rerun's event ring
 SYNC_MS = 20            # simulated ms over which a plane's syncs are counted
@@ -1443,7 +1481,15 @@ PATH_LAUNCHES = {
     "chaos_headline": {"route": X_MS[-1] // 2, "merge": X_MS[-1],
                        "score": X_MS[-1] // 4},
     "chaos_checkpoint": {"route": (2 * X2_MS - X2_CHUNK) // 2},
-    "chaos_freeze": {"route": X3_MS // 2}}
+    "chaos_freeze": {"route": X3_MS // 2},
+    # the served headline has no phase hints (the JAX registry builds
+    # the batched chunk without t0_mod): score runs every ms
+    "serve_headline": {"route": V_MS // 2, "merge": V_MS, "score": V_MS},
+    # (a)'s first chunk before the kill, its second after recover(),
+    # (b) replayed in one 200-ms chunk: once a K=2 window
+    "serve_recovery": {"route": (V_CHUNK + V_CHUNK + V_MS) // 2},
+    # runMs 100 per ms, one send, 10 bridged ms per ms
+    "serve_network": {"route": V3_MS + 1 + V3_EXTERNAL_MS}}
 
 
 # ------------------------------------------------------------- main path
@@ -2830,6 +2876,354 @@ def chaos_phase(dev, plain_impact):
         check_launches(key, launches)
     return out
 
+# ------------------------------------------------------ the request plane
+
+def http_json(port, method, path, body=None):
+    """One request to the port's server on 127.0.0.1 (loopback only):
+    the decoded JSON reply."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+@contextlib.contextmanager
+def served(**kw):
+    """`make_server(port=0, **kw)` on the card, serving on a thread on
+    127.0.0.1; shut down and closed on exit."""
+    import threading
+    from wittgenstein_tpu_torch.server.http import make_server
+    httpd = make_server(port=0, **kw)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield httpd, httpd.server_address[1]
+    finally:
+        httpd.batch_service.close()
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+
+
+def launch_state_cost(sch, entry):
+    """The time and bytes that keeping a launch's state adds to a chunk:
+    `Scheduler._launch_state` (the copy of the ring and the protocol's
+    in-place leaves a retryable launch runs on) on the lane-state triple
+    `entry`, timed with CUDA events over 3 calls after one untimed."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch.core.network import RING
+    prog = next(iter(sch.registry._programs.values()))
+    net, ps = entry[:2]
+    nbytes = sum(x.numel() * x.element_size()
+                 for k in RING for x in pytree.tree_leaves(getattr(net, k)))
+    nbytes += sum(getattr(ps, n).numel() * getattr(ps, n).element_size()
+                  for n in getattr(prog.proto, "IN_PLACE", ()))
+    sch._launch_state(prog, entry)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(3):
+        sch._launch_state(prog, entry)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 3, nbytes
+
+
+def serve_headline(dev, tmp):
+    """V1: the headline's 16 seeds as 16 requests over HTTP (module
+    docstring), counters set to 0 just before the drain."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch.models.handel import reference_default_params
+    from wittgenstein_tpu_torch.obs import ledger
+    from wittgenstein_tpu_torch.serve import ScenarioSpec
+    golden = load_golden(HEADLINE_GOLDEN, V_MS, V_SEEDS)
+    base = dict(protocol="Handel", params=reference_default_params(N_NODES),
+                engine="batched", superstep=2, sim_ms=V_MS,
+                chunk_ms=V_CHUNK, obs=["metrics"])
+    led = os.path.join(tmp, "v1_ledger.jsonl")
+    with served(batch_auto=False) as (httpd, port):
+        sch = httpd.batch_service.scheduler
+        sch.ledger_path = led
+        if "Handel" not in http_json(port, "GET", "/w/protocols"):
+            fail("V1: GET /w/protocols does not list Handel")
+        t0 = time.perf_counter()
+        subs = [http_json(port, "POST", "/w/batch/submit",
+                          dict(base, seeds=[s])) for s in range(V_SEEDS)]
+        submit_s = time.perf_counter() - t0
+        keys = {s["compile_key"] for s in subs}
+        if len(keys) != 1 or any(s["status"] != "queued" for s in subs):
+            fail(f"V1: the 16 submits got compile keys {keys}, statuses "
+                 f"{[s['status'] for s in subs]}")
+        widths = []
+
+        def widths_launcher(fn, *args):
+            widths.append(int(args[0].time.shape[0]))
+            return fn(*args)
+
+        sch.launcher = widths_launcher
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        out = http_json(port, "POST", "/w/batch/run")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated()
+        reg = out["registry"]
+        if out["processed"] != V_SEEDS or widths != [V_SEEDS] * (
+                V_MS // V_CHUNK) or reg["misses"] != 1 or reg["hits"]:
+            fail(f"V1: want one group of width {V_SEEDS} (one registry "
+                 f"miss, no hit): processed {out['processed']}, launch "
+                 f"widths {widths}, registry {reg}")
+        rows = ledger.read_all(led)
+        # the 16 lanes' final states, put together as one batch: its
+        # seeds' digests are hashed on threads, as phase 5's are
+        t0 = time.perf_counter()
+        batch = pytree.tree_map(lambda *xs: torch.cat(xs), *[
+            sch.request(sub["id"]).final_state for sub in subs])
+        check_seed_goldens("V1 served headline", *batch, golden)
+        golden_s = time.perf_counter() - t0
+        for r, sub in enumerate(subs):
+            res = http_json(port, "GET", f"/w/batch/result/{sub['id']}")
+            if res["status"] != "done":
+                fail(f"V1: request {sub['id']} is {res['status']}: "
+                     f"{res.get('error')}")
+            net, ps = sch.request(sub["id"]).final_state
+            totals = res["engine_metrics"]["totals"]
+            want = state_totals(net)
+            got = [totals[k] for k in ("msg_sent", "msg_received",
+                                       "drop_count", "done_count")]
+            if got != want.tolist() or totals["samples"] != V_MS:
+                fail(f"V1 seed {r}: engine_metrics totals {totals} "
+                     f"disagree with the state's {want.tolist()}")
+            if int(net.dropped.sum()) or int(net.clamped.sum()) or \
+                    int(net.bc_dropped.sum()) or int(ps.evicted.sum()):
+                fail(f"V1 seed {r}: drops/clamps/evictions must be 0")
+            spec = ScenarioSpec.from_json(dict(base, seeds=[r]))
+            mine = [row for row in rows if row.run == f"serve:{sub['id']}"]
+            if len(mine) != 1 or mine[0].config_digest != spec.digest():
+                fail(f"V1 seed {r}: want one ledger row with config_digest"
+                     f" {spec.digest()}, got {[m.config_digest for m in mine]}")
+        stream = http_json(port, "GET",
+                           f"/w/batch/stream/{subs[0]['id']}?after=-1")
+        if [c["t_ms"] for c in stream["chunks"]] != [V_CHUNK, V_MS] or \
+                stream["status"] != "done":
+            fail(f"V1: /w/batch/stream returned {stream}")
+        copy_ms, copy_bytes = launch_state_cost(
+            sch, (*batch, tuple([V_MS] * V_SEEDS)))
+        del batch
+        ema = sch.chunk_wall_ema_s
+    log(f"V1: {V_SEEDS} requests served in one group of width {V_SEEDS}: "
+        f"every seed equals the JAX golden at {V_MS} ms, engine_metrics "
+        f"totals equal the state's, one ledger row each; drain {wall:.2f} "
+        f"s; keeping the launch state {copy_ms:.2f} ms a chunk "
+        f"({copy_bytes / 1e9:.2f} GB)")
+    res = dict(wall_s=wall, submit_s=submit_s,
+               sim_ms_per_s=V_MS / wall, agg_sim_ms_per_s=V_SEEDS * V_MS / wall,
+               chunk_wall_ema_s=ema, launch_state_ms=copy_ms,
+               launch_state_bytes=copy_bytes, peak_mem_bytes=peak,
+               launch_widths=widths, golden_s=golden_s)
+    return res, launches
+
+
+class Killed(BaseException):
+    """The process death V2 plays: raised from the launcher seam, it is
+    no `Exception`, so it unwinds `run_pending` as a kill would, leaving
+    the group checkpoint and the journal as they were."""
+
+
+def serve_recovery(dev, tmp):
+    """V2: crash-only recovery (module docstring), counters set to 0 just
+    before the first drain."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    from wittgenstein_tpu_torch.serve import (ScenarioSpec, Scheduler,
+                                              SubmissionJournal)
+    golden = load_golden(PP_HARNESS_GOLDEN, V_MS, PP_SEEDS)
+    ck, jd = os.path.join(tmp, "ck"), os.path.join(tmp, "journal")
+    base = dict(protocol="PingPong", params={"node_count": V2_NODES},
+                engine="vmapped", superstep=2, sim_ms=V_MS,
+                obs=["metrics", "audit"])
+    spec_a = ScenarioSpec.from_json(dict(base, seeds=[0, 1],
+                                         chunk_ms=V_CHUNK))
+    spec_b = ScenarioSpec.from_json(dict(base, seeds=[2, 3], chunk_ms=V_MS))
+    calls = {"n": 0}
+
+    def die_after_one(fn, *args):
+        calls["n"] += 1
+        if calls["n"] > 1:
+            raise Killed("killed after (a)'s first chunk")
+        return fn(*args)
+
+    timing = {}
+    dying = Scheduler(checkpoint_dir=ck, journal_dir=jd,
+                      launcher=die_after_one, ledger_path=os.devnull)
+    save = dying._save_checkpoint
+
+    def timed_save(key, lanes, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(key, lanes, state)
+        timing["save_s"] = time.perf_counter() - t0
+        timing["bytes"] = os.path.getsize(dying._ckpt_path(key))
+
+    dying._save_checkpoint = timed_save
+    a, b = dying.submit(spec_a), dying.submit(spec_b)
+    if dying.request(a).compile_key == dying.request(b).compile_key:
+        fail("V2: (a) and (b) share a compile key")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        dying.run_pending()
+        fail("V2: the launcher seam did not kill the drain")
+    except Killed:
+        pass
+    timing["killed_drain_s"] = time.perf_counter() - t0
+    if dying.request(b).status != "queued" or "save_s" not in timing:
+        fail(f"V2: after the kill (b) is {dying.request(b).status}, "
+             f"checkpoint written: {'save_s' in timing}")
+    del dying
+    fresh = Scheduler(checkpoint_dir=ck, journal_dir=jd,
+                      ledger_path=os.devnull)
+    load = fresh._resume_one
+
+    def timed_load(path, accept=None):
+        t1 = time.perf_counter()
+        out = load(path, accept=accept)
+        torch.cuda.synchronize()
+        timing["load_s"] = time.perf_counter() - t1
+        return out
+
+    fresh._resume_one = timed_load
+    t1 = time.perf_counter()
+    got = fresh.recover()
+    timing["recover_s"] = time.perf_counter() - t1
+    if got != {"checkpoints": [a], "journal": [b]}:
+        fail(f"V2: recover() gave {got}, want (a) {a} from its checkpoint "
+             f"and (b) {b} from the journal")
+    t1 = time.perf_counter()
+    fresh.run_pending()
+    torch.cuda.synchronize()
+    timing["recovered_drain_s"] = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    ra, rb = fresh.request(a), fresh.request(b)
+    if ra.resumed_from_ms != V_CHUNK or ra.status != "done" or \
+            rb.status != "done" or rb.resumed_from_ms:
+        fail(f"V2: (a) {ra.status} resumed from {ra.resumed_from_ms}, (b) "
+             f"{rb.status} resumed from {rb.resumed_from_ms}")
+    for req, seeds in ((ra, (0, 1)), (rb, (2, 3))):
+        got_d = convert.seed_digests(*convert.to_numpy(*req.final_state))
+        for d, s in zip(got_d, seeds):
+            check_digest(f"V2 seed {s} at {V_MS} ms", d, golden["seeds"][s])
+        if not req.artifacts["audit"]["clean"]:
+            fail(f"V2: the audit of {req.id} is not clean: "
+                 f"{req.artifacts['audit']}")
+    lag = SubmissionJournal(jd).lag()
+    if lag or os.listdir(ck):
+        fail(f"V2: journal lag {lag}, checkpoints left {os.listdir(ck)}")
+    log(f"V2: (a) resumed from its {V_CHUNK}-ms checkpoint, (b) replayed "
+        f"from the journal; seeds 0-3 equal the JAX golden at {V_MS} ms, "
+        f"audit clean, journal tombstoned; checkpoint "
+        f"{timing['bytes'] / 1e6:.1f} MB, save {timing['save_s']:.2f} s, "
+        f"load {timing['load_s']:.2f} s")
+    res = dict(wall_s=wall, checkpoint_bytes=timing.pop("bytes"),
+               **timing, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return res, launches
+
+
+def serve_network(dev, pp_digest_100):
+    """V3: /w/network/* (module docstring); `pp_digest_100` is phase 6's
+    state digest at 100 ms.  Counters set to 0 just before the init."""
+    import torch
+    from wittgenstein_tpu_torch import convert
+    with served(batch_auto=False) as (httpd, port):
+        srv = httpd.sim_server
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        http_json(port, "POST", "/w/network/init/PingPong",
+                  {"node_count": PP_NODES, "seed": 0})
+        http_json(port, "POST", f"/w/network/runMs/{V3_MS}")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = read_counters()["route"]
+        if http_json(port, "GET", "/w/network/time") != V3_MS:
+            fail("V3: /w/network/time is not 100")
+        check_digest(f"V3 server state at {V3_MS} ms",
+                     convert.state_digest(*convert.to_numpy(srv.net,
+                                                            srv.pstate)),
+                     pp_digest_100)
+        node = http_json(port, "GET", "/w/network/nodes/0")
+        t1 = time.perf_counter()
+        msgs = http_json(port, "GET", "/w/network/messages")
+        messages_s = time.perf_counter() - t1
+        if node["nodeId"] != 0 or not msgs:
+            fail(f"V3: node 0 {node}, {len(msgs)} messages in flight")
+        http_json(port, "POST", "/w/network/nodes/5/stop")
+        if not http_json(port, "GET", "/w/network/nodes/5")["down"]:
+            fail("V3: node 5 did not stop")
+        http_json(port, "POST", "/w/network/nodes/5/start")
+        before = read_counters()["route"]
+        http_json(port, "POST", "/w/network/send",
+                  {"from": 1, "to": 2, "payload": [7], "delay": 0})
+        if read_counters()["route"] != before + 1:
+            fail("V3: /w/network/send did not launch the route kernel once")
+        t = http_json(port, "GET", "/w/network/time")
+        soon = {}
+        for m in http_json(port, "GET", "/w/network/messages"):
+            if t <= m["arrivingAt"] < t + V3_EXTERNAL_MS:
+                soon[m["to"]] = soon.get(m["to"], 0) + 1
+        ext = max(soon, key=soon.get)
+        http_json(port, "POST", f"/w/network/nodes/{ext}/external",
+                  {"url": f"http://127.0.0.1:{port}/w/external_sink"})
+        bridge = srv.externals[ext]
+        seen = []
+
+        def counted(delivered):
+            seen.extend(delivered)
+            return bridge(delivered)
+
+        srv.externals[ext] = counted
+        http_json(port, "POST", f"/w/network/runMs/{V3_EXTERNAL_MS}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        if len(seen) < soon[ext] or any(m["to"] != ext for m in seen):
+            fail(f"V3: external node {ext} got {len(seen)} deliveries over "
+                 f"loopback, want at least the {soon[ext]} in flight")
+    log(f"V3: the server's state at {V3_MS} ms equals phase 6's; "
+        f"runMs {V3_MS} {run_s:.2f} s (route {run_launches}); node {ext} "
+        f"external took {len(seen)} deliveries over loopback in "
+        f"{V3_EXTERNAL_MS} ms")
+    res = dict(wall_s=wall, run_ms_s=run_s, messages_s=messages_s,
+               in_flight=len(msgs), external_node=ext,
+               external_deliveries=len(seen),
+               external_due=soon[ext])
+    return res, launches
+
+
+def serve_phase(dev, pp_digest_100):
+    """Phase V: V1, V2 and V3, each with its launches."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="wtpu_serve_") as tmp:
+        out = {"serve_headline": serve_headline(dev, tmp),
+               "serve_recovery": serve_recovery(dev, tmp),
+               "serve_network": serve_network(dev, pp_digest_100)}
+    for key, (res, launches) in out.items():
+        log(f"{key}: {json.dumps(res)} launches {launches}")
+        check_launches(key, launches)
+    return out
+
+
 # ------------------------------------- SanFermin, Dfinity and P2PFlood
 
 def ops_per_ms(window, ms):
@@ -4085,6 +4479,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-chaos", action="store_true",
                     help="build, then phase X alone, without the "
                     "summary lines")
+    ap.add_argument("--only-serve", action="store_true",
+                    help="build, then phase V alone (phase 6's PingPong "
+                    "to 100 ms first, for V3), without the summary lines")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4142,6 +4539,14 @@ def main(argv=None) -> int:
             log(f"{key}: {json.dumps(res_)}")
         log(f"phase X: {time.perf_counter() - t0:.1f} s")
         done("X")
+        return 0
+    if args.only_serve:
+        digest_100 = pingpong_run(dev, ms=V3_MS)[2][V3_MS]
+        done("6 (to 100 ms)")
+        t0 = time.perf_counter()
+        serve_phase(dev, digest_100)
+        log(f"phase V: {time.perf_counter() - t0:.1f} s")
+        done("V")
         return 0
     for name, *_ in KERNELS:
         if name not in CAPTURED:
@@ -4381,6 +4786,14 @@ def main(argv=None) -> int:
     log(f"phase X: {x_wall:.1f} s")
     done("X")
 
+    # V. the request plane: the headline served over HTTP, crash-only
+    # recovery, the interactive network
+    t0 = time.perf_counter()
+    serve = serve_phase(dev, pdigests[100])
+    v_wall = time.perf_counter() - t0
+    log(f"phase V: {v_wall:.1f} s")
+    done("V")
+
     memory = {}
     if args.memory_seeds:
         memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
@@ -4475,7 +4888,9 @@ def main(argv=None) -> int:
                **{k: v[0]["sim_ms"] for k, v in lat.items()},
                **{k: v[0]["sim_ms"] for k, v in committee.items()},
                "gsf32k": G32_MS[-1],
-               **{k: v[0]["ms"] for k, v in obs.items()}}
+               **{k: v[0]["ms"] for k, v in obs.items()},
+               "serve_headline": V_MS, "serve_recovery": 2 * V_MS,
+               "serve_network": V3_MS + V3_EXTERNAL_MS}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
                      "pingpong_harness": hplaunches, "spill": slaunches,
@@ -4493,7 +4908,8 @@ def main(argv=None) -> int:
                      **{k: v[1] for k, v in committee.items()},
                      "gsf32k": g32launches,
                      **{k: v[1] for k, v in obs.items()},
-                     **{k: v[1] for k, v in chaos.items()}}
+                     **{k: v[1] for k, v in chaos.items()},
+                     **{k: v[1] for k, v in serve.items()}}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -4541,6 +4957,8 @@ def main(argv=None) -> int:
                       **{f"{k}_path": v[0] for k, v in obs.items()},
                       **{f"{k}_path": v[0] for k, v in chaos.items()},
                       "phase_x_wall_s": x_wall,
+                      **{f"{k}_path": v[0] for k, v in serve.items()},
+                      "phase_v_wall_s": v_wall,
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

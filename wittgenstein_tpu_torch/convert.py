@@ -251,7 +251,17 @@ def seed_digests(net_np: dict, pstate_np: dict, seeds=None) -> list:
     flat = flatten({"net": net_np, "pstate": pstate_np})
     if seeds is None:
         seeds = range(len(flat["net.time"]))
-    return [_digests({k: v[i] for k, v in flat.items()}) for i in seeds]
+    # every (seed, leaf) on one pool: a seed's bytes sit in a few ring
+    # leaves, so a pool per seed waits on its largest leaf
+    jobs = [(i, k) for i in seeds for k in flat]
+    with concurrent.futures.ThreadPoolExecutor(
+            min(8, os.cpu_count() or 1)) as pool:
+        hashes = pool.map(lambda job: leaf_digest(flat[job[1]][job[0]]),
+                          jobs)
+        out = {}
+        for (i, k), h in zip(jobs, hashes):
+            out.setdefault(i, {})[k] = h
+    return [out[i] for i in seeds]
 
 
 def first_difference(a: dict, b: dict):

@@ -1115,3 +1115,13 @@ class Runner:
         (wittgenstein_tpu/core/network.py:1382-1387)."""
         rep = self.audit_report()
         return None if rep is None else rep.stats()
+
+    def run_report(self, net: NetState, wall_s=None) -> str:
+        """One-line run summary (`utils/profiling.run_report`) with this
+        Runner's skip counts, flight-recorder truncation and audit
+        verdict (wittgenstein_tpu/core/network.py:1388-1395).  Reads
+        the device."""
+        from ..utils.profiling import run_report
+        return run_report(net, wall_s, ff=self.ff_stats(),
+                          trace=self.trace_stats(),
+                          audit=self.audit_stats())

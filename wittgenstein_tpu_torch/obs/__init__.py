@@ -22,9 +22,14 @@ their host decoders).
 The contract is the JAX package's: every plane is bit-identical on the
 ``(NetState, pstate)`` trajectory, its carry equals the JAX plane's bit
 for bit, the engine without a plane runs no extra operation, and on the
-card no plane reads the device from the host inside a chunk.  Not
-ported yet: the host plane (`ledger`, `spans`, `metrics`, `programs`,
-`regress`; ROADMAP.md A14) and the sharded engine's monitors (A15).
+card no plane reads the device from the host inside a chunk.
+
+The host plane: `ledger` (`RunManifest` rows with the JAX package's
+digests), `spans` (`SpanRecorder`, the wall-time flight recorder) and
+`metrics` (`MetricsRegistry`, the Prometheus exposition behind ``GET
+/w/batch/metrics``), with `export.spans_to_perfetto` merging host spans
+and device lanes.  Not ported yet: `programs` and `regress` (ROADMAP.md
+A14b) and the sharded engine's monitors (A15).
 """
 
 from .audit import (INVARIANTS, AuditCarry, AuditSpec,  # noqa: F401
@@ -39,7 +44,9 @@ from .engine import (fast_forward_chunk_batched_metrics,  # noqa: F401
 from .export import (MetricsFrame, engine_metrics_block,  # noqa: F401
                      spans_to_perfetto, to_perfetto, to_progress_csv,
                      trace_to_perfetto)
+from .metrics import MetricsRegistry, parse_exposition  # noqa: F401
 from .plane import MetricsCarry, counter_values, init_metrics  # noqa: F401
+from .spans import SpanRecorder, read_spans  # noqa: F401
 from .spec import COUNTERS, MetricsSpec  # noqa: F401
 from .trace import (EVENTS, TraceCarry, TraceSpec,  # noqa: F401
                     fast_forward_chunk_trace, init_trace,

@@ -288,9 +288,8 @@ SPAN_PID_BASE = 90300
 
 def spans_to_perfetto(rows, device=None, path: str | None = None,
                       name: str = "wtpu host") -> dict:
-    """Chrome-trace JSON merging HOST lifecycle spans (the rows of the
-    JAX package's `obs/spans.py`, whose recorder the port has not yet)
-    with an optional DEVICE trace (the dict returned by
+    """Chrome-trace JSON merging HOST lifecycle spans (obs/spans.py
+    rows) with an optional DEVICE trace (the dict returned by
     `to_perfetto` / `trace_to_perfetto`, or a list of such dicts).
 
     Track model: one Perfetto process per worker (pid counts up from

@@ -1,3 +1,3 @@
-"""The server plane of the port: so far only the parameter gate
-(`server/core.py`); the `Server`, HTTP and external-node bridge wait
-for ROADMAP.md A14."""
+"""The server plane of the port: the parameter gate and the interactive
+`Server` (`server/core.py`), and its HTTP face with the batch routes
+(`server/http.py`, ``python -m wittgenstein_tpu_torch.server.http``)."""
