@@ -246,6 +246,38 @@ V. the request plane (`serve`, `server`): V1 the headline's 16 seeds as
    `_external_rest` to the server's own ``/w/external_sink``: it gets
    them over loopback.  ``--only-serve`` builds the kernels, runs phase
    6's PingPong to 100 ms and phase V alone.
+M. the campaign planes (`matrix`, `serve/fleet.py`), on phase V's
+   registry: M1 a `SweepGrid` over V1's served headline, seeds 0-7,
+   one axis on the fault schedule (none, and X1's, built from all 16
+   seeds' entry flags and checked against X1's golden), run in this
+   process by `run_grid(memo=True)` on a scheduler over that registry
+   (the fork plan, empty since X1's loss opens at 20 ms, equal to the
+   JAX `plan_prefixes`'), counters set to 0 just before the run: the
+   report equal to the JAX
+   `run_grid`'s (its walls, registry and builds left out), each cell's
+   8 seeds equal to the headline's and X1's goldens, `verify_cell` on
+   the faulted cell's seed 0; route 200, merge 400, score 400.  M3 a
+   `SearchSpec` on PingPong(1000), seed 0, a 6-step loss ladder from
+   40 ms, coarse 2, through ``/w/matrix/search/*``: the report equal
+   to the JAX `run_search`'s (probes, boundary, cells probed), every
+   probe forked from the one prefix; route 260 (K=2).  M2 two worker
+   processes (`spawn_worker`, ``--device cuda``, a 3-s lease ttl) over
+   one fleet directory, fed by `run_grid_fleet` with PingPong(1000)
+   seeds 0-7 and 8-15 (two compile keys, so one cell a worker): each
+   cell's seeds equal to the 16-seed PingPong golden (the digests the
+   workers record, ``--state-digests``), route 100 in each worker
+   (their stats snapshots); a duplicate journal entry settled from the
+   ledger with no launch; then a one-cell campaign whose worker is
+   SIGKILLed once it passes its first chunk boundary: the survivor
+   takes the lease over when it expires, adopts the checkpoint and
+   finishes equal to the golden.  Each worker's start-up, build
+   seconds (0: the library the parent built), chunk-wall EMA and the
+   lease wait are logged.  In the whole run M2's workers run beside
+   phase A (its thread in this process only waits on files), and M2 is
+   joined before G32, so no kernel case or later path shares the card
+   with them; its results are read at phase M.  ``--only-matrix``
+   builds the kernels and runs phase M alone, M1, M3 and M2 one after
+   another (M1's twin then misses the registry).
 
 The determinism reruns run under a plane each and are held to the same
 goldens: the headline's (5b) under the metrics plane (its totals
@@ -452,6 +484,17 @@ V_CHUNK = 100
 V2_NODES = 1000         # V2: PingPong(1000), two requests of two seeds
 V3_MS = 100             # V3: /w/network/runMs, phase 6's state at 100 ms
 V3_EXTERNAL_MS = 10
+M_SEEDS = 8             # M1: the headline's seeds 0-7 in each of two cells
+M_MS = 200
+M_CHUNK = 100
+M_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                        "golden_matrix_headline_r8.json")
+M2_TTL = 3.0            # M2: the workers' lease ttl (renewal at ttl/3)
+M2_CHUNKS = (100, 50)   # campaign 1's two cells: two compile keys
+M2_KILL_CHUNK = 40      # campaign 2's one cell (the SIGKILL)
+M2_WAIT_S = 180.0       # the bound on every wait of M2
+M3_GOLDEN = os.path.join("wittgenstein_tpu_torch", "data",
+                         "golden_search_pingpong1000.json")
 HEADLINE_STAT_MS = 20   # the headline's instrumented rerun: one row a period
 PP_TRACE_CAP = 8192     # the PingPong rerun's event ring
 SYNC_MS = 20            # simulated ms over which a plane's syncs are counted
@@ -1489,7 +1532,15 @@ PATH_LAUNCHES = {
     # (b) replayed in one 200-ms chunk: once a K=2 window
     "serve_recovery": {"route": (V_CHUNK + V_CHUNK + V_MS) // 2},
     # runMs 100 per ms, one send, 10 bridged ms per ms
-    "serve_network": {"route": V3_MS + 1 + V3_EXTERNAL_MS}}
+    "serve_network": {"route": V3_MS + 1 + V3_EXTERNAL_MS},
+    # two served cells of the headline, no phase hints (as V1)
+    "matrix_headline": {"route": 2 * (M_MS // 2), "merge": 2 * M_MS,
+                        "score": 2 * M_MS},
+    # campaign 1's two cells, one a worker, once a K=2 window each
+    "matrix_fleet": {"route": 2 * (V_MS // 2)},
+    # the prefix's chunk and each probe's three forked chunks at K=2:
+    # 1 + 4 x 3 chunks of 40 ms (the golden's chunks_simulated)
+    "matrix_search": {"route": 13 * 40 // 2}}
 
 
 # ------------------------------------------------------------- main path
@@ -2933,9 +2984,10 @@ def launch_state_cost(sch, entry):
     return start.elapsed_time(end) / 3, nbytes
 
 
-def serve_headline(dev, tmp):
+def serve_headline(dev, tmp, registry):
     """V1: the headline's 16 seeds as 16 requests over HTTP (module
-    docstring), counters set to 0 just before the drain."""
+    docstring), counters set to 0 just before the drain; its scheduler's
+    `registry` is the one phase M's campaigns ride."""
     import torch
     from torch.utils import _pytree as pytree
     from wittgenstein_tpu_torch.models.handel import reference_default_params
@@ -2945,8 +2997,10 @@ def serve_headline(dev, tmp):
     base = dict(protocol="Handel", params=reference_default_params(N_NODES),
                 engine="batched", superstep=2, sim_ms=V_MS,
                 chunk_ms=V_CHUNK, obs=["metrics"])
+    from wittgenstein_tpu_torch.serve import Scheduler
     led = os.path.join(tmp, "v1_ledger.jsonl")
-    with served(batch_auto=False) as (httpd, port):
+    with served(batch_auto=False, scheduler=Scheduler(
+            registry=registry, device=dev)) as (httpd, port):
         sch = httpd.batch_service.scheduler
         sch.ledger_path = led
         if "Handel" not in http_json(port, "GET", "/w/protocols"):
@@ -3211,13 +3265,555 @@ def serve_network(dev, pp_digest_100):
     return res, launches
 
 
-def serve_phase(dev, pp_digest_100):
-    """Phase V: V1, V2 and V3, each with its launches."""
+def serve_phase(dev, pp_digest_100, registry):
+    """Phase V: V1, V2 and V3, each with its launches; V1's programs go
+    into `registry`."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="wtpu_serve_") as tmp:
-        out = {"serve_headline": serve_headline(dev, tmp),
+        out = {"serve_headline": serve_headline(dev, tmp, registry),
                "serve_recovery": serve_recovery(dev, tmp),
                "serve_network": serve_network(dev, pp_digest_100)}
+    for key, (res, launches) in out.items():
+        log(f"{key}: {json.dumps(res)} launches {launches}")
+        check_launches(key, launches)
+    return out
+
+
+# ------------------------------------------ the fleet and campaign planes
+
+def matrix_headline_grid(schedule, seeds=None):
+    """M1's grid as JSON (`tests/torch_parity.py` `matrix_headline_grid`,
+    whose golden records it): V1's served headline on seeds 0 to
+    `seeds` - 1, one axis on the fault schedule: none (the fault-free
+    twin) and X1's `schedule`."""
+    from wittgenstein_tpu_torch.models.handel import reference_default_params
+    return {"name": "headline-x1",
+            "base": {"protocol": "Handel",
+                     "params": reference_default_params(N_NODES),
+                     "engine": "batched", "superstep": 2,
+                     "seeds": list(range(seeds or M_SEEDS)),
+                     "sim_ms": M_MS,
+                     "chunk_ms": M_CHUNK, "obs": ["metrics"]},
+            "axes": [{"name": "chaos", "field": "fault_schedule",
+                      "values": [None, schedule],
+                      "labels": ["clean", "x1"]}]}
+
+
+def search_spec_json(n=PP_NODES):
+    """M3's question (`tests/torch_parity.py` `search_pingpong_spec`,
+    whose golden records its digest): tests/test_search.py's `_spec()`
+    on PingPong(n), its loss ladder over every link, the predicate on
+    the sends the loss leaves."""
+    return {"name": "pingpong-loss",
+            "grid": {"name": "pingpong-loss-ladder",
+                     "base": {"protocol": "PingPong",
+                              "params": {"node_count": n}, "seeds": [0],
+                              "sim_ms": 160, "chunk_ms": 40,
+                              "superstep": 2,
+                              "obs": ["metrics", "audit"],
+                              "latency_model": "NetworkFixedLatency(50)"},
+                     "axes": [{"name": "loss", "field": "fault_schedule",
+                               "values": [{"loss": [[40, 160, p, 0, n,
+                                                     0, n]]}
+                                          for p in range(0, 120, 20)],
+                               "labels": ["p%03d" % p
+                                          for p in range(0, 120, 20)]}]},
+            "axis": "loss",
+            "predicate": {"field": "summary.msg_sent", "op": ">=",
+                          "value": 1950},
+            "coarse": 2}
+
+
+def report_view(rep, drop=()):
+    """A report's JSON without its wall, its status field, the
+    registry's cache directory and the keys in `drop`."""
+    d = {k: v for k, v in rep.items()
+         if k not in ("wall_s", "status", *drop)}
+    if "registry" in d:
+        d["registry"] = {k: v for k, v in d["registry"].items()
+                         if k != "persistent_cache"}
+    return d
+
+
+def first_diff(a, b, path=""):
+    """Where two JSON values first differ, for a failure message."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b)):
+            if a.get(k) != b.get(k):
+                return first_diff(a.get(k), b.get(k), f"{path}.{k}")
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_diff(x, y, f"{path}[{i}]")
+    return f"{path}: {str(a)[:200]} against {str(b)[:200]}"
+
+
+def matrix_headline(dev, sch, golden):
+    """M1 (module docstring): `run_grid(memo=True)` on `sch`; counters
+    set to 0 just before the run."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch.matrix import (SweepGrid, plan, run_grid,
+                                               verify_cell)
+    from wittgenstein_tpu_torch.memo import plan_prefixes
+    from wittgenstein_tpu_torch.serve import ScenarioSpec
+    t0 = time.perf_counter()
+    proto, (nets, _) = headline_init(dev)
+    sched = chaos_headline_schedule(nets.nodes.down.cpu().numpy())
+    del proto, nets, _
+    schedule_s = time.perf_counter() - t0
+    if sched != golden["schedule"]:
+        fail("M1: X1's schedule built from the 16 seeds' init differs from "
+             "the golden's")
+    grid = SweepGrid.from_json(matrix_headline_grid(sched))
+    if grid.grid_digest() != golden["grid_digest"]:
+        fail(f"M1: grid digest {grid.grid_digest()}, the golden's "
+             f"{golden['grid_digest']}")
+    mplan = plan(grid)
+    fork = [{"prefix_digest": fg.prefix_digest, "fork_ms": int(fg.fork_ms),
+             "cells": list(fg.cells)}
+            for fg in plan_prefixes(mplan, min_cells=2).groups]
+    if fork != golden["fork_plan"]:
+        fail(f"M1: the fork plan {fork} differs from the JAX "
+             f"plan_prefixes' {golden['fork_plan']}")
+    key_warm = sch.registry.has_key(mplan.groups[0].compile_key) or \
+        sch.registry.has_key(mplan.groups[-1].compile_key)
+    if len(mplan.cells) != 2 or mplan.planned_compiles != 2:
+        fail(f"M1: the plan has {len(mplan.cells)} cells and "
+             f"{mplan.planned_compiles} compile keys, want 2 and 2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    run = run_grid(grid, sch, mplan, memo=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    rep = run.report.to_json()
+    if not run.report.clean or rep["cells_error"] or \
+            rep["audit_violations"]:
+        fail(f"M1: the campaign ended {run.report.format()}")
+    run_local = ("registry", "program_builds", "resilience")
+    mine, want = report_view(rep, run_local), report_view(
+        golden["report"], run_local)
+    if mine != want:
+        fail(f"M1: the report differs from the JAX run_grid's at "
+             f"{first_diff(mine, want)}")
+    builds = rep["program_builds"]
+    if builds != (1 if key_warm else 2):
+        fail(f"M1: {builds} program builds (the twin's key "
+             f"{'was' if key_warm else 'was not'} in the registry)")
+    t0 = time.perf_counter()
+    checks = {"clean": lambda: load_golden(HEADLINE_GOLDEN, V_MS,
+                                           HEADLINE_SEEDS)}
+    with open(X_GOLDEN) as f:
+        x_golden = json.load(f)["ms"][str(X_MS[-1])]
+    checks["x1"] = lambda: {"ms": X_MS[-1], "seeds": x_golden["seeds"]}
+    states = {}
+    for cell in mplan.cells:
+        gcell = golden["cells"][cell.id]
+        want_seeds = checks[cell.labels["chaos"]]() if gcell["equal"] \
+            else {"ms": M_MS, "seeds": gcell["seeds"]}
+        states[cell.id] = state = run.states[cell.id]
+        check_seed_goldens(f"M1 {cell.id} ({gcell['golden'] if gcell['equal'] else 'the JAX run_grid'})",
+                           *state, want_seeds)
+    golden_s = time.perf_counter() - t0
+    # verify_cell on one spot seed: the faulted cell's seed 0 through a
+    # sequential Runner (the state only: the cell's metrics block is
+    # the 8 seeds' sum)
+    cid = "chaos=x1"
+    spot = ScenarioSpec.from_json(dict(mplan.resolved[cid].to_json(),
+                                       seeds=[0])).validate()
+    t0 = time.perf_counter()
+    mism = verify_cell(spot, pytree.tree_map(lambda x: x[:1], states[cid]),
+                       {})
+    verify_s = time.perf_counter() - t0
+    if mism:
+        fail(f"M1: verify_cell on {cid} seed 0: {mism}")
+    del states, run
+    log(f"M1: 2 cells x {M_SEEDS} seeds of the {N_NODES}-node headline, "
+        f"fault-free and under X1's schedule, run_grid(memo=True): the "
+        f"report equals the JAX run_grid's, each seed equals its golden, "
+        f"verify_cell holds on {cid} seed 0; fork plan {fork} (the JAX "
+        f"plan's); drain {wall:.2f} s, {builds} program build(s)")
+    res = dict(wall_s=wall, schedule_s=schedule_s, golden_s=golden_s,
+               verify_s=verify_s, program_builds=builds,
+               twin_key_warm=key_warm, fork_plan=fork,
+               impact=next(r["impact_vs_twin"] for r in rep["cells"]
+                           if "impact_vs_twin" in r),
+               peak_mem_bytes=peak)
+    return res, launches
+
+
+def matrix_search(dev, port, sch, golden):
+    """M3 (module docstring) through the server on `port`; counters set
+    to 0 just before ``/w/matrix/search/run``."""
+    import torch
+    from wittgenstein_tpu_torch.matrix import SearchSpec, compile_search
+    spec = SearchSpec.from_json(search_spec_json())
+    if spec.digest() != golden["search_digest"]:
+        fail(f"M3: search digest {spec.digest()}, the golden's "
+             f"{golden['search_digest']}")
+    splan = compile_search(spec)
+    sub = http_json(port, "POST", "/w/matrix/search/submit", spec.to_json())
+    if sub["status"] != "planned" or sub["cells_exhaustive"] != 6:
+        fail(f"M3: POST /w/matrix/search/submit answered {sub}")
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    st = http_json(port, "POST", f"/w/matrix/search/run/{sub['id']}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    rep = http_json(port, "GET", f"/w/matrix/search/report/{sub['id']}")
+    if st["status"] != "done" or rep["status"] != "done":
+        fail(f"M3: the search ended {st}")
+    mine, want = report_view(rep), report_view(golden["report"])
+    if mine != want:
+        fail(f"M3: the report differs from the JAX run_search's at "
+             f"{first_diff(mine, want)}")
+    memo = rep["accounting"]["memo"]
+    if memo["forked_cells"] != rep["cells_probed"] or memo["prefix_runs"] \
+            != 1 or rep["accounting"]["live_probes"] != rep["cells_probed"]:
+        fail(f"M3: want every probe forked from one prefix run: {memo}")
+    if rep["chunks_simulated"] * 40 // splan.mplan.resolved[
+            rep["cells"][0]["cell"]].superstep != \
+            PATH_LAUNCHES["matrix_search"]["route"]:
+        fail(f"M3: {rep['chunks_simulated']} chunks simulated; "
+             "PATH_LAUNCHES counts 13 at K=2")
+    probes = [(p["cell"], p["verdict"]) for p in rep["probes"]]
+    log(f"M3: the search equals the JAX run_search's report: probes "
+        f"{probes}, boundary {rep['slices'][0]['boundary_label']}, "
+        f"{rep['cells_probed']} of {rep['cells_exhaustive']} cells probed,"
+        f" {rep['chunks_simulated']} of {rep['chunks_exhaustive']} chunks "
+        f"simulated, every probe forked; {wall:.2f} s")
+    res = dict(wall_s=wall, probes=probes,
+               boundary=rep["slices"][0]["boundary_label"],
+               cells_probed=rep["cells_probed"],
+               chunks_simulated=rep["chunks_simulated"],
+               forked_cells=memo["forked_cells"])
+    return res, launches
+
+
+def worker_lines(proc):
+    """The JSON lines a fleet worker has written to its log so far."""
+    out = []
+    with open(proc.log_path) as f:
+        for ln in f:
+            if ln.startswith("{"):
+                with contextlib.suppress(ValueError):
+                    out.append(json.loads(ln))
+    return out
+
+
+#: M2's worker processes, whose logs a failed wait prints
+FLEET_PROCS: list = []
+
+
+def fleet_fail(msg):
+    """Fail M2 with the tail of every worker's log on stderr first."""
+    for p in FLEET_PROCS:
+        with contextlib.suppress(OSError):
+            with open(p.log_path) as f:
+                tail = f.read()[-4000:]
+            print(f"--- {p.log_path} (exit {p.poll()}):\n{tail}",
+                  file=sys.stderr, flush=True)
+    fail(msg)
+
+
+def until(what, cond, procs=(), timeout_s=M2_WAIT_S, poll_s=0.05):
+    """Poll `cond()` until it is truthy and return it; fail on the bound
+    or when a worker of `procs` has exited."""
+    deadline = time.time() + timeout_s
+    while True:
+        got = cond()
+        if got:
+            return got
+        for p in procs:
+            if p.poll() is not None:
+                fleet_fail(f"M2: worker {p.args[p.args.index('--worker-id') + 1]}"
+                           f" exited ({p.returncode}) while waiting for "
+                           f"{what}; log {p.log_path}")
+        if time.time() > deadline:
+            fleet_fail(f"M2: no {what} after {timeout_s:.0f} s")
+        time.sleep(poll_s)
+
+
+def fleet_digests(dd, spec_digest):
+    """The per-seed digests the fleet's workers recorded for the request
+    of `spec_digest` (`FleetWorker(digest_dir=)`), with the worker."""
+    import glob
+    for path in sorted(glob.glob(os.path.join(dd, "digests-*.jsonl"))):
+        with open(path) as f:
+            for ln in f:
+                row = json.loads(ln)
+                if row["spec_digest"] == spec_digest:
+                    return row
+    return None
+
+
+def fleet_grid(name, chunks):
+    """M2's grid: PingPong(1000) as V2 serves it (vmapped, K=2, 200 ms;
+    the metrics plane), one axis on the seeds, 0-7 and 8-15 (the first
+    `len(chunks)` of them), paired with the chunk length so two cells
+    have two compile keys (the workers' cold-key budget then gives one
+    to each, as tests/test_crash.py:281's journal does)."""
+    cells = [{"seeds": list(range(8 * i, 8 * i + 8)), "chunk_ms": c}
+             for i, c in enumerate(chunks)]
+    return {"name": name,
+            "base": {"protocol": "PingPong",
+                     "params": {"node_count": V2_NODES},
+                     "engine": "vmapped", "superstep": 2, "seeds": [0],
+                     "sim_ms": V_MS, "chunk_ms": chunks[0],
+                     "obs": ["metrics"]},
+            "axes": [{"name": "seeds", "values": cells,
+                      "labels": ["s0-7", "s8-15"][:len(chunks)]}]}
+
+
+def matrix_fleet(dev, tmp):
+    """M2 (module docstring): two worker processes on the card over one
+    fleet directory, fed by `run_grid_fleet`; the launch counts are the
+    workers' own (each publishes its wrappers' counts in its stats)."""
+    import signal
+    from wittgenstein_tpu_torch.matrix import SweepGrid, plan
+    from wittgenstein_tpu_torch.matrix.driver import (fleet_enqueue,
+                                                      run_grid_fleet)
+    from wittgenstein_tpu_torch.serve import ScenarioSpec
+    from wittgenstein_tpu_torch.serve.fleet import (aggregate_worker_stats,
+                                                    fleet_paths,
+                                                    spawn_worker)
+    from wittgenstein_tpu_torch.serve.journal import (LeaseTable,
+                                                      SubmissionJournal)
+    golden = load_golden(PP_HARNESS_GOLDEN, V_MS, PP_SEEDS)
+    fd, dd = os.path.join(tmp, "fleet"), os.path.join(tmp, "digests")
+    paths = fleet_paths(fd)
+    t_spawn = time.time()
+    procs = {w: spawn_worker(fd, w, lease_ttl_s=M2_TTL, idle_exit_s=None,
+                             max_wall_s=600, poll_s=0.1, device=str(dev),
+                             state_digests=dd,
+                             env=dict(os.environ, PYTHONUNBUFFERED="1"))
+             for w in ("wa", "wb")}
+    FLEET_PROCS[:] = procs.values()
+    try:
+        ready = {w: until(f"worker {w}'s start-up line",
+                          lambda p=p: worker_lines(p), [p])[0]
+                 for w, p in procs.items()}
+        startup = {w: dict(spawn_to_ready_s=r["ready_unix"] - t_spawn,
+                           startup_s=r["startup_s"],
+                           device_init_s=r["device_init_s"])
+                   for w, r in ready.items()}
+        out = {"startup": startup}
+
+        def stats():
+            return aggregate_worker_stats(fd)["workers"]
+
+        def check_cells(what, grid):
+            for cell in grid.expand():
+                row = until(f"{what} {cell.id}'s digests", lambda c=cell:
+                            fleet_digests(dd, c.spec.digest()))
+                for d, s in zip(row["digests"], row["seeds"]):
+                    check_digest(f"{what} {cell.id} seed {s} at {V_MS} ms "
+                                 f"(worker {row['worker']})", d,
+                                 golden["seeds"][s])
+            return {c.id: fleet_digests(dd, c.spec.digest())["worker"]
+                    for c in grid.expand()}
+
+        # campaign 1: one cell a worker
+        grid1 = SweepGrid.from_json(fleet_grid("fleet-pingpong",
+                                               M2_CHUNKS))
+        t0 = time.time()
+        run1 = run_grid_fleet(grid1, fleet_dir=fd, spawn=False,
+                              timeout_s=M2_WAIT_S, poll_s=0.05)
+        out["campaign_s"] = time.time() - t0
+        rep1 = run1.report.data
+        if not run1.report.clean or rep1["cells_done"] != 2:
+            fleet_fail(f"M2: campaign 1 report {run1.report.format()}")
+        ran_by = check_cells("M2", grid1)
+        per = stats()
+        claimed = {w: per[w]["claimed"] for w in per}
+        launches = {}
+        for w in per:
+            for k, v in per[w]["kernels"]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        if sorted(claimed.values()) != [1, 1] or \
+                sorted(ran_by.values()) != ["wa", "wb"] or \
+                dev.type == "cuda" and any(
+                    not per[w]["kernels"]["launches"]["route"]
+                    for w in per):
+            fleet_fail(f"M2: want one cell run by each worker: claimed "
+                 f"{claimed}, digests from {ran_by}, launches "
+                 f"{ {w: per[w]['kernels'] for w in per} }")
+        out["chunk_wall_ema_s"] = {w: per[w]["health"]["chunk_wall_ema_s"]
+                                   for w in per}
+        # a duplicate of a settled cell: served from the shared ledger
+        journal = SubmissionJournal(paths["journal_dir"])
+        dup = grid1.expand()[0].spec
+        journal.record_submit("dup-0001", dup)
+        # the tombstone, then the dedup counter in the worker's next
+        # stats snapshot (it moves after the tombstone)
+        until("the duplicate's dedup", lambda: journal.settled().get(
+            "dup-0001") and sum(w["deduped"] for w in stats().values()))
+        after = stats()
+        if sum(after[w]["deduped"] for w in after) != 1 or \
+                journal.settled()["dup-0001"] != "done" or any(
+                    after[w]["kernels"]["launches"]
+                    != per[w]["kernels"]["launches"] for w in after):
+            fleet_fail(f"M2: the duplicate was not served from the ledger "
+                 f"without a launch: {after}")
+        # campaign 2, one cell: SIGKILL the worker that runs it once it
+        # passes its first chunk boundary, inside its next chunk; the
+        # idle survivor reclaims the lease when it expires
+        grid2 = SweepGrid.from_json(fleet_grid("fleet-pingpong-kill",
+                                               (M2_KILL_CHUNK,)))
+        plan2 = plan(grid2)
+        rids = fleet_enqueue(plan2, fd)
+        ck = paths["checkpoint_dir"]
+
+        from wittgenstein_tpu_torch.utils import checkpoint
+
+        def boundary():
+            """A checkpoint of a campaign-2 request: its file name."""
+            if not os.path.isdir(ck):
+                return None
+            for f in sorted(os.listdir(ck)):
+                if not f.startswith("group-w") or ".tmp" in f:
+                    continue
+                with contextlib.suppress(OSError, ValueError, KeyError):
+                    if {r["id"] for r in checkpoint.peek_meta(os.path.join(
+                            ck, f))["requests"]} <= set(rids.values()):
+                        return f
+            return None
+
+        first = until("a chunk boundary of campaign 2", boundary,
+                      list(procs.values()), poll_s=0.005)
+        victim = first.split("-")[1]
+        survivor = "wb" if victim == "wa" else "wa"
+        procs[victim].send_signal(signal.SIGKILL)
+        t_kill = time.time()
+        held = [r["id"] for r in checkpoint.peek_meta(
+            os.path.join(ck, first))["requests"]]
+        leases = LeaseTable(paths["journal_dir"])
+        log(f"M2: {victim} SIGKILLed after {first} (requests {held}); "
+            f"live leases {leases.live(t_kill)} of campaign 2's {rids}")
+        procs[victim].wait(timeout=30)
+        taken = until("the survivor's reclaim", lambda: held and all(
+            leases.holder(r) == survivor or r in journal.settled()
+            for r in held), [procs[survivor]], poll_s=0.02)
+        lease_wait = time.time() - t_kill
+        run2 = run_grid_fleet(grid2, plan2, fleet_dir=fd, spawn=False,
+                              timeout_s=M2_WAIT_S, poll_s=0.05)
+        out["kill_campaign_s"] = time.time() - t_kill
+        if not run2.report.clean or run2.report.data["cells_done"] != 1:
+            fleet_fail(f"M2: campaign 2 report {run2.report.format()}")
+        ran_by2 = check_cells("M2 after the kill", grid2)
+        surv = stats()[survivor]
+        out.update(victim=victim, killed_at=first, reclaimed=held,
+                   lease_wait_s=lease_wait, ttl_s=M2_TTL,
+                   survivor_adopted_checkpoints=surv["adopted_checkpoints"],
+                   survivor_claimed=surv["claimed"], ran_by=ran_by2,
+                   survivor_kernels=surv["kernels"],
+                   build_s={w: st["kernels"]["build_s"]
+                            for w, st in stats().items()})
+        if not taken or ran_by2[plan2.cells[0].id] != survivor:
+            fleet_fail(f"M2: the survivor did not finish the killed cell: {out}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for p in procs.values():
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=30)
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"M2: two worker processes on the card: campaign 1 split one cell "
+        f"a worker (claimed {claimed}), each cell equal to the JAX golden,"
+        f" the duplicate served from the ledger with no launch; "
+        f"{out['victim']} SIGKILLed after {out['killed_at']}, its lease "
+        f"reclaimed by {survivor} {lease_wait:.2f} s later (ttl "
+        f"{M2_TTL} s), campaign 2 equal to the golden; start-up "
+        f"{json.dumps(startup)}; chunk-wall EMA {out['chunk_wall_ema_s']}")
+    return out, launches
+
+
+def stop_fleet_procs():
+    """Terminate M2's worker processes that still run (at exit, so a
+    failure elsewhere in the smoke leaves none behind)."""
+    for p in FLEET_PROCS:
+        if p.poll() is None:
+            p.kill()
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=10)
+
+
+def start_fleet(dev):
+    """Start M2 on a daemon thread of this process, which only waits on
+    files while M2's two worker processes run on the card, and return
+    its handle for `join_fleet`.  The whole smoke starts it before
+    phase A and joins it before G32; a failure in it, `fail`'s exit
+    included, is raised when it is joined, and the workers are killed
+    at exit if the smoke fails before that."""
+    import atexit
+    import tempfile
+    import threading
+    fleet = {"tmp": tempfile.mkdtemp(prefix="wtpu_fleet_")}
+    atexit.register(stop_fleet_procs)
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            fleet["out"] = matrix_fleet(dev, fleet["tmp"])
+        except BaseException as e:  # noqa: BLE001 — re-raised on join
+            fleet["err"] = e
+        fleet["phase_s"] = time.perf_counter() - t0
+
+    fleet["thread"] = threading.Thread(target=run, name="phase-M2",
+                                       daemon=True)
+    fleet["thread"].start()
+    return fleet
+
+
+def join_fleet(fleet):
+    """M2's result, once its thread ends (its failure raised here)."""
+    import shutil
+    fleet["thread"].join(timeout=4 * M2_WAIT_S)
+    if fleet["thread"].is_alive():
+        fail(f"M2 did not end within {4 * M2_WAIT_S:.0f} s of its join")
+    shutil.rmtree(fleet["tmp"], ignore_errors=True)
+    if "err" in fleet:
+        raise fleet["err"]
+    fleet["out"][0]["phase_s"] = fleet["phase_s"]
+    return fleet["out"]
+
+
+def matrix_phase(dev, registry, fleet_out=None):
+    """Phase M: M1 on a scheduler over `registry` (phase V's, so V1's
+    program is a hit), M3 through a server whose service drives the
+    same scheduler, then M2: `join_fleet`'s result `fleet_out`, or M2
+    run here after M3."""
+    import tempfile
+    from wittgenstein_tpu_torch.serve import Scheduler, Service
+    with open(M_GOLDEN) as f:
+        m_golden = json.load(f)
+    with open(M3_GOLDEN) as f:
+        m3_golden = json.load(f)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="wtpu_matrix_") as tmp:
+        sch = Scheduler(registry=registry, device=dev,
+                        ledger_path=os.path.join(tmp, "m_ledger.jsonl"))
+        t0 = time.perf_counter()
+        out["matrix_headline"] = matrix_headline(dev, sch, m_golden)
+        out["matrix_headline"][0]["phase_s"] = time.perf_counter() - t0
+        svc = Service(scheduler=sch, auto=False)
+        with served(batch_service=svc) as (httpd, port):
+            t0 = time.perf_counter()
+            out["matrix_search"] = matrix_search(dev, port, sch, m3_golden)
+            out["matrix_search"][0]["phase_s"] = time.perf_counter() - t0
+        del sch, svc
+    if fleet_out is None:
+        fleet_out = join_fleet(start_fleet(dev))
+    out["matrix_fleet"] = fleet_out
     for key, (res, launches) in out.items():
         log(f"{key}: {json.dumps(res)} launches {launches}")
         check_launches(key, launches)
@@ -4482,6 +5078,10 @@ def main(argv=None) -> int:
     ap.add_argument("--only-serve", action="store_true",
                     help="build, then phase V alone (phase 6's PingPong "
                     "to 100 ms first, for V3), without the summary lines")
+    ap.add_argument("--only-matrix", action="store_true",
+                    help="build, then phase M alone (on a registry of its "
+                    "own: M1's twin is a miss), without the summary "
+                    "lines")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4540,13 +5140,21 @@ def main(argv=None) -> int:
         log(f"phase X: {time.perf_counter() - t0:.1f} s")
         done("X")
         return 0
+    from wittgenstein_tpu_torch.serve import CompileRegistry
+    registry = CompileRegistry(device=dev)
     if args.only_serve:
         digest_100 = pingpong_run(dev, ms=V3_MS)[2][V3_MS]
         done("6 (to 100 ms)")
         t0 = time.perf_counter()
-        serve_phase(dev, digest_100)
+        serve_phase(dev, digest_100, registry)
         log(f"phase V: {time.perf_counter() - t0:.1f} s")
         done("V")
+        return 0
+    if args.only_matrix:
+        t0 = time.perf_counter()
+        matrix_phase(dev, registry)
+        log(f"phase M: {time.perf_counter() - t0:.1f} s")
+        done("M")
         return 0
     for name, *_ in KERNELS:
         if name not in CAPTURED:
@@ -4746,6 +5354,10 @@ def main(argv=None) -> int:
     kernel_case("route_p2phandel_city")
     done("L")
 
+    # M2's two worker processes run on the card beside phase A, and are
+    # joined before G32's kernel case (its results are read at phase M)
+    fleet = start_fleet(dev)
+
     # A. ENR, Slush, Snowflake and Paxos, 4 seeds each
     committee = {"enr": enr_run(dev),
                  "enr_churn": enr_run(dev, "enr_churn", ENR_CHURN_GOLDEN),
@@ -4756,7 +5368,12 @@ def main(argv=None) -> int:
         log(f"{key}: {json.dumps(cres_)} launches {claunches_}")
         check_launches(key, claunches_)
     la_wall = time.perf_counter() - t0
-    log(f"phases L and A: {la_wall:.1f} s")
+    log(f"phases L and A: {la_wall:.1f} s (phase A beside M2's two "
+        f"worker processes)")
+    t0 = time.perf_counter()
+    fleet_out = join_fleet(fleet)
+    log(f"M2 joined {time.perf_counter() - t0:.1f} s after phase A's end "
+        f"(M2 {fleet_out[0]['phase_s']:.1f} s)")
     done("A")
 
     # G32. GSF at the reference's 32,768 nodes, and K1 on its window
@@ -4789,10 +5406,20 @@ def main(argv=None) -> int:
     # V. the request plane: the headline served over HTTP, crash-only
     # recovery, the interactive network
     t0 = time.perf_counter()
-    serve = serve_phase(dev, pdigests[100])
+    serve = serve_phase(dev, pdigests[100], registry)
     v_wall = time.perf_counter() - t0
     log(f"phase V: {v_wall:.1f} s")
     done("V")
+
+    # M. the campaign planes: a sweep over the headline on V's registry,
+    # a boundary search through /w/matrix/search/*, the two-worker
+    # fleet's result (run beside phase A)
+    t0 = time.perf_counter()
+    matrix = matrix_phase(dev, registry, fleet_out)
+    m_wall = time.perf_counter() - t0
+    log(f"phase M: {m_wall:.1f} s (M1 and M3; M2 "
+        f"{fleet_out[0]['phase_s']:.1f} s beside phase A)")
+    done("M")
 
     memory = {}
     if args.memory_seeds:
@@ -4890,7 +5517,9 @@ def main(argv=None) -> int:
                "gsf32k": G32_MS[-1],
                **{k: v[0]["ms"] for k, v in obs.items()},
                "serve_headline": V_MS, "serve_recovery": 2 * V_MS,
-               "serve_network": V3_MS + V3_EXTERNAL_MS}
+               "serve_network": V3_MS + V3_EXTERNAL_MS,
+               "matrix_headline": 2 * M_MS, "matrix_fleet": 2 * V_MS,
+               "matrix_search": 13 * 40}
     path_launches = {"handel": launches, "gsf": glaunches,
                      "headline": hlaunches, "pingpong": plaunches,
                      "pingpong_harness": hplaunches, "spill": slaunches,
@@ -4909,7 +5538,8 @@ def main(argv=None) -> int:
                      "gsf32k": g32launches,
                      **{k: v[1] for k, v in obs.items()},
                      **{k: v[1] for k, v in chaos.items()},
-                     **{k: v[1] for k, v in serve.items()}}
+                     **{k: v[1] for k, v in serve.items()},
+                     **{k: v[1] for k, v in matrix.items()}}
     kernels = []
     for name, key, path, source, replaces, _ in KERNELS:
         r = results[name]
@@ -4959,6 +5589,8 @@ def main(argv=None) -> int:
                       "phase_x_wall_s": x_wall,
                       **{f"{k}_path": v[0] for k, v in serve.items()},
                       "phase_v_wall_s": v_wall,
+                      **{f"{k}_path": v[0] for k, v in matrix.items()},
+                      "phase_m_wall_s": m_wall,
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

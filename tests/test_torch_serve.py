@@ -270,7 +270,8 @@ def test_service_in_process_manual_drain(tmp_path):
 
 
 def _get(port, path):
-    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}") as r:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
         return json.loads(r.read())
 
 
@@ -279,7 +280,7 @@ def _post(port, path, body=None):
         f"http://127.0.0.1:{port}{path}",
         data=json.dumps(body or {}).encode(),
         headers={"Content-Type": "application/json"}, method="POST")
-    with urllib.request.urlopen(req) as r:
+    with urllib.request.urlopen(req, timeout=60) as r:
         return json.loads(r.read())
 
 
@@ -288,7 +289,8 @@ def test_http_batch_round_trip():
     status -> result -> stream, the result equal to the JAX service's
     in-process result for the same spec; a bad spec 400s with remedy
     text, malformed JSON 400s, an unknown init kwarg 400s with the
-    template, and /w/matrix/* answers 501 naming ROADMAP A14b."""
+    template, and a malformed grid on /w/matrix/submit 400s with the
+    JAX service's message.  Every request is bounded (60 s)."""
     from wittgenstein_tpu_torch.server.http import make_server
     httpd = make_server(0, batch_auto=False, device="cpu")
     httpd.batch_service.scheduler.ledger_path = "/dev/null"
@@ -329,7 +331,7 @@ def test_http_batch_round_trip():
             data=b'{"protocol":"PingPong",',
             headers={"Content-Type": "application/json"}, method="POST")
         with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(req)
+            urllib.request.urlopen(req, timeout=60)
         assert ei.value.code == 400
         assert "malformed JSON" in json.loads(ei.value.read())["error"]
         with pytest.raises(urllib.error.HTTPError) as ei:
@@ -340,10 +342,13 @@ def test_http_batch_round_trip():
         assert "bogus" in err and "node_count" in err
         with pytest.raises(urllib.error.HTTPError) as ei:
             _post(port, "/w/matrix/submit", {})
-        assert ei.value.code == 501
-        assert "A14b" in json.loads(ei.value.read())["error"]
+        assert ei.value.code == 400
+        with pytest.raises(ValueError) as jerr:
+            jsvc.matrix_submit({})
+        assert json.loads(ei.value.read())["error"] == str(jerr.value)
         metrics = urllib.request.urlopen(
-            f"http://127.0.0.1:{port}/w/batch/metrics").read().decode()
+            f"http://127.0.0.1:{port}/w/batch/metrics",
+            timeout=60).read().decode()
         assert sp.exposition_lines(metrics) == \
             sp.exposition_lines(jsvc.metrics())
         health = _get(port, "/w/batch/health")

@@ -148,7 +148,8 @@ def test_peeks_leave_the_next_run_unchanged():
 
 
 def _get(port, path):
-    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}") as r:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
         return json.loads(r.read())
 
 
@@ -157,7 +158,7 @@ def _post(port, path, body=None):
         f"http://127.0.0.1:{port}{path}",
         data=json.dumps(body or {}).encode(),
         headers={"Content-Type": "application/json"}, method="POST")
-    with urllib.request.urlopen(req) as r:
+    with urllib.request.urlopen(req, timeout=60) as r:
         return json.loads(r.read())
 
 
@@ -166,7 +167,7 @@ def _put(port, path, body):
         f"http://127.0.0.1:{port}{path}",
         data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"}, method="PUT")
-    with urllib.request.urlopen(req) as r:
+    with urllib.request.urlopen(req, timeout=60) as r:
         return json.loads(r.read())
 
 

@@ -17,7 +17,10 @@ latency, ``... city-goldens``; the ENR, Slush, Snowflake and Paxos
 batches, ``... committee-goldens``; and the headline under a fault
 schedule at 100 and 200 ms and the 16-seed PingPong(1000) under
 tests/test_checkpoint.py's schedule at 40 and 120 ms, ``...
-chaos-goldens``, about 3 minutes).
+chaos-goldens``, about 3 minutes; the JAX `run_grid` report of the
+headline's fault-free and faulted twins on 8 seeds and the JAX
+`run_search` report of a boundary question on PingPong(1000), ``...
+matrix-goldens``, about 10 minutes).
 
 Regenerate the first three with ``JAX_PLATFORMS=cpu python
 tests/torch_parity.py`` (``... tests/torch_parity.py gsf-golden`` for the
@@ -2007,6 +2010,158 @@ def write_checkpoint_chaos_golden(n=CKPT_N, seeds=CKPT_SEEDS,
         "schedule": sched, "ms": ms}, t0)
 
 
+MATRIX_HEADLINE_FILE = os.path.join(PORT_DATA,
+                                    "golden_matrix_headline_r8.json")
+MATRIX_SEEDS, MATRIX_CHUNK, MATRIX_MS = 8, 100, 200
+SEARCH_GOLDEN_FILE = os.path.join(PORT_DATA,
+                                  "golden_search_pingpong1000.json")
+SEARCH_N = 1000
+
+
+def matrix_headline_grid(schedule, n=HEADLINE_N, seeds=MATRIX_SEEDS):
+    """`chip_smoke.py` phase M1's grid as JSON: phase V1's served
+    headline (`engine="batched"`, K=2, 100-ms chunks to 200 ms, the
+    metrics plane) on seeds 0 to `seeds` - 1, with one axis on the fault
+    schedule: none (the fault-free twin) and phase X1's `schedule`."""
+    from wittgenstein_tpu_torch.models.handel import reference_default_params
+    return {"name": "headline-x1",
+            "base": {"protocol": "Handel",
+                     "params": reference_default_params(n),
+                     "engine": "batched", "superstep": 2,
+                     "seeds": list(range(seeds)), "sim_ms": MATRIX_MS,
+                     "chunk_ms": MATRIX_CHUNK, "obs": ["metrics"]},
+            "axes": [{"name": "chaos", "field": "fault_schedule",
+                      "values": [None, schedule],
+                      "labels": ["clean", "x1"]}]}
+
+
+def search_pingpong_spec(n=SEARCH_N):
+    """`chip_smoke.py` phase M3's question: tests/test_search.py's
+    `_spec()` on `PingPong(n)` — seed 0, 160 ms in 40-ms chunks at
+    K=2 under the metrics and audit planes, a fixed 50-ms latency, and
+    a 6-step
+    ladder of loss from 0 to 100 per mille from 40 ms on every link
+    (the test's node range, 32 of 32 nodes, scaled to all `n`), coarse
+    2.  The predicate is on ``summary.msg_sent`` (the sends the loss
+    leaves, 2,000 to 1,885 along the ladder at 1,000 nodes), not the
+    test's done_frac: at 1,000 nodes the witness's inbox caps its pongs
+    (1,033 received) and done_frac is 0.999 at every step."""
+    return {"name": "pingpong-loss",
+            "grid": {"name": "pingpong-loss-ladder",
+                     "base": {"protocol": "PingPong",
+                              "params": {"node_count": n}, "seeds": [0],
+                              "sim_ms": 160, "chunk_ms": 40,
+                              "superstep": 2,
+                              "obs": ["metrics", "audit"],
+                              "latency_model": "NetworkFixedLatency(50)"},
+                     "axes": [{"name": "loss", "field": "fault_schedule",
+                               "values": [{"loss": [[40, 160, p, 0, n,
+                                                     0, n]]}
+                                          for p in range(0, 120, 20)],
+                               "labels": ["p%03d" % p
+                                          for p in range(0, 120, 20)]}]},
+            "axis": "loss",
+            "predicate": {"field": "summary.msg_sent", "op": ">=",
+                          "value": 1950},
+            "coarse": 2}
+
+
+def _report_json(report) -> dict:
+    """A report's JSON without its wall and the JAX compile-cache
+    directory (tests/serve_parity.py's left-out fields)."""
+    d = dict(report.to_json())
+    d.pop("wall_s", None)
+    if "registry" in d:
+        d["registry"] = {k: v for k, v in d["registry"].items()
+                         if k != "persistent_cache"}
+    return d
+
+
+def write_matrix_headline_golden(n=HEADLINE_N, seeds=MATRIX_SEEDS,
+                                 path=MATRIX_HEADLINE_FILE):
+    """Phase M1's grid through the JAX `run_grid(memo=True)` on the CPU:
+    the report (no wall), the memo fork plan (`plan_prefixes`), and
+    whether each cell's per-seed state digests at 200 ms equal the
+    golden they are checked against on the card (the headline's and
+    phase X1's, their seeds 0 to `seeds` - 1); a cell that differs
+    carries its own digests.  The schedule is built from all 16 seeds'
+    entry flags, as X1's is.  About 10 minutes and 6 GB of JAX on an
+    8-core CPU host."""
+    import tempfile
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    import wittgenstein_tpu.models  # noqa: F401
+    from wittgenstein_tpu.matrix import SweepGrid, plan, run_grid
+    from wittgenstein_tpu.memo import plan_prefixes
+    from wittgenstein_tpu.models.handel import Handel
+    from wittgenstein_tpu.serve import Scheduler
+    from wittgenstein_tpu_torch.models.handel import reference_default_params
+
+    t0 = time.monotonic()
+    proto = Handel(**reference_default_params(n))
+    nets, _ = jax.vmap(proto.init)(jnp.arange(CHAOS_SEEDS, dtype=jnp.int32))
+    sched = chaos_headline_schedule(nets.nodes.down, n)
+    del nets
+    grid = SweepGrid.from_json(matrix_headline_grid(sched, n, seeds))
+    mplan = plan(grid)
+    fplan = plan_prefixes(mplan, min_cells=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = run_grid(grid, Scheduler(ledger_path=os.path.join(
+            tmp, "ledger.jsonl")), plan_=mplan, memo=True)
+    checks = {"clean": (HEADLINE_GOLDEN_FILE, HEADLINE_MS),
+              "x1": (CHAOS_HEADLINE_FILE, CHAOS_MS[-1])}
+    cells = {}
+    for cell in mplan.cells:
+        label = cell.labels["chaos"]
+        got = convert.seed_digests(*jax_state(*run.states[cell.id]))
+        gpath, gms = checks[label]
+        with open(gpath) as f:
+            g = json.load(f)
+        want = g["seeds"] if "seeds" in g else g["ms"][str(gms)]["seeds"]
+        same = got == want[:seeds]
+        cells[cell.id] = {"golden": os.path.basename(gpath),
+                          "equal": bool(same)}
+        if not same:
+            cells[cell.id]["seeds"] = got
+    _write_golden(path, {
+        "config": f"matrix_headline_grid(chaos_headline_schedule(16 "
+                  f"seeds' down flags), n={n}, seeds={seeds})",
+        "call": "wittgenstein_tpu.matrix.run_grid(grid, Scheduler(), "
+                "memo=True)",
+        "grid": grid.to_json(), "grid_digest": grid.grid_digest(),
+        "schedule": sched,
+        "fork_plan": [{"prefix_digest": fg.prefix_digest,
+                       "fork_ms": int(fg.fork_ms), "cells": list(fg.cells)}
+                      for fg in fplan.groups],
+        "report": _report_json(run.report), "cells": cells}, t0)
+
+
+def write_search_golden(n=SEARCH_N, path=SEARCH_GOLDEN_FILE):
+    """Phase M3's question through the JAX `run_search` on the CPU (a
+    cold scheduler, memo on): its report without the wall.  About a
+    minute of JAX."""
+    import tempfile
+    import time
+
+    import wittgenstein_tpu.models  # noqa: F401
+    from wittgenstein_tpu.matrix import SearchSpec, run_search
+    from wittgenstein_tpu.serve import Scheduler
+
+    t0 = time.monotonic()
+    spec = SearchSpec.from_json(search_pingpong_spec(n))
+    with tempfile.TemporaryDirectory() as tmp:
+        run = run_search(spec, Scheduler(ledger_path=os.path.join(
+            tmp, "ledger.jsonl")))
+    _write_golden(path, {
+        "config": f"search_pingpong_spec(n={n})",
+        "call": "wittgenstein_tpu.matrix.run_search(spec, Scheduler())",
+        "spec": spec.to_json(), "search_digest": spec.digest(),
+        "report": _report_json(run.report)}, t0)
+
+
 def main():
     if sys.argv[1:2] == ["check"]:
         sys.exit(check(int(sys.argv[2]), int(sys.argv[3]),
@@ -2084,6 +2239,10 @@ def main():
     if sys.argv[1:2] == ["chaos-goldens"]:
         write_checkpoint_chaos_golden()
         write_chaos_headline_golden()
+        return
+    if sys.argv[1:2] == ["matrix-goldens"]:
+        write_search_golden()
+        write_matrix_headline_golden()
         return
     np.save(TABLE_FILE, jax_latency_table().astype(np.int16))
     digest = jax_golden_digest()

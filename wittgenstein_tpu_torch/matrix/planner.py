@@ -1,6 +1,6 @@
 """Compile-key-minimal planning — a copy of
 `wittgenstein_tpu/matrix/planner.py` over the port's `SweepGrid` and
-`ScenarioSpec` (`run_grid`, which runs a plan, waits for ROADMAP.md A14).
+`ScenarioSpec` (`driver.run_grid` runs a plan).
 
 `plan(grid)` expands the grid, VALIDATES every cell (the full
 refusal-with-remedy `ScenarioSpec.validate` pass, so every config

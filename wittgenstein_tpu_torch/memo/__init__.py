@@ -14,9 +14,10 @@ its planning and synthesis half:
 
 The acceptance bar is bit-identity: a frozen lane's final state and
 carries equal stepping its quiet chunks (tests/test_torch_memo.py).
-The scheduler's fork seam and `_freeze_pass`, and `run_grid(memo=...)`,
-wait for the port's scheduler (ROADMAP.md A14).  `MemoConfig` is the
-campaign runner's knob bundle (`run_grid(memo=...)`).
+The scheduler's fork seam and `_freeze_pass` drive them, and
+`matrix/driver.run_grid(memo=...)` and `matrix/search.run_search` plan
+the prefixes.  `MemoConfig` is the campaign runner's knob bundle
+(`run_grid(memo=...)`).
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """Fixed-point lane freezing — the port of
 `wittgenstein_tpu/memo/freeze.py`: the pure synthesis of a frozen
 lane's tail (its final state and its obs carries), over the port's
-engine and carries.  (The scheduler's `_freeze_pass` that drives it
-waits for the port's scheduler, ROADMAP.md A14.)
+engine and carries; the scheduler's `_freeze_pass` drives it.
 
 A done lane is a fixed point the dense engines recompute every ms: once
 the `next_work` oracle proves no ring row, broadcast arrival or

@@ -1,8 +1,9 @@
 """Snapshot-fork prefix planning — the port of
 `wittgenstein_tpu/memo/prefix.py`: the same groups and fork points over
 the port's `ScenarioSpec` and `matrix.plan`, and the chaos no-op gate
-over the port's torch states.  (The campaign runner's fork seam that runs the
-prefixes waits for the port's scheduler, ROADMAP.md A14.)
+over the port's torch states; `matrix/driver.run_grid(memo=...)` and
+`matrix/search.run_search` run the prefixes through the scheduler's
+fork seam.
 
 The memoization half of the fast-forward paper (PAPERS.md 2602.10615,
 ROADMAP item 3): BFT-scale campaigns (2208.14745) sweep adversity —

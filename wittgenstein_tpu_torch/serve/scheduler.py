@@ -464,6 +464,15 @@ class Scheduler:
         #: so a survivor can tell whose file it is adopting.  Uses "-"
         #: as the separator (the HTTP id route accepts [A-Za-z0-9_-]).
         self.worker_id = str(worker_id) if worker_id else None
+        #: ``settle_hook(req, final_state, carries)`` is called with
+        #: each finished request, its final lane state and its
+        #: per-chunk obs carries (plane -> [carry, ...]) before its
+        #: ledger row and its journal tombstone (None = nothing): the
+        #: fleet worker publishes a finished memo prefix into the
+        #: shared table and its own stats snapshot here, so both are on
+        #: disk by the time a reader sees the request's completion
+        #: (serve/fleet.py).  It must not raise.
+        self.settle_hook = None
         self.ledger_path = ledger_path      # None = the shared default
         #: the device-program launch seam: ``launcher(fn, *args)``
         #: (default: call fn), args the lane-state triple ``(net,
@@ -2183,6 +2192,9 @@ class Scheduler:
             # trajectory from the rows alone, no scraper needed
             from .instrument import ledger_metrics_block
             line["host_metrics"] = ledger_metrics_block(self)
+        if self.settle_hook is not None:
+            self.settle_hook(req, final_state,
+                             {p: list(cs) for p, cs in ln.carries.items()})
         path = self._append_ledger(req, line)
         art["wall_s"] = round(wall, 3)
         art["registry"] = self.registry.stats()

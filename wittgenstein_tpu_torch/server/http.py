@@ -64,9 +64,8 @@ service"; spec schema in serve/spec.py):
                                            per-chunk totals + deltas
                                            (?after=MS&timeout=S)
 
-Matrix plane — not ported yet (ROADMAP.md A14b): every /w/matrix/*
-route answers 501 with the ROADMAP item.  Its routes, as the JAX
-package serves them:
+Matrix plane (`matrix/`; grid schema in matrix/grid.py), as the JAX
+package serves it:
 
     POST /w/matrix/submit                  body: SweepGrid JSON ->
                                            {"id", "grid_digest", "cells",
@@ -76,8 +75,8 @@ package serves them:
     GET  /w/matrix/report/{id}             the MatrixReport artifact
     POST /w/matrix/run/{id}                manual synchronous drive
 
-Adaptive boundary search (wittgenstein_tpu/matrix/search.py — README
-"Adaptive campaigns"; spec schema in SearchSpec):
+Adaptive boundary search (`matrix/search.py`; spec schema in
+SearchSpec):
 
     POST /w/matrix/search/submit           body: SearchSpec JSON ->
                                            {"id", "search_digest",
@@ -87,7 +86,13 @@ Adaptive boundary search (wittgenstein_tpu/matrix/search.py — README
     GET  /w/matrix/search/report/{id}      the SearchReport artifact
     POST /w/matrix/search/run/{id}         manual synchronous drive
 
+With ``--fleet-dir DIR`` the batch routes and the searches are served by
+`serve.FleetService` over a shared fleet directory (serve/fleet.py's
+workers run the requests); the matrix and stream routes need an
+in-process scheduler and answer 400 there, as in the JAX package.
+
 Run: python -m wittgenstein_tpu_torch.server.http [port] [--device cpu]
+     [--fleet-dir DIR]
 """
 
 from __future__ import annotations
@@ -370,10 +375,15 @@ def make_server(port: int = 0, batch_auto: bool = True,
     return httpd
 
 
-def main(port: int = 8078, device=None):
-    httpd = make_server(port, device=device)
+def main(port: int = 8078, device=None, fleet_dir: str | None = None):
+    svc = None
+    if fleet_dir is not None:
+        from ..serve.service import FleetService
+        svc = FleetService(fleet_dir)
+    httpd = make_server(port, batch_service=svc, device=device)
+    backend = f"fleet dir {fleet_dir}" if fleet_dir else "in-process"
     print(f"wittgenstein-tpu-torch server on http://127.0.0.1:"
-          f"{httpd.server_address[1]}/w (in-process, device "
+          f"{httpd.server_address[1]}/w ({backend}, device "
           f"{httpd.sim_server.device})")
     httpd.serve_forever()
 
@@ -386,5 +396,9 @@ if __name__ == "__main__":
     ap.add_argument("--device", default=None,
                     help="the device the simulations run on (default: "
                          "cuda; 'cpu' runs the plain PyTorch versions)")
+    ap.add_argument("--fleet-dir", default=None,
+                    help="serve the batch routes from a shared fleet "
+                         "directory (serve.FleetService) instead of an "
+                         "in-process scheduler")
     a = ap.parse_args()
-    main(a.port, device=a.device)
+    main(a.port, device=a.device, fleet_dir=a.fleet_dir)
