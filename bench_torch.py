@@ -115,6 +115,13 @@ engine at K=1, then a fault-free twin, and the block carries
 ``schedule`` (event counts), ``transitions``, ``audit`` (the faulted
 run's verdict), ``faulted`` and ``baseline`` (`chaos.impact_summary`).
 
+``--history PATH`` appends the line to a bench-history ledger
+(`obs/regress.BenchHistory`, the rows `cli/bench_suite.py` writes):
+stage ``{proto}_{N}n``, the config digest of every argument that
+selects the measured program (`history_config`), the line's
+``value``/``wall_*`` measures; `python -m wittgenstein_tpu_torch.cli.regress
+PATH` then gates the newest line against the same host's earlier ones.
+
 Prints one JSON line in `bench.py`'s shape: ``metric``
 (``{proto}_{N}n_{R}seeds_agg_sim_ms_per_sec``, ``_cardinal`` and
 ``_ff`` appended as `bench.py` appends them), ``value`` (aggregate
@@ -131,6 +138,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -689,6 +697,29 @@ def check_trace_cap(args, total_ms):
             "65536 fits most bench spans), lower --ms, or drop --trace")
 
 
+def history_config(args, engine, k) -> dict:
+    """What selects the measured program of a line: the history row's
+    config digest covers it, so two lines of different configurations
+    never baseline each other."""
+    keys = ("proto", "nodes", "seeds", "ms", "chunk", "mode", "emission",
+            "pool", "state_split", "box_split", "seed_batch", "attesters",
+            "miner", "pow", "fast_forward", "metrics", "trace",
+            "trace_cap", "audit", "chaos")
+    return {**{key: getattr(args, key) for key in keys}, "engine": engine,
+            "superstep": k}
+
+
+def append_history(path, args, out):
+    """One bench-history row for the line `out` (module docstring)."""
+    from wittgenstein_tpu_torch.obs import ledger, regress
+    regress.BenchHistory(path).append(
+        stage=f"{args.proto}_{args.nodes}n",
+        measures=regress.stage_measures(out), round_id=str(time.time_ns()),
+        config_digest=ledger.digest(history_config(args, out["engine"],
+                                                   out["superstep"])),
+        backend=out["platform"], metric=out["metric"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--proto", choices=sorted(DEFAULTS), default="handel")
@@ -714,6 +745,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-cap", type=int, default=1 << 16)
     ap.add_argument("--no-audit", dest="audit", action="store_false")
     ap.add_argument("--chaos", default=None, metavar="JSON")
+    ap.add_argument("--history", default=None, metavar="PATH")
     args = ap.parse_args(argv)
     args.first_seed = 0
     if args.attesters and args.proto not in ("dfinity", "casper"):
@@ -817,6 +849,8 @@ def main(argv=None) -> int:
     for row in getattr(args, "csv", ()):
         print(row, flush=True)
     print(json.dumps(out), flush=True)
+    if args.history:
+        append_history(args.history, args, out)
     return 0
 
 

@@ -229,6 +229,15 @@ V. the request plane (`serve`, `server`): V1 the headline's 16 seeds as
    (200: the served chunk has no phase hints, as the JAX registry
    builds it); the time and bytes that keeping a launch's state adds to
    a chunk (`Scheduler._launch_state`) and the peak memory are logged;
+   V's and M's registry carries a program catalog
+   (`obs/programs.ProgramCatalog`, a file under a temporary directory):
+   each program's first launch is measured, and the phase logs each
+   row's key, first-launch wall, argument and temp bytes, temp ratio
+   and launches; V1's row must carry ``temp_bytes`` > 0 and launches
+   equal to the counters around that first launch (half of V1's
+   route, merge and score); the peaks of V1 and M1 are read through the
+   catalog's probe (`CudaMemoryProbe.reset_peak`, `peak`), since a
+   first launch resets the device's peak;
    V2 crash-only recovery: a `Scheduler(checkpoint_dir=, journal_dir=)`
    under a temporary directory takes (a) `PingPong(1000)` seeds 0-1
    and (b) seeds 2-3 (vmapped, K=2, 200 ms, metrics and audit; (a) in
@@ -278,6 +287,16 @@ M. the campaign planes (`matrix`, `serve/fleet.py`), on phase V's
    with them; its results are read at phase M.  ``--only-matrix``
    builds the kernels and runs phase M alone, M1, M3 and M2 one after
    another (M1's twin then misses the registry).
+Z. the command lines (`wittgenstein_tpu_torch/cli`), called in this
+   process through their ``main(argv)``: `cli.serve_bench` on
+   PingPong(1000), 240 ms in 120-ms chunks, one seed, metrics and audit
+   (the warm leg a registry hit, route launched); `cli.bench_suite
+   catalog_smoke serve_smoke --history` twice into a temporary history,
+   every line without an error; `cli.regress` over the two rounds
+   (exit 0); `cli.programs` over the catalog V and M wrote (exit 0).
+   ``--only-tools`` builds the kernels and runs phase Z (without the
+   catalog of V and M), then `cli.serve_load` at its default 120
+   requests.
 
 The determinism reruns run under a plane each and are held to the same
 goldens: the headline's (5b) under the metrics plane (its totals
@@ -1543,6 +1562,92 @@ PATH_LAUNCHES = {
     "matrix_search": {"route": 13 * 40 // 2}}
 
 
+# -------------------------------------------------------- the command lines
+
+#: phase Z's serve_bench span: PingPong(PP_NODES), 240 ms in 120-ms chunks
+Z_BENCH_MS = 240
+
+
+def run_cli(name, argv):
+    """`wittgenstein_tpu_torch.cli.<name>.main(argv)` in this process, its
+    standard output captured: ``(exit code, wall s, output lines)``."""
+    import importlib
+    import io
+    mod = importlib.import_module(f"wittgenstein_tpu_torch.cli.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = mod.main(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    log(f"cli.{name} {' '.join(argv)}: exit {code} in {wall:.2f} s")
+    return code, wall, lines
+
+
+def json_lines(lines):
+    return [json.loads(ln) for ln in lines if ln.startswith("{")]
+
+
+def tools_phase(dev, catalog_dir):
+    """Phase Z (module docstring): the command lines through their
+    ``main(argv)``; `catalog_dir` holds the catalog V and M wrote (None:
+    `cli.programs` is left out)."""
+    import tempfile
+    import torch
+    out = {}
+    reset_counters()
+    code, wall, lines = run_cli("serve_bench", [
+        str(PP_NODES), str(Z_BENCH_MS), "--device", str(dev)])
+    launches = read_counters()
+    (line,) = json_lines(lines)
+    if code or line["registry"]["hits"] < 1 or not launches["route"] or \
+            line["compile_cache"] != "hit" or not line.get("card"):
+        fail(f"Z: serve_bench exit {code}, line {line}, launches "
+             f"{launches}")
+    log(f"Z serve_bench: {json.dumps(line)}")
+    out["serve_bench"] = dict(line, wall_s=wall, launches=launches)
+    with tempfile.TemporaryDirectory(prefix="wtpu_tools_") as tmp:
+        hist = os.path.join(tmp, "bench_history.jsonl")
+        rounds = []
+        for _ in range(2):
+            code, wall, lines = run_cli("bench_suite", [
+                "catalog_smoke", "serve_smoke", "--history", hist,
+                "--device", str(dev)])
+            stages = json_lines(lines)
+            if code or len(stages) != 2 or any("error" in st
+                                              for st in stages):
+                fail(f"Z: bench_suite exit {code}, lines {stages}")
+            log(f"Z bench_suite: {json.dumps(stages)}")
+            rounds.append({"wall_s": wall, "lines": stages})
+        out["bench_suite"] = rounds
+        code, wall, lines = run_cli("regress", [hist])
+        log("Z regress: " + " / ".join(lines))
+        if code:
+            fail(f"Z: regress exit {code} over two bench_suite rounds")
+        out["regress"] = {"exit": code, "wall_s": wall}
+    if catalog_dir is not None:
+        code, wall, lines = run_cli("programs", [catalog_dir, "--json"])
+        rep = json.loads("\n".join(lines))
+        if code or not rep["count"]:
+            fail(f"Z: programs exit {code} over {catalog_dir}")
+        log(f"Z programs: {rep['count']} rows, outliers "
+            f"{json.dumps(rep['drift_outliers'])}")
+        out["programs"] = {"exit": code, "wall_s": wall,
+                           "count": rep["count"]}
+    torch.cuda.synchronize()
+    return out
+
+
+def serve_load_run(dev):
+    """``--only-tools``: `cli.serve_load` at its default 120 requests."""
+    code, wall, lines = run_cli("serve_load", ["--device", str(dev)])
+    (line,) = json_lines(lines)
+    if code:
+        fail(f"serve_load exit {code}: {line}")
+    log(f"serve_load: {json.dumps(line)}")
+    return dict(line, cli_wall_s=wall)
+
+
 # ------------------------------------------------------------- main path
 
 
@@ -1559,6 +1664,41 @@ def counters():
 def reset_counters():
     for fn in counters().values():
         fn.launches = 0
+
+
+def reset_peak(registry):
+    """Start a span's peak reading.  A cataloged registry's first launch
+    resets the device's peak itself, so the span resets and reads it
+    through the catalog's probe (`obs/programs.CudaMemoryProbe`)."""
+    import torch
+    if registry.catalog is not None:
+        registry.catalog.memory_probe.reset_peak()
+    else:
+        torch.cuda.reset_peak_memory_stats()
+
+
+def read_peak(registry):
+    """The device's peak since `reset_peak(registry)`."""
+    import torch
+    if registry.catalog is not None:
+        return registry.catalog.memory_probe.peak()
+    return torch.cuda.max_memory_allocated()
+
+
+def catalog_rows(registry, what, since=0):
+    """Log the catalog rows of `registry` from row `since` on (key,
+    first-launch wall, argument and temp bytes, temp ratio, launches)
+    and return them."""
+    from wittgenstein_tpu_torch.obs.programs import drift_rows
+    rows = registry.catalog.programs()[since:]
+    for row, d in zip(rows, drift_rows(rows)):
+        mem = row["memory"]
+        log(f"{what} catalog row {row['key']} plane {row['plane']}: "
+            f"compile_wall_s {row['compile_wall_s']}, argument_bytes "
+            f"{mem['argument_bytes']}, temp_bytes {mem.get('temp_bytes')}, "
+            f"temp_ratio {d.get('temp_ratio')}, launches "
+            f"{row['cost']['launches']}")
+    return rows
 
 
 def read_counters():
@@ -3013,22 +3153,38 @@ def serve_headline(dev, tmp, registry):
         if len(keys) != 1 or any(s["status"] != "queued" for s in subs):
             fail(f"V1: the 16 submits got compile keys {keys}, statuses "
                  f"{[s['status'] for s in subs]}")
-        widths = []
+        widths, first = [], []
 
         def widths_launcher(fn, *args):
             widths.append(int(args[0].time.shape[0]))
-            return fn(*args)
+            if len(widths) > 1:
+                return fn(*args)
+            before = read_counters()
+            out = fn(*args)
+            first.append({k: v - before[k]
+                          for k, v in read_counters().items()})
+            return out
 
         sch.launcher = widths_launcher
+        n_rows = len(registry.catalog.programs())
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak(registry)
         reset_counters()
         t0 = time.perf_counter()
         out = http_json(port, "POST", "/w/batch/run")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counters()
-        peak = torch.cuda.max_memory_allocated()
+        peak = read_peak(registry)
+        cat_rows = catalog_rows(registry, "V1", n_rows)
+        half = {k: launches[k] // 2 for k in ("route", "merge", "score")}
+        if len(cat_rows) != 1 or not cat_rows[0]["memory"].get(
+                "temp_bytes", 0) > 0 or \
+                cat_rows[0]["cost"]["launches"] != first[0] or \
+                any(first[0][k] != v for k, v in half.items()):
+            fail(f"V1: want one catalog row with temp_bytes > 0 and the "
+                 f"first chunk's launches {first}, half of {launches}: "
+                 f"{cat_rows}")
         reg = out["registry"]
         if out["processed"] != V_SEEDS or widths != [V_SEEDS] * (
                 V_MS // V_CHUNK) or reg["misses"] != 1 or reg["hits"]:
@@ -3082,7 +3238,8 @@ def serve_headline(dev, tmp, registry):
                sim_ms_per_s=V_MS / wall, agg_sim_ms_per_s=V_SEEDS * V_MS / wall,
                chunk_wall_ema_s=ema, launch_state_ms=copy_ms,
                launch_state_bytes=copy_bytes, peak_mem_bytes=peak,
-               launch_widths=widths, golden_s=golden_s)
+               launch_widths=widths, golden_s=golden_s,
+               catalog_row=cat_rows[0])
     return res, launches
 
 
@@ -3381,15 +3538,19 @@ def matrix_headline(dev, sch, golden):
     if len(mplan.cells) != 2 or mplan.planned_compiles != 2:
         fail(f"M1: the plan has {len(mplan.cells)} cells and "
              f"{mplan.planned_compiles} compile keys, want 2 and 2")
+    n_rows = len(sch.registry.catalog.programs()) \
+        if sch.registry.catalog is not None else 0
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(sch.registry)
     reset_counters()
     t0 = time.perf_counter()
     run = run_grid(grid, sch, mplan, memo=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
-    peak = torch.cuda.max_memory_allocated()
+    peak = read_peak(sch.registry)
+    if sch.registry.catalog is not None:
+        catalog_rows(sch.registry, "M1", n_rows)
     rep = run.report.to_json()
     if not run.report.clean or rep["cells_error"] or \
             rep["audit_violations"]:
@@ -5082,6 +5243,9 @@ def main(argv=None) -> int:
                     help="build, then phase M alone (on a registry of its "
                     "own: M1's twin is a miss), without the summary "
                     "lines")
+    ap.add_argument("--only-tools", action="store_true",
+                    help="build, then phase Z and cli.serve_load at 120 "
+                    "requests, without the summary lines")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5140,20 +5304,35 @@ def main(argv=None) -> int:
         log(f"phase X: {time.perf_counter() - t0:.1f} s")
         done("X")
         return 0
+    if args.only_tools:
+        t0 = time.perf_counter()
+        tools_phase(dev, None)
+        log(f"phase Z: {time.perf_counter() - t0:.1f} s")
+        done("Z")
+        serve_load_run(dev)
+        done("serve_load")
+        return 0
+    import shutil
+    import tempfile
+    from wittgenstein_tpu_torch.obs.programs import ProgramCatalog
     from wittgenstein_tpu_torch.serve import CompileRegistry
-    registry = CompileRegistry(device=dev)
+    catalog_dir = tempfile.mkdtemp(prefix="wtpu_catalog_")
+    registry = CompileRegistry(device=dev, catalog=ProgramCatalog(
+        path=os.path.join(catalog_dir, "programs-smoke.jsonl")))
     if args.only_serve:
         digest_100 = pingpong_run(dev, ms=V3_MS)[2][V3_MS]
         done("6 (to 100 ms)")
         t0 = time.perf_counter()
         serve_phase(dev, digest_100, registry)
         log(f"phase V: {time.perf_counter() - t0:.1f} s")
+        shutil.rmtree(catalog_dir)
         done("V")
         return 0
     if args.only_matrix:
         t0 = time.perf_counter()
         matrix_phase(dev, registry)
         log(f"phase M: {time.perf_counter() - t0:.1f} s")
+        shutil.rmtree(catalog_dir)
         done("M")
         return 0
     for name, *_ in KERNELS:
@@ -5421,6 +5600,14 @@ def main(argv=None) -> int:
         f"{fleet_out[0]['phase_s']:.1f} s beside phase A)")
     done("M")
 
+    # Z. the command lines, in this process
+    t0 = time.perf_counter()
+    tools = tools_phase(dev, catalog_dir)
+    z_wall = time.perf_counter() - t0
+    log(f"phase Z: {z_wall:.1f} s")
+    shutil.rmtree(catalog_dir)
+    done("Z")
+
     memory = {}
     if args.memory_seeds:
         memory = {line: scale_memory(dev, line, args.memory_seeds, ms)
@@ -5591,6 +5778,7 @@ def main(argv=None) -> int:
                       "phase_v_wall_s": v_wall,
                       **{f"{k}_path": v[0] for k, v in matrix.items()},
                       "phase_m_wall_s": m_wall,
+                      "tools": tools, "phase_z_wall_s": z_wall,
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

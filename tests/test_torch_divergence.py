@@ -8,9 +8,9 @@ window from both runs, as the JAX bisector localizes it; bit-identical
 variant pairs must come back clean.  The cross-package bisector runs the
 JAX package and the port side by side from one seed and must find
 nothing on a faithful port, and the exact (ms, leaf, index) of a fault
-planted in the port.  The JAX package's command line
-(`tools/divergence.py`) waits for the port's host plane (ROADMAP.md
-A14).
+planted in the port.  The port's command line
+(`wittgenstein_tpu_torch/cli/divergence.py`, the twin of
+`tools/divergence.py`) is held in tests/test_torch_cli.py.
 """
 
 import pytest

@@ -289,13 +289,25 @@ def test_spawn_worker_subprocess_on_cpu(jax_fleet, tmp_path):
 
 
 def test_catalog_flag_refuses(tmp_path):
-    """``--catalog`` names the step of the roadmap the program catalog
-    waits for, never a silent no-op."""
-    from wittgenstein_tpu_torch.serve import NotPorted
+    """``--catalog`` no longer refuses: it records the worker's programs
+    to ``<dir>/programs-<worker>.jsonl`` (one row for the one cold
+    program of the entry it drains), which the front tier summarizes.
+    (The name is the one the test had while the flag refused.)"""
+    from wittgenstein_tpu_torch.obs.programs import read_catalog
     from wittgenstein_tpu_torch.serve.fleet import main
-    with pytest.raises(NotPorted, match="A14b step 3"):
-        main(["--dir", str(tmp_path), "--worker-id", "w", "--catalog",
-              "--device", "cpu"])
+    fd = str(tmp_path / "fleet")
+    front = FleetService(fd, front_id="front")
+    sub = front.submit(_spec(seeds=[3]))
+    assert main(["--dir", fd, "--worker-id", "wc", "--catalog",
+                 "--device", "cpu", "--idle-exit", "0.5", "--poll",
+                 "0.05", "--max-wall", str(WAIT_S)]) == 0
+    assert front.status(sub["id"])["status"] == "done"
+    (row,) = read_catalog(os.path.join(fd, "programs-wc.jsonl"))
+    assert (row["protocol"], row["plane"], row["backend"], row["batch"]) \
+        == ("PingPong", "metrics", "cpu", 1)
+    rep = front.programs()
+    assert rep["count"] == 1 and rep["programs"] == [row]
+    assert rep["catalog"] == {"fleet": True, "files": 1, "durable": True}
 
 
 def test_entry_settled_after_the_snapshot_is_not_run_again(tmp_path):

@@ -14,7 +14,11 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "wittgenstein_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "wittgenstein_tpu")
+#: JAX, the JAX package, and the root scripts that belong to it: `bench.py`
+#: and `tools/` (imported as ``tools.<name>`` or, through ``sys.path``, as
+#: ``<name>``); the port's `cli/` keeps its own copies of what it needs
+FORBIDDEN = ("jax", "jaxlib", "flax", "wittgenstein_tpu", "tools", "bench",
+             *sorted(p.stem for p in (ROOT / "tools").glob("*.py")))
 
 
 def _imports(path):

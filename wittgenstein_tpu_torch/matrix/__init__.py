@@ -21,8 +21,9 @@ compile-key-minimal scheduling, one comparable report.
              coarse-bracket + bisection probe plan whose probes fork
              from shared memo prefixes and join the ledger.
 
-Surfaces: the `/w/matrix/*` routes of `server/http.py`.  The root CLIs
-(`tools/matrix.py`, `tools/search.py`) wait for ROADMAP.md A14b step 4.
+Surfaces: the `/w/matrix/*` routes of `server/http.py`, and the
+command lines `python -m wittgenstein_tpu_torch.cli.matrix` and
+`... cli.search` (the ports of `tools/matrix.py` and `tools/search.py`).
 """
 
 from .driver import MatrixRun, pick_spot_cells, run_grid, verify_cell  # noqa: F401

@@ -28,8 +28,10 @@ The host plane: `ledger` (`RunManifest` rows with the JAX package's
 digests), `spans` (`SpanRecorder`, the wall-time flight recorder) and
 `metrics` (`MetricsRegistry`, the Prometheus exposition behind ``GET
 /w/batch/metrics``), with `export.spans_to_perfetto` merging host spans
-and device lanes.  Not ported yet: `programs` and `regress` (ROADMAP.md
-A14b) and the sharded engine's monitors (A15).
+and device lanes; `programs` (`ProgramCatalog`: each served program's
+first-launch wall, working set on the card and kernel launches) and
+`regress` (`BenchHistory` and the bench-history gate).  Not ported yet:
+the sharded engine's monitors (ROADMAP.md A15).
 """
 
 from .audit import (INVARIANTS, AuditCarry, AuditSpec,  # noqa: F401

@@ -36,7 +36,7 @@ from .registry import ChunkProgram, CompileRegistry  # noqa: F401
 from .scheduler import (AdmissionError, ForkState, Request,  # noqa: F401
                         Scheduler, StaleCheckpointError, TenantPolicy,
                         WatchdogTimeout)
-from .service import FleetService, NotPorted, Service  # noqa: F401
+from .service import FleetService, Service  # noqa: F401
 from .spec import (ATTACK_KEYS, ENGINES, OBS_PLANES,  # noqa: F401
                    ROUTE_KERNELS, ScenarioSpec, int_env)
 
@@ -44,6 +44,6 @@ __all__ = ["ScenarioSpec", "ENGINES", "OBS_PLANES", "ROUTE_KERNELS",
            "ATTACK_KEYS", "int_env", "CompileRegistry", "ChunkProgram",
            "Scheduler", "Request", "ForkState", "TenantPolicy",
            "AdmissionError", "StaleCheckpointError", "WatchdogTimeout",
-           "Service", "FleetService", "NotPorted", "FleetWorker",
+           "Service", "FleetService", "FleetWorker",
            "fleet_paths", "spawn_worker", "SubmissionJournal",
            "LeaseTable", "Instrumentation"]

@@ -764,9 +764,12 @@ def main(argv=None) -> int:
                          "resolve search probes' memo_fork "
                          "instructions against it")
     ap.add_argument("--catalog", action="store_true",
-                    help="the program observatory catalog: not ported "
-                         "yet (ROADMAP.md A14b step 3), so this flag "
-                         "refuses")
+                    help="record the program observatory catalog to "
+                         "<dir>/programs-<worker>.jsonl (first-launch "
+                         "walls, working sets, kernel launches; report "
+                         "with python -m wittgenstein_tpu_torch.cli."
+                         "programs or GET /w/batch/programs on the "
+                         "front tier)")
     ap.add_argument("--device", default=None,
                     help="the device the worker's scheduler runs on "
                          "(default: cuda; 'cpu' runs the plain PyTorch "
@@ -777,12 +780,6 @@ def main(argv=None) -> int:
                          "DIR/digests-<worker>.jsonl (a copy of the state "
                          "to the host per request; off for campaigns)")
     args = ap.parse_args(argv)
-    if args.catalog:
-        from .service import NotPorted
-        raise NotPorted(
-            "--catalog: the program observatory (obs/programs.py) is "
-            "not ported yet (ROADMAP.md A14b step 3); run the worker "
-            "without it")
     # the protocol registry fills as the models import (server/core.py's
     # load_models, as server/http.py's main does)
     from ..core.state import resolve_device
@@ -802,10 +799,17 @@ def main(argv=None) -> int:
             span_path=os.path.join(args.timeline,
                                    f"spans-{args.worker_id}.jsonl"),
             worker=args.worker_id)
+    sched_kw = None
+    if args.catalog:
+        from ..obs.programs import ProgramCatalog
+        sched_kw = {"catalog": ProgramCatalog(
+            path=os.path.join(args.dir,
+                              f"programs-{args.worker_id}.jsonl"),
+            metrics=ins.metrics if ins is not None else None)}
     w = FleetWorker(args.dir, args.worker_id, lease_ttl_s=args.ttl,
                     dedup=not args.no_dedup, instrument=ins,
                     memo_table=args.memo_table, device=dev,
-                    digest_dir=args.state_digests)
+                    digest_dir=args.state_digests, scheduler_kw=sched_kw)
     # the start-up walls (module import to here, and the device's own
     # initialisation) on a line of their own: a parent reads them from
     # the worker's log even when the worker is killed later

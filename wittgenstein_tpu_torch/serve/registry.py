@@ -17,9 +17,15 @@ and the `registry_block()` equal the JAX package's for the same submits
 directory instead of the JAX compile cache).  ``persistent=`` and
 ``enable_persistent_cache`` select nothing; ``route_kernel`` (a
 program field of the spec) selects nothing either: the port has one
-binning kernel, K1 (`ops/route.py`).  A program catalog (``catalog=``,
-`obs/programs.py` of the JAX package) waits for the port's program
-observatory (ROADMAP.md A14b); until then ``catalog`` must be None.
+binning kernel, K1 (`ops/route.py`).
+
+With a `ProgramCatalog` attached (``catalog=``, default None: nothing
+imported, one is-None branch), every cold build stages its build facts
+(`record_build`) and the registry hands out `obs.programs.CatalogProgram`
+wrappers, for the per-plane programs and for a group's fused one: a
+program's first launch is measured (its wall, its working set on the
+card, each kernel's launches) and recorded, one row per (compile key,
+plane), and every later launch passes straight through.
 
 One pass a chunk for every plane.  The JAX scheduler advances the state
 with one plane's program and runs the other planes as shadow passes
@@ -277,17 +283,14 @@ class CompileRegistry:
 
     def __init__(self, persistent: bool = True, catalog=None,
                  device=None):
-        if catalog is not None:
-            raise ValueError(
-                "CompileRegistry(catalog=...): the program observatory "
-                "(obs/programs.py) is not ported yet (ROADMAP.md A14b); "
-                "run without a catalog")
         from ..ops._build import BUILD
         #: the port's analogue of the persistent compile cache: the
         #: directory `ops/_build.py` keeps the built kernels in
         #: (``persistent`` selects nothing: the cache is always on)
         self.cache_dir = BUILD
-        self.catalog = None
+        #: program observatory (obs/programs.ProgramCatalog; None = OFF,
+        #: the default: never imported, one is-None branch)
+        self.catalog = catalog
         #: where a program whose caller hands no protocol builds one
         #: (``cuda`` unless given; the scheduler always hands its own)
         self.device = device
@@ -319,10 +322,16 @@ class CompileRegistry:
         if plane is not None and plane not in PLANES:
             raise ValueError(f"unknown obs plane {plane!r}; known: "
                              "metrics trace audit (or None)")
+        cat = self.catalog
+        t_build = 0.0 if cat is None else cat.now()
         if proto is None:
             from ..core.state import resolve_device
             proto = spec.build_protocol(device=resolve_device(self.device))
         fn = ChunkProgram(spec, () if plane is None else (plane,), proto)
+        if cat is not None:
+            from ..obs.programs import CatalogProgram
+            cat.record_build(spec, plane, build_wall_s=cat.now() - t_build)
+            fn = CatalogProgram(fn, cat, spec.compile_key())
         self._programs[key] = fn
         return fn
 
@@ -338,6 +347,9 @@ class CompileRegistry:
         fn = self._fused.get(key)
         if fn is None:
             fn = ChunkProgram(spec, planes, programs[0].proto)
+            if self.catalog is not None:
+                from ..obs.programs import CatalogProgram
+                fn = CatalogProgram(fn, self.catalog, spec.compile_key())
             self._fused[key] = fn
         return fn
 

@@ -17,9 +17,9 @@ object.  JSON in, JSON out, every payload the JAX service's:
   registry_stats(), tenancy_stats(), memo_stats(), health(), metrics()
                      -> the `/w/batch/{registry,tenancy,memo,health,
                         metrics}` blocks
-  programs()         -> ``{"catalog": "off", ...}``: the program
-                        observatory is not ported yet, and this is what
-                        the JAX service answers without a catalog
+  programs()         -> the program observatory's report
+                        (`obs/programs.ProgramCatalog.report`), or
+                        ``{"catalog": "off", ...}`` without a catalog
   recover(), stream(id, after_ms, timeout_s)
 
 Sweep grids (`matrix/`) ride the same scheduler through the
@@ -38,10 +38,8 @@ drains explicitly via `run_pending()`.  The service's scheduler runs on
 
 `FleetService` is the front tier over a shared fleet directory
 (serve/fleet.py): the same JSON surface for the batch routes and the
-searches, backed by the journal, the lease table and the shared ledger.
-The program observatory is not ported yet (ROADMAP.md A14b step 3):
-where catalog files exist, `FleetService.programs` raises `NotPorted`,
-which the HTTP layer answers with 501 — never a silent no-op.
+searches, backed by the journal, the lease table and the shared ledger;
+its `programs` summarizes the workers' ``programs-*.jsonl`` catalogs.
 """
 
 from __future__ import annotations
@@ -52,13 +50,6 @@ import time
 
 from .scheduler import AdmissionError, Scheduler, TenantPolicy
 from .spec import ScenarioSpec
-
-
-class NotPorted(NotImplementedError):
-    """A request-plane entry point of the JAX package that the port does
-    not have yet; `http_status` is what `server/http.py` answers."""
-
-    http_status = 501
 
 
 @dataclasses.dataclass
@@ -223,10 +214,10 @@ class Service:
 
     def metrics(self) -> str:
         """GET /w/batch/metrics — Prometheus text exposition
-        (wittgenstein_tpu/serve/service.py:205-224, without the program
-        catalog): the counters project from the scheduler's own
-        monotone state and the finished searches' sums, with or without
-        an `Instrumentation`."""
+        (wittgenstein_tpu/serve/service.py:205-224): the counters
+        project from the scheduler's own monotone state, the finished
+        searches' sums and the program catalog when one is attached,
+        with or without an `Instrumentation`."""
         from ..obs.metrics import MetricsRegistry
         from .instrument import (refresh_scheduler_metrics,
                                  refresh_search_counters)
@@ -236,12 +227,21 @@ class Service:
         with self._matrix_mu:
             sc = dict(self._search_counters)
         refresh_search_counters(metrics, sc)
+        cat = getattr(self.scheduler, "catalog", None)
+        if cat is not None:
+            from ..obs.programs import refresh_catalog_metrics
+            refresh_catalog_metrics(metrics, cat)
         return metrics.exposition()
 
     def programs(self) -> dict:
-        """GET /w/batch/programs — the JAX service's answer when no
-        program catalog is attached (the port has none yet)."""
-        return {"catalog": "off", "programs": [], "count": 0}
+        """GET /w/batch/programs — the program observatory report
+        (obs/programs.ProgramCatalog.report): the program table, the
+        top compile-wall consumers and the working-set pass.
+        ``{"catalog": "off"}`` when no catalog is attached."""
+        cat = getattr(self.scheduler, "catalog", None)
+        if cat is None:
+            return {"catalog": "off", "programs": [], "count": 0}
+        return cat.report()
 
     def recover(self) -> dict:
         """Crash-only restart seam: replay group checkpoints, then the
@@ -748,26 +748,27 @@ class FleetService:
         return reg.exposition()
 
     def programs(self) -> dict:
-        """GET /w/batch/programs — the fleet's program observatory.  No
-        catalog rows under the shared directory = ``{"catalog": "off",
-        "fleet": True}``, the JAX front tier's answer.  Summarizing the
-        ``programs-*.jsonl`` catalogs of JAX workers launched with
-        ``--catalog`` waits for the port's program catalog (ROADMAP.md
-        A14b step 3): `NotPorted`, the HTTP layer's 501."""
+        """GET /w/batch/programs — the fleet's program observatory:
+        every worker's ``programs-*.jsonl`` catalog under the shared
+        directory (written by workers launched with ``--catalog``; a
+        JAX worker's rows read too), summarized as one cross-worker
+        table.  No catalog rows = ``{"catalog": "off"}``."""
         import glob
         import os
 
-        files = [f for f in sorted(glob.glob(os.path.join(
-            self.paths["dir"], "programs*.jsonl")))
-            if os.path.getsize(f)]
-        if not files:
+        from ..obs.programs import read_catalog, summarize_programs
+        files = sorted(glob.glob(os.path.join(self.paths["dir"],
+                                              "programs*.jsonl")))
+        rows = []
+        for f in files:
+            rows.extend(read_catalog(f))
+        if not rows:
             return {"catalog": "off", "programs": [], "count": 0,
                     "fleet": True}
-        raise NotPorted(
-            f"GET /w/batch/programs: {len(files)} program catalog "
-            "file(s) under the fleet directory, and summarizing them "
-            "waits for the port's program observatory (ROADMAP.md A14b "
-            "step 3)")
+        out = summarize_programs(rows)
+        out["catalog"] = {"fleet": True, "files": len(files),
+                          "durable": True}
+        return out
 
     def registry_stats(self) -> dict:
         """GET /w/batch/registry — numeric fields summed across the

@@ -54,11 +54,11 @@ service"; spec schema in serve/spec.py):
                                            histograms, registry hit/
                                            miss + program gauges
     GET  /w/batch/programs                 program observatory: per-
-                                           program compile walls,
-                                           memory/cost analysis,
-                                           cost-model drift (catalog
-                                           report; "off" when no
-                                           ProgramCatalog attached)
+                                           program first-launch walls,
+                                           memory blocks, kernel
+                                           launches, working-set ratios
+                                           (catalog report; "off" when
+                                           no ProgramCatalog attached)
     GET  /w/batch/stream/{id}              long-poll: blocks until the
                                            next chunk boundary, returns
                                            per-chunk totals + deltas
@@ -192,8 +192,8 @@ class _Handler(BaseHTTPRequestHandler):
         # the str return)
         ("GET", r"^/w/batch/metrics$",
          lambda s, m, b: s.batch.metrics()),
-        # program observatory (obs/programs.py): per-program compile
-        # walls, memory/cost analysis and cost-model drift — the
+        # program observatory (obs/programs.py): per-program first-
+        # launch walls, memory blocks and working-set ratios — the
         # report twin of the wtpu_program_* gauges on /w/batch/metrics
         ("GET", r"^/w/batch/programs$",
          lambda s, m, b: s.batch.programs()),
