@@ -287,6 +287,21 @@ M. the campaign planes (`matrix`, `serve/fleet.py`), on phase V's
    with them; its results are read at phase M.  ``--only-matrix``
    builds the kernels and runs phase M alone, M1, M3 and M2 one after
    another (M1's twin then misses the registry).
+Y. the analysis plane (`wittgenstein_tpu_torch/analysis`), after 5b on
+   a copy of 5b's headline batch at 200 ms: Y1 the host_sync,
+   carry_copy and dtype_leak rules over the headline's chunk (16 seeds x
+   2048 nodes, Y_MS ms at K=2 with phase hints, entry time read from
+   the card) through `AnalysisTarget.from_fn`, its host reads and
+   synchronising calls a simulated ms logged beside the card's name and
+   power limit; the op recorder's count of syncs must equal the
+   `torch.cuda.set_sync_debug_mode` count of the same chunk, its
+   recorded kernels the launch counters, and no ring plane be copied;
+   Y2 `python -m wittgenstein_tpu_torch.analysis --device cuda` over
+   every target against the checked-in budgets (the device-independent
+   metrics: host reads, carries, dtypes), exit 0, K1-K5 all launched;
+   Y3 every kernel's shared-memory model equal to the figure its
+   launcher computes (`rules_smem.card_check`).  ``--only-analysis``
+   builds the kernels and runs phase Y on the headline's initial batch.
 Z. the command lines (`wittgenstein_tpu_torch/cli`), called in this
    process through their ``main(argv)``: `cli.serve_bench` on
    PingPong(1000), 240 ms in 120-ms chunks, one seed, metrics and audit
@@ -1648,6 +1663,113 @@ def serve_load_run(dev):
     return dict(line, cli_wall_s=wall)
 
 
+# ------------------------------------------------------- the analysis rules
+
+#: phase Y's headline chunk: one schedule period of the 16-seed batch
+Y_MS = 20
+
+
+def analysis_phase(dev, state):
+    """Phase Y (module docstring): the analysis plane on the card.
+    `state` is the headline's 16-seed batch (phase 5b's, at 200 ms);
+    the rules run on copies of it.  Returns the phase's numbers."""
+    import io
+    import torch
+    from torch.utils import _pytree as pytree
+    from wittgenstein_tpu_torch.analysis import (__main__ as analysis_cli,
+                                                 framework, rules_smem)
+    from wittgenstein_tpu_torch.analysis.targets import AnalysisTarget
+    from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
+    from wittgenstein_tpu_torch.models.handel import (
+        Handel, reference_default_params)
+    out = {}
+    t_phase = time.perf_counter()
+    # Y1. host_sync, carry_copy and dtype_leak over the headline's chunk
+    # (K=2, phase hints, the entry time read from the card as a driver
+    # that does not pass it does)
+    proto = Handel(**reference_default_params(N_NODES), device=dev)
+    run = scan_chunk_batched(proto, Y_MS, t0_mod=0, superstep=2)
+    target = AnalysisTarget.from_fn("headline", run, state, device=dev,
+                                    ms=Y_MS)
+    reset_counters()
+    rec = target.recorder
+    launched = read_counters()
+    framework._install_rules()
+    findings = []
+    for name in ("host_sync", "carry_copy", "dtype_leak"):
+        findings += framework.RULES[name].run(target, {})
+    metrics = {f.metric: f.value for f in findings if f.metric}
+    bad = [f.message for f in findings if f.severity != "info"]
+    copy = pytree.tree_map(torch.clone, state)
+    syncs = sync_count(lambda: run(*copy))
+    del copy
+    recorded = {k.removeprefix("wtpu::"): v
+                for k, v in rec.kernel_launches().items()}
+    want = {"route": Y_MS // 2, "merge_queue": Y_MS,
+            "score_queue": Y_MS // 4}
+    if bad or metrics["plane_copies"] or syncs != rec.syncs or \
+            recorded != want or launched["route"] != 2 * want["route"]:
+        fail(f"Y1: headline chunk findings {bad}, metrics {metrics}, "
+             f"card syncs {syncs} against the recorder's {rec.syncs} "
+             f"(reads {[(o.name, o.site) for o in rec.host_reads]}, "
+             f"uploads {[(o.name, o.site) for o in rec.h2d_copies]}), "
+             f"recorded launches {recorded} (want {want}), counters "
+             f"{launched} over two chunks")
+    out["headline"] = dict(
+        ms=Y_MS, host_reads=len(rec.host_reads), syncs=syncs,
+        reads_per_ms=len(rec.host_reads) / Y_MS, syncs_per_ms=syncs / Y_MS,
+        h2d_copies=len(rec.h2d_copies), ops=len(rec.ops),
+        ops_per_ms=len(rec.ops) / Y_MS, launches=recorded,
+        **{k: metrics[k] for k in ("plane_copies", "boxcount_copies",
+                                   "copy_bytes", "int64_ops")})
+    log(f"Y1 headline chunk ({HEADLINE_SEEDS} x {N_NODES}, {Y_MS} ms, "
+        f"K=2, phase hints): {len(rec.host_reads)} host reads and {syncs} "
+        f"synchronising calls ({syncs / Y_MS} a simulated ms), "
+        f"{len(rec.ops)} ops, launches {recorded}, plane copies "
+        f"{metrics['plane_copies']}; {smi_line()}")
+    del target, rec
+    # Y2. the CLI over every target on the card, against the checked-in
+    # budgets (device-independent metrics only)
+    reset_counters()
+    t0 = time.perf_counter()
+    buf, err = io.StringIO(), io.StringIO()
+    path = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                        f"wtpu_analysis_{os.getpid()}.json")
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        code = analysis_cli.main(["--device", str(dev), "--json", path])
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        report = json.load(f)
+    os.remove(path)
+    launched = read_counters()
+    errors = [f"{x['rule']} {x['target']}: {x['message']}"
+              for x in report["findings"] if x["severity"] == "error"]
+    if code or errors or not all(launched.values()):
+        fail(f"Y2: analysis CLI exit {code}, errors {errors[:5]}, "
+             f"launches {launched}; {buf.getvalue()[-2000:]}")
+    reads = {x["target"]: x["value"] for x in report["findings"]
+             if x["metric"] == "transfer_ops"}
+    out["cli"] = dict(exit=code, wall_s=wall, targets=len(report["targets"]),
+                      launches=launched, transfer_ops=reads)
+    log(f"Y2 analysis CLI --device {dev}: exit {code}, "
+        f"{len(report['targets'])} targets x {len(report['rules'])} rules "
+        f"in {wall:.1f} s, launches {launched}; host reads a chunk "
+        f"{json.dumps(reads)}")
+    # Y3. every shared-memory model equals its launcher's figure
+    rows = rules_smem.card_check()
+    wrong = [r for r in rows if r[3] != r[4]]
+    if wrong:
+        fail(f"Y3: shared-memory models differ from their launchers: "
+             f"{wrong}")
+    out["smem"] = [dict(zip(("kernel", "shape", "part", "bytes"), r[:4]))
+                   for r in rows]
+    log(f"Y3 smem: {len(rows)} model figures equal their launchers' "
+        f"({', '.join(f'{r[0]} {r[1]} {r[2]} {r[3]}' for r in rows)})")
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------- main path
 
 
@@ -1923,7 +2045,8 @@ def check_headline_golden(golden, nets, ps):
 def headline_determinism(dev, first, digests, dense_final_np):
     """A second headline run to 200 ms: every seed equals the first run's
     state there (`first`); the first run's seed 0 at 1000 ms (`digests`)
-    equals the dense path's state of phase 3."""
+    equals the dense path's state of phase 3.  Returns the rerun's
+    state at 200 ms."""
     from wittgenstein_tpu_torch import convert
     from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
     from wittgenstein_tpu_torch.obs import (MetricsFrame, MetricsSpec,
@@ -1948,6 +2071,7 @@ def headline_determinism(dev, first, digests, dense_final_np):
         fail("headline seed 0 differs from the dense path's state at "
              f"{HEADLINE_MS} ms")
     log(f"headline seed 0 equals the dense path's state at {HEADLINE_MS} ms")
+    return res["state"]
 
 
 def pingpong_run(dev, ms=PP_MS, trace=None):
@@ -2518,7 +2642,9 @@ class plane_result:
 
 def sync_count(fn):
     """The synchronising CUDA calls fn() makes: the warnings
-    `torch.cuda.set_sync_debug_mode("warn")` raises during it."""
+    `torch.cuda.set_sync_debug_mode("warn")` raises during it for a
+    synchronising operation (not the mode's one-time notice that it is a
+    prototype, whose text also says "synchroniz")."""
     import warnings
 
     import torch
@@ -2531,7 +2657,8 @@ def sync_count(fn):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in seen)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in seen)
 
 
 def check_syncs(what, plain, plane, state, t):
@@ -2539,20 +2666,34 @@ def check_syncs(what, plain, plane, state, t):
     chunk from a copy of `state` (at time `t`) with the plane (`plane`)
     issues no more synchronising calls than without it (`plain`).  Each
     is run once untimed first, so that neither is charged with the
-    caching allocator's first growth (a cudaMalloc can synchronise)."""
+    caching allocator's first growth (a cudaMalloc can synchronise).
+    The counted runs run under the analysis plane's op recorder, whose
+    count of host reads and blocking copies must equal the card's."""
     import torch
     from torch.utils import _pytree as pytree
-    counts = []
-    for fn in (plain, plane, plain, plane):
+    from wittgenstein_tpu_torch.analysis.trace import OpRecorder
+    counts, recorded = [], []
+    for i, fn in enumerate((plain, plane, plain, plane)):
         copy = pytree.tree_map(torch.clone, state)
-        counts.append(sync_count(lambda: fn(*copy, t=t)))
+        rec = OpRecorder(device="cuda") if i >= 2 else \
+            contextlib.nullcontext()
+
+        def run():
+            with rec:
+                fn(*copy, t=t)
+        counts.append(sync_count(run))
+        recorded.append(getattr(rec, "syncs", None))
         del copy
-    counts = counts[2:]
+    counts, recorded = counts[2:], recorded[2:]
     if counts[1] > counts[0]:
         fail(f"{what}: the plane's chunk made {counts[1]} synchronising "
              f"calls over {SYNC_MS} ms, the engine's alone {counts[0]}")
+    if recorded != counts:
+        fail(f"{what}: the op recorder counted {recorded} synchronising "
+             f"ops (engine, plane), the card {counts}")
     log(f"{what}: {counts[1]} synchronising calls over {SYNC_MS} ms under "
-        f"the plane, {counts[0]} without")
+        f"the plane, {counts[0]} without (the op recorder's count "
+        "equal)")
 
 
 def state_totals(net):
@@ -5243,6 +5384,9 @@ def main(argv=None) -> int:
                     help="build, then phase M alone (on a registry of its "
                     "own: M1's twin is a miss), without the summary "
                     "lines")
+    ap.add_argument("--only-analysis", action="store_true",
+                    help="build, then phase Y alone on the headline's "
+                    "initial batch, without the summary lines")
     ap.add_argument("--only-tools", action="store_true",
                     help="build, then phase Z and cli.serve_load at 120 "
                     "requests, without the summary lines")
@@ -5303,6 +5447,12 @@ def main(argv=None) -> int:
             log(f"{key}: {json.dumps(res_)}")
         log(f"phase X: {time.perf_counter() - t0:.1f} s")
         done("X")
+        return 0
+    if args.only_analysis:
+        res_y = analysis_phase(dev, headline_init(dev)[1])
+        log(f"analysis: {json.dumps(res_y)}")
+        log(f"phase Y: {res_y['wall_s']:.1f} s")
+        done("Y")
         return 0
     if args.only_tools:
         t0 = time.perf_counter()
@@ -5384,9 +5534,16 @@ def main(argv=None) -> int:
     done("5")
 
     # 5b. against the reference and the dense path
-    headline_determinism(dev, hfirst, hdigests, final_np)
+    hstate = headline_determinism(dev, hfirst, hdigests, final_np)
 
     done("5b")
+
+    # Y. the analysis plane: the rules over the headline's chunk, the
+    # CLI over every target on the card, the shared-memory models
+    analysis = analysis_phase(dev, hstate)
+    del hstate
+    log(f"phase Y: {analysis['wall_s']:.1f} s")
+    done("Y")
 
     # 6. PingPong on the per-ms engine
     pres, plaunches, pdigests, _ = pingpong_run(dev)
@@ -5779,6 +5936,8 @@ def main(argv=None) -> int:
                       **{f"{k}_path": v[0] for k, v in matrix.items()},
                       "phase_m_wall_s": m_wall,
                       "tools": tools, "phase_z_wall_s": z_wall,
+                      "analysis": analysis,
+                      "phase_y_wall_s": analysis["wall_s"],
                       "memory": memory,
                       "profiles": profiles}),
           flush=True)

@@ -10,8 +10,9 @@ cardinal, Dfinity; 2 seeds), the seed-folded engine, the fast-forward
 engine with its jump events, the K-window ladder (events at their exact
 origin ms, equal to the K=1 ring), `Runner(trace=)` and `capture_trace`
 with the Perfetto exporter.  The planes add no host read: a traced
-chunk calls `_local_scalar_dense` (a tensor read to the host) and
-`nonzero` no more often than the untraced one.  The sharded twin waits
+chunk reads the device from the host (the analysis plane's op recorder,
+`wittgenstein_tpu_torch/analysis/trace.py`: items, `nonzero`,
+`tolist`, ...) no more often than the untraced one.  The sharded twin waits
 for the port's multi-device engine (ROADMAP.md A15).
 """
 
@@ -21,9 +22,9 @@ import numpy as np
 import pytest
 import torch
 import torch_parity as tp
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from wittgenstein_tpu_torch import obs
+from wittgenstein_tpu_torch.analysis.trace import host_reads
 from wittgenstein_tpu_torch.core.batched import scan_chunk_batched
 from wittgenstein_tpu_torch.core.network import (Runner, fast_forward_chunk,
                                                  scan_chunk)
@@ -48,27 +49,6 @@ def _same(a, b, what=""):
                            what)
 
 
-class HostReads(TorchDispatchMode):
-    """Counts the ops that read the device from the host: an item (a
-    tensor turned into a Python number, by `.item()` or by indexing with
-    a 0-d tensor) and `nonzero`."""
-
-    READS = ("aten::_local_scalar_dense", "aten::nonzero")
-
-    def __init__(self):
-        super().__init__()
-        self.count = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.name().split(".")[0] in self.READS:
-            self.count += 1
-        return func(*args, **(kwargs or {}))
-
-
-def host_reads(fn):
-    with HostReads() as mode:
-        fn()
-    return mode.count
 
 
 @pytest.mark.parametrize("name", ["PingPong", "Handel", "HandelCardinal",

@@ -21,13 +21,17 @@ Stages (the JAX stages' own specs):
                     the first launch round-trips one durable catalog
                     row, the registry and working-set gauges land on a
                     real-HTTP scrape, ``/w/batch/programs`` serves the
-                    report.
+                    report;
+  * analysis_smoke — the analysis plane's ``--source`` pass (the
+                    determinism, host-plane and shared-memory rules
+                    against the checked-in budgets) as a subprocess,
+                    the invocation CI uses; its wall under 60 s.
 
 The suite's four throughput lines (``pingpong_1000n``, ``gsf_4096n``,
 ``sanfermin_32768n``, ``dfinity_10k_validators``) are `bench_torch.py`'s
 (`bench_torch.py --history PATH` appends their history rows); the
-other JAX stages (trace, audit, matrix, tenancy, crash, fleet, search
-and analysis smoke) are not ported yet (ROADMAP.md A14d).
+other JAX stages (trace, audit, matrix, tenancy, crash, fleet and
+search smoke) are not ported yet (ROADMAP.md A14d).
 
 A stage that fails emits an ``"error"`` line instead of killing the
 suite (the root tool's convention: the exit code stays 0; the gate and
@@ -430,12 +434,45 @@ def bench_catalog_smoke(dev):
             "launches": launches, "platform": dev.type}
 
 
+def bench_analysis_smoke(dev):
+    """Analysis smoke stage: the whole ``--source`` pass as a
+    subprocess, the same invocation CI uses, so a budget regression or a
+    rule crash fails this stage.  The metric is the scan's wall (under
+    the 60-s smoke bound).  The source rules run no chunk: `dev` is
+    unused and the line's platform is the CPU, as the JAX stage's is."""
+    import os
+    import subprocess
+    import tempfile
+    import time
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "report.json")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "wittgenstein_tpu_torch.analysis",
+             "--source", "--json", out],
+            cwd=str(REPO), capture_output=True, text=True, timeout=300)
+        wall = time.monotonic() - t0
+        assert proc.returncode == 0, \
+            f"--source analysis failed:\n{proc.stdout}{proc.stderr}"
+        with open(out) as fh:
+            payload = json.load(fh)
+    assert payload["ok"], payload
+    assert wall < 60.0, f"source scan took {wall:.1f}s (budget 60s)"
+    return {"metric": "analysis_smoke_wall_s",
+            "value": round(wall, 2), "unit": "s",
+            "schema": payload["schema"], "rules": payload["rules"],
+            "n_findings": len(payload["findings"]),
+            "platform": "cpu"}
+
+
 CONFIGS = {
     "serve_smoke": bench_serve_smoke,
     "chaos_smoke": bench_chaos_smoke,
     "memo_smoke": bench_memo_smoke,
     "spans_smoke": bench_spans_smoke,
     "catalog_smoke": bench_catalog_smoke,
+    "analysis_smoke": bench_analysis_smoke,
 }
 
 # The error path must emit the SAME metric name as the success path, or
@@ -444,14 +481,15 @@ METRIC_NAMES = {"serve_smoke": "serve_smoke_requests",
                 "chaos_smoke": "chaos_smoke_lost_msgs",
                 "memo_smoke": "memo_smoke_prefix_chunks_saved",
                 "spans_smoke": "spans_smoke_spans",
-                "catalog_smoke": "catalog_smoke_programs"}
+                "catalog_smoke": "catalog_smoke_programs",
+                "analysis_smoke": "analysis_smoke_wall_s"}
 
 
 def _stage_spec(name):
     """Each stage's static config as a `ScenarioSpec` (the JAX suite's
     table for these stages, so the two packages' history rows share
     config digests); None for a stage the table does not list
-    (spans_smoke, as in the JAX suite)."""
+    (spans_smoke and analysis_smoke, as in the JAX suite)."""
     from ..serve.spec import ScenarioSpec
     table = {
         "serve_smoke": dict(

@@ -63,8 +63,11 @@ def _on(device, key: str, make, owner=None):
 
 
 def isqrt(v):
-    """Exact integer square root of non-negative int64 values."""
-    r = torch.sqrt(v.to(torch.float64)).floor().to(torch.int64)
+    """Exact integer square root of non-negative int64 values below
+    2**24 (a torus distance squared is below 2**21): the float32 root
+    of such a value is within one of the integer root, which the two
+    steps below correct, so no 64-bit float enters the step."""
+    r = torch.sqrt(v.to(torch.float32)).floor().to(torch.int64)
     r = r - (r * r > v).to(torch.int64)
     return r + ((r + 1) * (r + 1) <= v).to(torch.int64)
 

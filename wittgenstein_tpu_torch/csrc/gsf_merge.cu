@@ -131,7 +131,16 @@ gsf_merge_kernel(const int* __restrict__ q_from,
   }
 }
 
+// The dynamic shared memory of a block: the node's W-word OR-delta.
+// wtpu_gsf_merge launches with it, and wtpu_gsf_merge_smem exports it.
+size_t launch_smem(int W) { return (size_t)W * sizeof(unsigned); }
+
 }  // namespace
+
+// The launcher's shared-memory figure (launch_smem).
+extern "C" long long wtpu_gsf_merge_smem(int W) {
+  return (long long)launch_smem(W);
+}
 
 extern "C" int wtpu_gsf_merge(const int* q_from, const int* q_lvl,
                               const unsigned char* q_indiv,
@@ -145,7 +154,7 @@ extern "C" int wtpu_gsf_merge(const int* q_from, const int* q_lvl,
                               void* stream) {
   if (M == 0) return 0;
   if (Q + 2 * S > THREADS - 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)W * sizeof(unsigned);
+  const size_t smem = launch_smem(W);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         gsf_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

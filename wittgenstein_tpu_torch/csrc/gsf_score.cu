@@ -241,7 +241,24 @@ gsf_score_kernel(const unsigned* __restrict__ q_sig,
   }
 }
 
+// The staged kernel's dynamic shared memory for Q entries of W words a
+// row (0: the unstaged kernel, which takes none); `aligned` says whether
+// the q_sig, verified and ver_indiv rows are 16-byte aligned.
+// wtpu_gsf_score launches with it, and wtpu_gsf_score_smem exports it.
+size_t launch_smem(int Q, int W, bool aligned) {
+  const long long row = 4LL * W;
+  if (!(W > 0 && W % 4 == 0 && aligned && 3 * row <= STAGE_MAX)) return 0;
+  const int qc = (int)std::min<long long>(std::min(Q, 32),
+                                          STAGE_MAX / row - 2);
+  return (size_t)WARPS * STAGES * (qc + 2) * row;
+}
+
 }  // namespace
+
+// The launcher's shared-memory figure for aligned rows (launch_smem).
+extern "C" long long wtpu_gsf_score_smem(int Q, int W) {
+  return (long long)launch_smem(Q, W, true);
+}
 
 extern "C" int wtpu_gsf_score(const unsigned* q_sig, const int* q_lvl,
                               const int* ids, const unsigned* ver,
@@ -252,14 +269,14 @@ extern "C" int wtpu_gsf_score(const unsigned* q_sig, const int* q_lvl,
   if ((long long)M * Q == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long row = 4LL * W;
-  const bool bulk = W > 0 && W % 4 == 0 && aligned16(q_sig) &&
-                    aligned16(ver) && aligned16(ind) && 3 * row <= STAGE_MAX;
+  const size_t smem =
+      launch_smem(Q, W, aligned16(q_sig) && aligned16(ver) && aligned16(ind));
+  const bool bulk = smem > 0;
   const unsigned node_blocks = (unsigned)((M + WARPS - 1) / WARPS);
   cudaError_t e;
   if (bulk) {
     const int qc = (int)std::min<long long>(std::min(Q, 32),
                                             STAGE_MAX / row - 2);
-    const size_t smem = (size_t)WARPS * STAGES * (qc + 2) * row;
     const void* fn = (const void*)gsf_score_kernel<true>;
     if (smem > 32 * 1024) {
       e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -226,7 +226,19 @@ merge_kernel(const int* __restrict__ q_from, const int* __restrict__ q_lvl,
   }
 }
 
+// A warp's shared memory: the position map and, on the wide path
+// (Q + S > 32), seven candidate arrays; 16-byte aligned.  wtpu_merge
+// launches WARPS of them, and wtpu_merge_smem exports the figure.
+int warp_smem(int Q, int S) {
+  return (4 * Q + (Q + S > 32 ? 7 * 4 * (Q + S) : 0) + 15) & ~15;
+}
+
 }  // namespace
+
+// The launcher's shared-memory figure (WARPS x warp_smem).
+extern "C" long long wtpu_merge_smem(int Q, int S) {
+  return (long long)WARPS * warp_smem(Q, S);
+}
 
 extern "C" int wtpu_merge(const int* q_from, const int* q_lvl,
                           const int* q_rank, const unsigned char* q_bad,
@@ -244,9 +256,7 @@ extern "C" int wtpu_merge(const int* q_from, const int* q_lvl,
   // The vector gather needs 16-byte rows and addresses.
   const bool vec = W > 0 && W % 4 == 0 && aligned16(q_sig) &&
                    aligned16(sig_all) && aligned16(o_sig);
-  // A warp's shared memory: the position map and, on the wide path,
-  // seven candidate arrays; 16-byte aligned.
-  const int warp_bytes = (4 * Q + (wide ? 7 * 4 * C : 0) + 15) & ~15;
+  const int warp_bytes = warp_smem(Q, S);
   const size_t smem = (size_t)WARPS * warp_bytes;
   const void* fn = wide ? (const void*)merge_kernel<true>
                         : (const void*)merge_kernel<false>;

@@ -374,6 +374,16 @@ Dims dims(int M, int H, int N) {
   return d;
 }
 
+// The dynamic shared memory the launches take: part 0 the bucket
+// kernel's, part 1 the rank kernel's (0 where its tables are in device
+// scratch); part 2 is 1 where the rank tables sit in shared memory.
+// wtpu_route launches with it, and wtpu_route_smem exports it.
+size_t launch_smem(const Dims& d, int part) {
+  if (part == 0) return bucket_smem(d.B);
+  if (part == 1) return d.tables_in_smem ? rank_tables(d.CB) : 0;
+  return d.tables_in_smem ? 1 : 0;
+}
+
 // Dynamic shared memory past 48 KB, static included, must be asked for.
 cudaError_t allow_smem(const void* fn, size_t bytes) {
   if (bytes <= 32 * 1024) return cudaSuccess;
@@ -395,6 +405,11 @@ extern "C" long long wtpu_route_scratch(int R, int M, int F, int H, int N) {
   return n;
 }
 
+// The launcher's shared-memory figure for these shapes (see launch_smem).
+extern "C" long long wtpu_route_smem(int M, int H, int N, int part) {
+  return (long long)launch_smem(dims(M, H, N), part);
+}
+
 extern "C" int wtpu_route(const int* arrival, const int* dest,
                           const unsigned char* valid,
                           const int* msrc, const int* msize, const int* pay,
@@ -412,7 +427,7 @@ extern "C" int wtpu_route(const int* arrival, const int* dest,
   const size_t nl = (size_t)R * d.T * TILE;
   const Lists lists = {p, p + nl, p + 2 * nl, p + 3 * nl, p + 4 * nl, nl};
   int* off = p + (4 + (size_t)F) * nl;
-  const size_t sm1 = bucket_smem(d.B);
+  const size_t sm1 = launch_smem(d, 0);
   cudaError_t e = allow_smem((const void*)route_bucket_kernel, sm1);
   if (e != cudaSuccess) return (int)e;
   route_bucket_kernel<<<dim3(d.T, R), TILE, sm1, s>>>(
@@ -420,7 +435,7 @@ extern "C" int wtpu_route(const int* arrival, const int* dest,
       F, H, N, d.CB, d.B, d.T);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t sm2 = d.tables_in_smem ? rank_tables(d.CB) : 0;
+  const size_t sm2 = launch_smem(d, 1);
   e = allow_smem((const void*)route_rank_kernel, sm2);
   if (e != cudaSuccess) return (int)e;
   route_rank_kernel<<<dim3(d.B, R), RT, sm2, s>>>(

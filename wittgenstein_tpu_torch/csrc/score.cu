@@ -254,7 +254,19 @@ score_kernel(const unsigned* __restrict__ q_sig, const int* __restrict__ q_lvl,
   }
 }
 
+// The kernel takes no dynamic shared memory (its warp state is in
+// registers); wtpu_score launches with this figure, and
+// wtpu_score_smem exports it.
+size_t launch_smem() { return 0; }
+
 }  // namespace
+
+// The launcher's shared-memory figure (launch_smem).
+extern "C" long long wtpu_score_smem(int Q, int W) {
+  (void)Q;
+  (void)W;
+  return (long long)launch_smem();
+}
 
 extern "C" int wtpu_score(const unsigned* q_sig, const int* q_lvl,
                           const int* ids, const unsigned* inc,
@@ -286,12 +298,13 @@ extern "C" int wtpu_score(const unsigned* q_sig, const int* q_lvl,
   const long long warps = (long long)M << lg_nw;
   const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
   const cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = launch_smem();
   if (vec)
-    score_kernel<true><<<blocks, THREADS, 0, s>>>(
+    score_kernel<true><<<blocks, THREADS, smem, s>>>(
         q_sig, q_lvl, ids, inc, ver, agg, s_inc, pc_sig, pc_sv, inter_agg, M,
         Q, W, ew, lg_nw, lg_l);
   else
-    score_kernel<false><<<blocks, THREADS, 0, s>>>(
+    score_kernel<false><<<blocks, THREADS, smem, s>>>(
         q_sig, q_lvl, ids, inc, ver, agg, s_inc, pc_sig, pc_sv, inter_agg, M,
         Q, W, ew, 0, 5);
   return (int)cudaGetLastError();

@@ -52,10 +52,31 @@ SIGNATURES = {
     # q_sig, q_lvl, ids, verified, ver_indiv, ver_l_card, card_sig, inter,
     # pc_wi, pc_wv, inter_ind, M, Q, W, stream
     "wtpu_gsf_score": [P] * 11 + [I] * 3 + [P],
+    # the launchers' dynamic shared memory in bytes (csrc `launch_smem`):
+    # M, H, N, part (0 bucket kernel, 1 rank kernel, 2 tables in smem)
+    "wtpu_route_smem": [I] * 4,
+    "wtpu_merge_smem": [I] * 2,         # Q, S
+    "wtpu_score_smem": [I] * 2,         # Q, W
+    "wtpu_gsf_merge_smem": [I],         # W
+    "wtpu_gsf_score_smem": [I] * 2,     # Q, W (16-byte aligned rows)
 }
 
 #: entry points that return something else than an error code
-RESTYPES = {"wtpu_route_scratch": ctypes.c_longlong}
+RESTYPES = {name: ctypes.c_longlong for name in SIGNATURES
+            if name.endswith(("_scratch", "_smem"))}
+
+#: shared memory a block may opt in to on sm_90 (H100): 227 KB
+SMEM_OPTIN = 227 * 1024
+
+
+def check_smem(kernel: str, nbytes: int) -> None:
+    """Refuse, before the launch, a shape whose dynamic shared memory
+    (the kernel's Python model, `ops/<kernel>.smem_bytes`) does not fit
+    a block's opt-in limit: the launch would fail on the card."""
+    if nbytes > SMEM_OPTIN:
+        raise ValueError(f"{kernel}: these shapes need {nbytes} bytes of "
+                         f"shared memory a block, over the {SMEM_OPTIN}-"
+                         "byte opt-in limit of sm_90")
 
 _lock = threading.Lock()
 _lib = None

@@ -106,6 +106,14 @@ def _check(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
     _refuse_wide(q, s)
 
 
+def smem_bytes(w: int) -> dict:
+    """The dynamic shared memory `csrc/gsf_merge.cu` launches with
+    (`launch_smem` there): a node's W-word OR-delta.  Past the opt-in
+    limit (W > 58,112 words, 1.86M nodes) the wrapper refuses the shape
+    before the launch (`_build.check_smem`)."""
+    return {"gsf_merge_kernel": 4 * w, "branch": "one"}
+
+
 def _gsf_merge(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
                ind_ok, sig_all, levels):
     _check(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
@@ -118,6 +126,7 @@ def _gsf_merge(q_from, q_lvl, q_indiv, ex_keep, q_sig, src, level, agg_ok,
     m, q = q_from.shape
     s = src.shape[1]
     w = q_sig.shape[-1]
+    _build.check_smem("gsf_merge", smem_bytes(w)["gsf_merge_kernel"])
     o_from, o_lvl = torch.empty_like(q_from), torch.empty_like(q_lvl)
     o_indiv = torch.empty_like(q_indiv)
     o_sig = torch.empty_like(q_sig)

@@ -23,6 +23,20 @@ from . import _build
 
 I32 = torch.int32
 
+_WARPS = 8               # csrc/merge.cu: nodes a block
+
+
+def smem_bytes(q: int, s: int) -> dict:
+    """The dynamic shared memory `csrc/merge.cu` launches with
+    (`warp_smem` there): a warp's position map and, on the wide path
+    (Q + S > 32), seven candidate arrays, 16-byte aligned, for each of
+    the block's warps; and the branch (the kernel's wide or narrow
+    instance)."""
+    c = q + s
+    warp = (4 * q + (7 * 4 * c if c > 32 else 0) + 15) & ~15
+    return {"merge_kernel": _WARPS * warp,
+            "branch": "wide" if c > 32 else "narrow"}
+
 
 def merge_queue_plain(q_from, q_lvl, q_rank, q_bad, q_sig, src, level,
                       rank_all, ok, sig_all, seeds=None):

@@ -26,6 +26,29 @@ from . import _build
 I32 = torch.int32
 BIG = 0x7FFFFFFF
 
+# csrc/route.cu's launch geometry (`dims`)
+_CB_MIN = 4096           # cells per bucket, at least
+_MAX_B = 2048            # buckets, at most
+_RANK_WARPS = 512 // 32  # rank-kernel warps
+_RANK_SMEM = 96 * 1024   # rank tables in shared memory up to this size
+
+
+def smem_bytes(m: int, h: int, n: int) -> dict:
+    """The dynamic shared memory `csrc/route.cu` launches with for M
+    messages into an [H, N] ring (`dims`, `bucket_smem`, `rank_tables`,
+    `launch_smem` there; M sets only the grid): each kernel's bytes,
+    and the branch its rank kernel takes — its count tables in shared
+    memory up to 96 KB, else in device scratch (T3, G32)."""
+    cells = h * n
+    cb = -(-cells // _MAX_B)
+    cb = _CB_MIN if cb < _CB_MIN else (cb + 15) // 16 * 16
+    b = -(-cells // cb) if cells > 0 else 1
+    tables = cb * (4 + _RANK_WARPS)
+    in_smem = tables <= _RANK_SMEM
+    return {"route_bucket_kernel": b * (32 * 2 + 4),
+            "route_rank_kernel": tables if in_smem else 0,
+            "branch": "tables_in_smem" if in_smem else "tables_in_scratch"}
+
 
 def bin_into_ring_plain(data, src, size, count, arrival, dest, msrc, msize,
                         payload, valid):

@@ -29,6 +29,31 @@ from .merge import folded_vmap
 
 I32 = torch.int32
 
+# csrc/gsf_score.cu's staging
+_GSF_WARPS = 4
+_GSF_STAGES = 2
+_STAGE_MAX = 5 * 1024
+
+
+def smem_bytes(q: int, w: int) -> dict:
+    """`csrc/score.cu` launches with no dynamic shared memory (a warp's
+    state is in registers), at every shape."""
+    return {"score_kernel": 0, "branch": "registers"}
+
+
+def gsf_smem_bytes(q: int, w: int) -> dict:
+    """The dynamic shared memory `csrc/gsf_score.cu` launches with for Q
+    entries of W words (`launch_smem` there, rows 16-byte aligned): the
+    staged kernel's ring of stages while three rows fit a 5-KB stage,
+    else none, and the branch — ``staged`` or ``unstaged`` (G32's
+    W 1,024)."""
+    row = 4 * w
+    if not (w > 0 and w % 4 == 0 and 3 * row <= _STAGE_MAX):
+        return {"gsf_score_kernel": 0, "branch": "unstaged"}
+    qc = min(min(q, 32), _STAGE_MAX // row - 2)
+    return {"gsf_score_kernel": _GSF_WARPS * _GSF_STAGES * (qc + 2) * row,
+            "branch": "staged"}
+
 
 def score_queue_plain(q_sig, q_lvl, ids, total_inc, ver_ind, last_agg):
     """Plain PyTorch scoring (wittgenstein_tpu/models/handel.py:638-647)."""
